@@ -2,11 +2,12 @@
 load generator (``kube_gpu_stats_tpu/loadgen/pallas_burn.py``).
 
 ``tiled_matmul`` computes f32 ``a @ b`` for bf16 ``a`` and ``b`` through the
-sm_90a tiled GEMM in ``csrc/tiled_gemm.cu``, under the Pallas kernel's
-contract: dims are multiples of 128, the public tile sizes snap to
-128-multiple divisors and are validated by the same rules, and a bad shape
-raises ``ValueError``. The tiles are validated for parity only: the Hopper
-kernel's own block shape (128x128, K in chunks of 32) is its own.
+sm_90a GEMM in ``csrc/tiled_gemm.cu`` (wgmma, a 4- or 6-stage TMA/mbarrier
+ring, persistent blocks), under the Pallas kernel's contract: dims are
+multiples of 128, the public tile sizes snap to 128-multiple divisors and
+are validated by the same rules, and a bad shape raises ``ValueError``. The
+tiles are validated for parity only: the Hopper kernel picks its own block
+shape, 128x256 or 128x128 (``gemm_plan``).
 
 A CPU tensor takes the plain version, ``tiled_matmul_reference``; a CUDA
 tensor launches the kernel or raises.
@@ -24,6 +25,9 @@ from ..device import is_hopper, per_device
 
 # Kernel launches since the counter was last set to 0 (one per launch).
 launches = 0
+
+# M blocks per group of the kernel's tile order (kGroupM in the source).
+GROUP_M = 8
 
 
 def _snap_tile(requested: int, dim: int) -> int:
@@ -62,6 +66,47 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, *, tile_m: int = 256,
     if a.device.type == "cpu":
         return tiled_matmul_reference(a, b)
     return _launch(a, b)
+
+
+def gemm_plan(m: int, n: int, sms: int) -> tuple[int, int]:
+    """(block_n, grid) the kernel launches with for an (m, k) @ (k, n)
+    product on a card of ``sms`` SMs: the mirror of ``gemm_plan`` in
+    ``csrc/tiled_gemm.cu``, which ``kernel_plan`` asks on the card.
+
+    Block tiles are 128 x block_n; the grid is persistent, at most one block
+    per SM. The 256-wide instance needs n % 256 == 0 and is taken unless its
+    tiles, twice the work each, would leave its busiest block more than half
+    the 128-wide instance's share to do (1024^3: 32 tiles against 64)."""
+    tiles_128 = m // 128 * (n // 128)
+    tiles_256 = 0 if n % 256 else m // 128 * (n // 256)
+    wide = tiles_256 > 0 and 2 * -(-tiles_256 // sms) <= -(-tiles_128 // sms)
+    tiles = tiles_256 if wide else tiles_128
+    return (256 if wide else 128), min(tiles, sms)
+
+
+def tile_coords(t: int, num_m: int, num_n: int) -> tuple[int, int]:
+    """(m_blk, n_blk) of tile ``t`` in the kernel's grouped order: GROUP_M
+    M blocks at a time, each group walked column by column. Block ``b`` of
+    the persistent grid takes tiles b, b + grid, b + 2 * grid, ..."""
+    per_group = GROUP_M * num_n
+    first_m = t // per_group * GROUP_M
+    rows = min(num_m - first_m, GROUP_M)
+    r = t % per_group
+    return first_m + r % rows, r // rows
+
+
+def kernel_plan(m: int, n: int, sms: int) -> tuple[int, int]:
+    """The compiled kernel's own (block_n, grid), to hold ``gemm_plan``
+    against on the card."""
+    fn = _build.load_library().kts_tiled_gemm_plan
+    fn.argtypes = (ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int))
+    fn.restype = ctypes.c_int
+    block_n, grid = ctypes.c_int(), ctypes.c_int()
+    rc = fn(m, n, sms, ctypes.byref(block_n), ctypes.byref(grid))
+    if rc != 0:
+        raise ValueError(f"no plan for m={m}, n={n}: CUDA error {rc}")
+    return block_n.value, grid.value
 
 
 @functools.cache

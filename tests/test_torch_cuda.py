@@ -30,24 +30,51 @@ def _randn(shape, seed, device):
                        dtype=torch.bfloat16)
 
 
+def _assert_matches_plain(got, a, b):
+    want = tiled_burn.tiled_matmul_reference(a, b)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    # Same exact bf16 products, f32 sums in another order.
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-4 * scale
+
+
 @pytest.mark.parametrize("m,k,n,tiles", [
     (256, 512, 384, dict(tile_m=128, tile_n=128, tile_k=128)),
     (128, 1024, 128, dict(tile_m=128, tile_n=128, tile_k=256)),
-    (384, 384, 384, {}),
+    (384, 384, 384, {}),      # the 128-wide instance
     (1024, 2048, 512, {}),
+    (128, 128, 128, {}),      # K shorter than the ring
+    # 9 x 10 tiles of 128 x 128 on a partial wave; 10 K stages, not a
+    # multiple of the ring's 6
+    (1152, 640, 1280, {}),
+    # 512 wide tiles on 132 blocks: the ring's barrier phases carry on
+    # across the tiles of a block
+    (4096, 4096, 4096, {}),
 ])
 def test_kernel_matches_plain_version(card, m, k, n, tiles):
     a = _randn((m, k), 0, card)
     b = _randn((k, n), 1, card)
     before = tiled_burn.launches
     got = tiled_burn.tiled_matmul(a, b, **tiles)
-    want = tiled_burn.tiled_matmul_reference(a, b)
-    torch.cuda.synchronize()
     assert tiled_burn.launches == before + 1
-    assert got.dtype == torch.float32 and got.shape == (m, n)
-    # Same exact bf16 products, f32 sums in another order.
-    scale = want.abs().max().item()
-    assert (got - want).abs().max().item() <= 1e-4 * scale
+    _assert_matches_plain(got, a, b)
+
+
+def test_back_to_back_launches_on_new_inputs(card):
+    pairs = [(_randn((2048, 1024), 2 + i, card),
+              _randn((1024, 1536), 4 + i, card)) for i in range(2)]
+    outs = [tiled_burn.tiled_matmul(a, b) for a, b in pairs]
+    for (a, b), got in zip(pairs, outs):
+        _assert_matches_plain(got, a, b)
+
+
+def test_plan_mirror_matches_the_kernel(card):
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for m, n in [(128, 128), (384, 384), (1024, 1024), (1152, 1280),
+                 (2048, 1536), (4096, 4096), (8192, 8192)]:
+        assert tiled_burn.kernel_plan(m, n, sms) == tiled_burn.gemm_plan(
+            m, n, sms)
 
 
 def test_kernel_rejects_what_it_cannot_take(card):
