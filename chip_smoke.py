@@ -25,10 +25,17 @@ prints its result line after one):
 5. trace 100 steps of the ``cuda`` burn at size 4096 with torch.profiler:
    device time per step by kernel, and the device's busy share;
 6. ``entry()`` once on the card;
-7. time the kernel, its plain version and one library call
+7. the embedded exporter: ``python -m kube_gpu_stats_tpu_torch.loadgen
+   --kernel cuda --size 4096 --embedded-port 0`` as a subprocess, its
+   ``/metrics`` scraped while it burns (per-card steps, MFU, peak FLOPs,
+   memory) and its ``/healthz``; then the same burn in this process under
+   ``embedded.start(0)`` with ``step_hook=exporter.record_step`` (launch
+   counter set to 0 before, read after), its exported counters held
+   against the burn's own, and the burn without the exporter beside it;
+8. time the kernel, its plain version and one library call
    (``torch.mm`` with f32 out) at the main path's and the sweep's sizes,
    each as the median of batches of back-to-back calls;
-8. one JSON line describing every kernel of the path; last, the ``ok``
+9. one JSON line describing every kernel of the path; last, the ``ok``
    line with the device.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
@@ -39,14 +46,19 @@ from __future__ import annotations
 import collections
 import json
 import math
+import pathlib
+import queue
+import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 
 import torch
 
-from kube_gpu_stats_tpu_torch import _build
+from kube_gpu_stats_tpu_torch import _build, embedded, schema
 from kube_gpu_stats_tpu_torch.embedded import _kind_lookup, _kind_peak_flops
 from kube_gpu_stats_tpu_torch.entry import entry
 from kube_gpu_stats_tpu_torch.loadgen import tiled_burn
@@ -78,6 +90,14 @@ SAMPLE_MS = 200
 # peak FLOP/s comes from the port's own device-kind table.
 HBM_BYTES_PER_S = (("h100 nvl", 3.9e12), ("h100 pcie", 2.0e12),
                    ("h100", 3.35e12))
+# The embedded phase: the CLI's burn length, the wait between its scrapes
+# (the poll loop ticks at 1 Hz), and how long the CLI may take to come up.
+EMBEDDED_SECONDS = 8.0
+SCRAPE_GAP_S = 1.5
+CLI_START_S = 180.0
+# MFU may read a little over 100 where a tick window's FLOPs land late.
+MFU_MAX = 105.0
+ROOT = pathlib.Path(__file__).resolve().parent
 KERNEL_NAME = "tiled_gemm_bf16_f32"
 KERNEL_SOURCE = "kube_gpu_stats_tpu_torch/csrc/tiled_gemm.cu"
 KERNEL_REPLACES = "kube_gpu_stats_tpu/loadgen/pallas_burn.py:46"
@@ -289,8 +309,8 @@ class StepCounter:
         self.flops += flops
 
 
-def run_main_burn(kernel: str, depth: int) -> tuple[int, int]:
-    """One run_burn at MAIN_SIZE; returns (steps, devices)."""
+def run_main_burn(kernel: str, depth: int) -> tuple[int, int, float]:
+    """One run_burn at MAIN_SIZE; returns (steps, devices, steps/s)."""
     hook = StepCounter()
     result: dict = {}
     with CardSampler() as sampler:
@@ -313,13 +333,14 @@ def run_main_burn(kernel: str, depth: int) -> tuple[int, int]:
     require(math.isclose(hook.flops, per_step * steps, rel_tol=1e-12),
             f"{kernel}: hook FLOPs {hook.flops} != {per_step} x {steps}")
     require(result["tflops_per_s"] > 0, f"{kernel}: no throughput")
-    return steps, result["devices"]
+    return steps, result["devices"], result["steps_per_s"]
 
 
-def phase_main_path() -> int:
-    """The port's main path; returns the kernel launches it made."""
+def phase_main_path() -> tuple[int, float]:
+    """The port's main path; returns the kernel launches it made and the
+    ``cuda`` burn's steps/s."""
     tiled_burn.launches = 0
-    steps, n_devices = run_main_burn("cuda", TORCH_DEPTH)
+    steps, n_devices, cuda_steps_per_s = run_main_burn("cuda", TORCH_DEPTH)
     cuda_launches = tiled_burn.launches
     run_main_burn("torch", TORCH_DEPTH)
     torch_launches = tiled_burn.launches - cuda_launches
@@ -359,7 +380,7 @@ def phase_main_path() -> int:
         require(bool(torch.isfinite(out.float()).all()),
                 "torch chain output not finite")
     emit("step_outputs", "ok")
-    return launches
+    return launches, cuda_steps_per_s
 
 
 def phase_trace() -> None:
@@ -403,6 +424,276 @@ def phase_entry() -> None:
     require(bool(torch.isfinite(y.float()).all()), "entry output not finite")
     emit("entry", {"shape": list(y.shape), "dtype": str(y.dtype)})
 
+
+_SERIES = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$')
+_LABEL = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+
+
+def parse_metrics(text: str) -> list[tuple[str, dict, float]]:
+    """(name, labels, value) for every sample line of a Prometheus text
+    exposition."""
+    out = []
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        match = _SERIES.match(line)
+        require(match is not None, f"unparsable exposition line {line!r}")
+        name, labels, value = match.groups()
+        out.append((name, dict(_LABEL.findall(labels or "")), float(value)))
+    return out
+
+
+def scrape(port: int, path: str = "/metrics") -> str:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=10) as resp:
+        require(resp.status == 200, f"{path} answered {resp.status}")
+        return resp.read().decode()
+
+
+def per_card(series, name: str) -> dict[int, float]:
+    """chip index -> value of one per-device family."""
+    return {int(labels["chip"]): value
+            for family, labels, value in series if family == name}
+
+
+def one(series, name: str) -> float:
+    values = [value for family, _, value in series if family == name]
+    require(len(values) == 1, f"{name}: {len(values)} series")
+    return values[0]
+
+
+def check_card_families(series, n_cards: int) -> dict:
+    """What the embedded exporter must serve for every card during the
+    ``cuda`` burn at MAIN_SIZE; returns chip -> steps."""
+    ups = [labels for family, labels, value in series
+           if family == schema.DEVICE_UP.name and value == 1.0]
+    require(len(ups) == n_cards, f"{len(ups)} accelerator_up series at 1 "
+            f"for {n_cards} cards")
+    for labels in ups:
+        require(labels["accel_type"] == "gpu-h100",
+                f"accel_type {labels['accel_type']!r}")
+        require(labels["device_path"].startswith("/dev/nvidia"),
+                f"device_path {labels['device_path']!r}")
+    info = [labels for family, labels, _ in series
+            if family == schema.SELF_INFO.name]
+    require(len(info) == 1 and info[0]["backend"] == "torch-embedded",
+            f"exporter info {info}")
+    steps = per_card(series, schema.WORKLOAD_STEPS.name)
+    require(len(steps) == n_cards and min(steps.values()) > 0,
+            f"steps {steps}")
+    peak = per_card(series, schema.PEAK_FLOPS.name)
+    require(set(peak.values()) == {989e12}, f"peak FLOP/s {peak}")
+    used = per_card(series, schema.MEMORY_USED.name)
+    total = per_card(series, schema.MEMORY_TOTAL.name)
+    high = per_card(series, schema.MEMORY_PEAK.name)
+    # Between two steps the burn holds x and w (bf16, size^2 each): the
+    # fresh output has just replaced x. Within a step it also holds the
+    # f32 product and its f32 tanh, so the allocator's peak is at least
+    # x + w + 2 f32 blocks.
+    live = 2 * MAIN_SIZE**2 * 2
+    step_peak = live + 2 * MAIN_SIZE**2 * 4
+    for chip in range(n_cards):
+        free_total = torch.cuda.mem_get_info(chip)[1]
+        require(used[chip] >= live, f"card {chip}: used {used[chip]} < {live}")
+        require(used[chip] <= total[chip], f"card {chip}: used > total")
+        require(high[chip] >= max(used[chip], step_peak),
+                f"card {chip}: peak {high[chip]}")
+        require(total[chip] == free_total,
+                f"card {chip}: total {total[chip]} != mem_get_info "
+                f"{free_total}")
+    count = one(series, schema.WORKLOAD_STEP_DURATION.name + "_count")
+    require(all(v == count for v in steps.values()),
+            f"step histogram count {count} != steps {steps}")
+    return steps
+
+
+def embedded_cli() -> dict:
+    """The user's entry point: the loadgen CLI with the embedded exporter,
+    scraped over HTTP while it burns."""
+    cmd = [sys.executable, "-m", "kube_gpu_stats_tpu_torch.loadgen",
+           "--kernel", "cuda", "--size", str(MAIN_SIZE),
+           "--seconds", str(EMBEDDED_SECONDS), "--embedded-port", "0"]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, text=True)
+    lines: queue.Queue = queue.Queue()
+    reader = threading.Thread(
+        target=lambda: [lines.put(line) for line in proc.stdout] + [
+            lines.put(None)], daemon=True)
+    reader.start()
+    out: list[str] = []
+
+    def next_line(deadline: float) -> str | None:
+        line = lines.get(timeout=max(0.0, deadline - time.monotonic()))
+        if line is not None:
+            out.append(line.rstrip("\n"))
+        return line
+
+    try:
+        deadline = time.monotonic() + CLI_START_S
+        port = None
+        while port is None:
+            line = next_line(deadline)
+            require(line is not None, f"the CLI exited before serving: {out}")
+            if line.startswith("embedded-exporter-port:"):
+                port = int(line.split(":", 1)[1])
+        n_cards = torch.cuda.device_count()
+        # Scrape 1: the first one with steps counted; then two more,
+        # SCRAPE_GAP_S apart, while the burn runs.
+        deadline = time.monotonic() + CLI_START_S
+        while True:
+            series = parse_metrics(scrape(port))
+            steps = per_card(series, schema.WORKLOAD_STEPS.name)
+            if steps and min(steps.values()) > 0:
+                break
+            require(time.monotonic() < deadline, "no steps counted")
+            time.sleep(0.2)
+        scrapes = [(time.monotonic(), series)]
+        for _ in range(2):
+            time.sleep(SCRAPE_GAP_S)
+            scrapes.append((time.monotonic(), parse_metrics(scrape(port))))
+        healthz = scrape(port, "/healthz")
+        require(healthz == "ok\n", f"/healthz said {healthz!r}")
+        steps_seen = [check_card_families(series, n_cards)
+                      for _, series in scrapes]
+        for before, after in zip(steps_seen, steps_seen[1:]):
+            require(all(after[c] > before[c] for c in before),
+                    f"steps did not rise between scrapes: {steps_seen}")
+        mfu = per_card(scrapes[-1][1], schema.WORKLOAD_MFU.name)
+        require(len(mfu) == n_cards
+                and all(0 < v <= MFU_MAX for v in mfu.values()),
+                f"MFU {mfu}")
+        rc = proc.wait(timeout=EMBEDDED_SECONDS + 120)
+        while next_line(time.monotonic() + 10) is not None:
+            pass
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    require(rc == 0, f"the CLI exited {rc}: {out}")
+    steady = [json.loads(line)["steady_state"] for line in out
+              if line.startswith('{"steady_state"')]
+    require(len(steady) == 1, f"no steady_state line: {out}")
+    return {"scrapes": len(scrapes),
+            "scrape_gap_s": [b[0] - a[0] for a, b in zip(scrapes,
+                                                         scrapes[1:])],
+            "steps": [s[0] for s in steps_seen], "mfu_pct": mfu,
+            "steps_per_s": steady[0]["steps_per_s"]}
+
+
+def burn_under_exporter() -> dict:
+    """The ``cuda`` burn at MAIN_SIZE in this process with the embedded
+    exporter fed by its step hook and scraped like Prometheus would (gzip,
+    every half second); its exported counters held against the burn's
+    own after the last tick. Returns what it measured."""
+    exporter = embedded.start(0)
+    n_cards = torch.cuda.device_count()
+    hook = StepCounter()
+
+    def tee(n: int, *, seconds: float, flops: float) -> None:
+        hook(n, seconds=seconds, flops=flops)
+        exporter.record_step(n, seconds=seconds, flops=flops)
+
+    stop = threading.Event()
+
+    def scraper() -> None:
+        while not stop.wait(0.5):
+            request = urllib.request.Request(
+                f"http://127.0.0.1:{exporter.port}/metrics",
+                headers={"Accept-Encoding": "gzip"})
+            with urllib.request.urlopen(request, timeout=10) as resp:
+                resp.read()
+
+    try:
+        scraping = threading.Thread(target=scraper, daemon=True)
+        scraping.start()
+        before = tiled_burn.launches
+        result: dict = {}
+        steps = run_burn(seconds=BURN_SECONDS, size=MAIN_SIZE,
+                         report_every=1e9, kernel="cuda", step_hook=tee,
+                         result=result)
+        launches = tiled_burn.launches - before
+        stop.set()
+        scraping.join(timeout=30)
+        # Two publishes after the burn: the second tick began after the
+        # last record_step.
+        generation = exporter.registry.generation
+        require(exporter.registry.wait_for_publish(generation + 1, 10),
+                "no publish after the burn")
+        snapshot = exporter.registry.snapshot()
+        poll_hist = exporter.poll.poll_histogram
+    finally:
+        stop.set()
+        exporter.stop()
+    series = [(s.spec.name, dict(s.labels), s.value) for s in snapshot.series]
+    exported = per_card(series, schema.WORKLOAD_STEPS.name)
+    flops = per_card(series, schema.WORKLOAD_FLOPS.name)
+    require(launches == (steps + 1) * n_cards,
+            f"{launches} launches for {steps} steps on {n_cards} cards")
+    require(set(exported.values()) == {float(steps)}
+            and len(exported) == n_cards,
+            f"exported steps {exported} != run_burn's {steps}")
+    require(len(flops) == n_cards
+            and all(math.isclose(v, hook.flops / n_cards, rel_tol=1e-12)
+                    for v in flops.values()),
+            f"exported FLOPs {flops} != hook {hook.flops} / {n_cards}")
+    hists = {(h.spec.name, h.labels): h for h in snapshot.histograms}
+    step_hist = hists[(schema.WORKLOAD_STEP_DURATION.name, ())]
+    require(step_hist.total == steps, f"step histogram {step_hist.total}")
+    scrape_hist = hists.get((schema.SELF_SCRAPE_DURATION.name,
+                             (("output", "http"),)))
+    require(scrape_hist is not None and scrape_hist.total > 0,
+            "no scrape observed")
+    render_ms = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        snapshot.render()
+        render_ms.append((time.perf_counter() - t0) * 1e3)
+    return {
+        "steps_per_s": result["steps_per_s"], "launches": launches,
+        "poll_tick_ms": {
+            "ticks": poll_hist.total,
+            "mean": poll_hist.sum / poll_hist.total * 1e3,
+            "p50_bucket_le": poll_hist.quantile(0.5) * 1e3,
+            "p99_bucket_le": poll_hist.quantile(0.99) * 1e3},
+        "scrape_ms": {"scrapes": scrape_hist.total,
+                      "mean": scrape_hist.sum / scrape_hist.total * 1e3},
+        "render_ms": {"median": statistics.median(render_ms),
+                      "min": min(render_ms), "max": max(render_ms),
+                      "series": len(snapshot.series)}}
+
+
+def phase_embedded(card: str, main_cuda_steps_per_s: float) -> int:
+    """The embedded exporter on the card; returns the kernel launches of
+    its in-process burns."""
+    cli = embedded_cli()
+    emit("embedded_cli", cli)
+    # In turns, with and without the exporter: with, without, without,
+    # with (the launch counter counts all four).
+    tiled_burn.launches = 0
+    runs: dict[str, list] = {"with": [], "without": []}
+    for turn in ("with", "without", "without", "with"):
+        if turn == "with":
+            runs["with"].append(burn_under_exporter())
+        else:
+            result: dict = {}
+            run_burn(seconds=BURN_SECONDS, size=MAIN_SIZE, report_every=1e9,
+                     kernel="cuda", result=result)
+            runs["without"].append(result["steps_per_s"])
+    launches = tiled_burn.launches
+    emit("embedded_cost", {
+        "card": card,
+        "poll_tick_ms": [run["poll_tick_ms"] for run in runs["with"]],
+        "scrape_ms": [run["scrape_ms"] for run in runs["with"]],
+        "render_ms": runs["with"][0]["render_ms"],
+        "cuda_steps_per_s": {
+            "order": "with, without, without, with",
+            "with_exporter": [run["steps_per_s"] for run in runs["with"]],
+            "without_exporter": runs["without"],
+            "without_exporter_main_path": main_cuda_steps_per_s,
+            "with_exporter_cli": cli["steps_per_s"]},
+        "launches": {"with_exporter": [run["launches"]
+                                       for run in runs["with"]],
+                     "all": launches}})
+    return launches
 
 def library_call():
     """The yardstick: one PyTorch call computing the same function. Returns
@@ -463,9 +754,10 @@ def main() -> int:
     card = phase_card()
     phase_build()
     max_abs_err = phase_correctness()
-    launches = phase_main_path()
+    launches, cuda_steps_per_s = phase_main_path()
     phase_trace()
     phase_entry()
+    launches += phase_embedded(card, cuda_steps_per_s)
     t = phase_timing(card)
     emit("kernels", [{
         "name": KERNEL_NAME, "route": "cuda", "source": KERNEL_SOURCE,

@@ -5,7 +5,8 @@ local card, so the accelerator metrics visibly respond:
 
     python -m kube_gpu_stats_tpu_torch.loadgen --kernel cuda --size 4096
 
-The port of ``kube_gpu_stats_tpu.loadgen``'s matmul burn; the ICI ring and
+``--embedded-port 0`` serves the embedded exporter while it burns. The
+port of ``kube_gpu_stats_tpu.loadgen``'s matmul burn; the ICI ring and
 the sharded train step come in later slices.
 """
 

@@ -252,7 +252,9 @@ def sweep_burn(sizes=(1024, 2048, 4096, 8192), seconds_per_size: float = 6.0,
     return rows
 
 
-def main(argv=None) -> int:
+def main(argv=None, device=None) -> int:
+    """The load generator's command line. ``device`` is for Python callers
+    only (``"cpu"`` in the tests); the CLI always burns every card."""
     import argparse
     import json
 
@@ -276,15 +278,39 @@ def main(argv=None) -> int:
                              "idle PULSE_MS ms, repeat; 0 = sustained burn")
     parser.add_argument("--mode", choices=("mxu",), default="mxu",
                         help="mxu: matmul burn")
+    parser.add_argument("--embedded-port", type=int, default=None,
+                        help="serve the embedded in-process exporter on "
+                             "this port while burning (0 = pick a free "
+                             "port, printed on stdout)")
+    parser.add_argument("--embedded-textfile", default="",
+                        help="embedded exporter textfile output dir")
     args = parser.parse_args(argv)
-    if args.sweep:
-        sizes = tuple(int(s) for s in args.sweep.split(","))
-        for row in sweep_burn(sizes, seconds_per_size=args.seconds,
-                              depth=args.depth, kernel=args.kernel):
-            print(json.dumps(row), flush=True)
-    else:
-        result: dict = {}
-        run_burn(args.seconds, args.size, kernel=args.kernel,
-                 depth=args.depth, result=result, pulse_ms=args.pulse_ms)
-        print(json.dumps({"steady_state": result}), flush=True)
+    exporter = None
+    step_hook = None
+    if args.embedded_port is not None:
+        from .. import embedded
+
+        exporter = embedded.start(
+            args.embedded_port,
+            textfile=args.embedded_textfile or None,
+            device=device,
+        )
+        step_hook = exporter.record_step
+        print(f"embedded-exporter-port: {exporter.port}", flush=True)
+    try:
+        if args.sweep:
+            sizes = tuple(int(s) for s in args.sweep.split(","))
+            for row in sweep_burn(sizes, seconds_per_size=args.seconds,
+                                  depth=args.depth, kernel=args.kernel,
+                                  device=device):
+                print(json.dumps(row), flush=True)
+        else:
+            result: dict = {}
+            run_burn(args.seconds, args.size, kernel=args.kernel,
+                     step_hook=step_hook, depth=args.depth, result=result,
+                     pulse_ms=args.pulse_ms, device=device)
+            print(json.dumps({"steady_state": result}), flush=True)
+    finally:
+        if exporter is not None:
+            exporter.stop()
     return 0

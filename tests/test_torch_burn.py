@@ -159,7 +159,7 @@ def test_inputs_are_seeded():
 
 @pytest.mark.parametrize("argv", [["--kernel", "pallas"], ["--kernel", "xla"],
                                   ["--mode", "ici"],
-                                  ["--embedded-port", "0"]])
+                                  ["--shard-mb", "4"]])
 def test_main_offers_only_this_slice(argv):
     with pytest.raises(SystemExit):
         burn.main(argv)

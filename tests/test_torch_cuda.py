@@ -1,4 +1,5 @@
-"""The tiled GEMM kernel on the card (sm_90a) against its plain version.
+"""The tiled GEMM kernel on the card (sm_90a) against its plain version,
+and the embedded collector's memory and MFU on the card.
 
 Marked ``cuda``: these skip without a compute-capability-9.0 card. On
 one, run them with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
@@ -95,3 +96,52 @@ def test_burn_step_on_the_card(card):
     want = torch.tanh(tiled_burn.tiled_matmul_reference(xs[0], ws[0]))
     assert out[0].dtype == torch.bfloat16
     assert (out[0].float() - want).abs().max().item() <= 1e-2
+
+
+class _Clock:
+    """Stands in for the ``time`` module inside embedded.py."""
+
+    now = 10.0
+
+    def monotonic(self):
+        return self.now
+
+    def perf_counter(self):
+        return self.now
+
+
+def test_embedded_collector_reports_card_memory(card):
+    from kube_gpu_stats_tpu_torch import embedded, schema
+
+    col = embedded.TorchIntrospectCollector("cuda:0")
+    (dev,) = col.discover()
+    assert dev.accel_type == "gpu-h100"
+    assert dev.device_path.startswith("/dev/nvidia") or dev.device_path[:4] in (
+        "GPU-", "MIG-")
+    held = torch.empty(256 << 20, dtype=torch.uint8, device="cuda:0")
+    col.begin_tick()
+    values = col.sample(dev).values
+    used = values[schema.MEMORY_USED.name]
+    total = values[schema.MEMORY_TOTAL.name]
+    assert used >= held.numel()
+    assert used <= total == torch.cuda.mem_get_info(0)[1]
+    assert values[schema.MEMORY_PEAK.name] >= used
+    del held
+
+
+def test_embedded_collector_mfu_against_the_h100_peak(card, monkeypatch):
+    from kube_gpu_stats_tpu_torch import embedded, schema
+
+    clock = _Clock()
+    monkeypatch.setattr(embedded, "time", clock)
+    col = embedded.TorchIntrospectCollector("cuda:0")
+    (dev,) = col.discover()
+    col.record_step(1, seconds=0.5, flops=1e12)
+    col.begin_tick()
+    clock.now += 2.0
+    col.record_step(1, seconds=0.5, flops=989e12)
+    col.begin_tick()
+    values = col.sample(dev).values
+    assert values[schema.PEAK_FLOPS.name] == 989e12
+    # 989e12 FLOPs over a 2 s window on one card: 50% of the peak.
+    assert values[schema.WORKLOAD_MFU.name] == pytest.approx(50.0, rel=1e-12)
