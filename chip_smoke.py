@@ -32,11 +32,21 @@ prints its result line after one):
    ``embedded.start(0)`` with ``step_hook=exporter.record_step`` (launch
    counter set to 0 before, read after), its exported counters held
    against the burn's own, and the burn without the exporter beside it;
-8. time the kernel, its plain version and one library call
+8. the DaemonSet exporter: ``python -m kube_gpu_stats_tpu_torch
+   --backend nvml --listen-port 0 --interval 0.5 --attribution off
+   --textfile-dir <tmp>`` as a subprocess, scraped once while the card
+   idles and three times during the ``cuda`` burn on card 0 in this
+   process (launch counter set to 0 before, read after), each scrape
+   held against ``nvidia-smi`` and NVML's energy counter read beside it:
+   one ``accelerator_up 1`` per card with the same UUIDs, duty cycle,
+   memory, power, temperature, energy, this process among the card's
+   holders; the textfile, ``/healthz``, exit 0 on SIGTERM; then the tick,
+   render and scrape costs and the median time of each bound NVML call;
+9. time the kernel, its plain version and one library call
    (``torch.mm`` with f32 out) at the main path's and the sweep's sizes,
    each as the median of batches of back-to-back calls;
-9. one JSON line describing every kernel of the path; last, the ``ok``
-   line with the device.
+10. one JSON line describing every kernel of the path; last, the ``ok``
+    line with the device.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -46,26 +56,31 @@ from __future__ import annotations
 import collections
 import json
 import math
+import os
 import pathlib
 import queue
 import re
+import signal
+import stat
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
 
 import torch
 
-from kube_gpu_stats_tpu_torch import _build, embedded, schema
-from kube_gpu_stats_tpu_torch.embedded import _kind_lookup, _kind_peak_flops
+from kube_gpu_stats_tpu_torch import _build, config, daemon, embedded, schema
+from kube_gpu_stats_tpu_torch.kinds import _kind_lookup, _kind_peak_flops
 from kube_gpu_stats_tpu_torch.entry import entry
 from kube_gpu_stats_tpu_torch.loadgen import tiled_burn
 from kube_gpu_stats_tpu_torch.loadgen.burn import (make_all_device_burn,
                                                    run_burn, sweep_burn)
 from kube_gpu_stats_tpu_torch.loadgen.tiled_burn import (
     tiled_all_device_burn, tiled_matmul, tiled_matmul_reference)
+from kube_gpu_stats_tpu_torch.native import nvml as nvml_binding
 
 MAIN_SIZE = 4096
 SWEEP_SIZES = (1024, 2048, 4096, 8192)
@@ -97,6 +112,22 @@ SCRAPE_GAP_S = 1.5
 CLI_START_S = 180.0
 # MFU may read a little over 100 where a tick window's FLOPs land late.
 MFU_MAX = 105.0
+# The daemon phase: its poll interval, the burn it watches (its three
+# scrapes come 1.5 s apart, each on a fresh tick, from 3 s into the burn,
+# once NVML's one-second power average has left the ramp), the checks'
+# limits, the NVML calls timed, and the collection budget the tick is held
+# against (BASELINE.md).
+DAEMON_INTERVAL_S = 0.5
+DAEMON_BURN_S = 8.0
+DAEMON_SCRAPE_START_S = 3.0
+DAEMON_SCRAPE_GAP_S = 1.5
+DAEMON_SCRAPES = 3
+DUTY_MIN = 90.0
+POWER_TOL = 0.15
+ENERGY_TOL = 0.15
+NVML_CALLS = 200
+TICK_BUDGET_MS = 50.0
+MIB = 1024**2
 ROOT = pathlib.Path(__file__).resolve().parent
 KERNEL_NAME = "tiled_gemm_bf16_f32"
 KERNEL_SOURCE = "kube_gpu_stats_tpu_torch/csrc/tiled_gemm.cu"
@@ -695,6 +726,368 @@ def phase_embedded(card: str, main_cuda_steps_per_s: float) -> int:
                      "all": launches}})
     return launches
 
+def smi(fields: str) -> list[list[str]]:
+    """One ``nvidia-smi --query-gpu`` row per card, without units."""
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return [[cell.strip() for cell in line.split(",")]
+            for line in out.strip().splitlines()]
+
+
+def start_daemon(textfile_dir: str) -> tuple[subprocess.Popen, int, list]:
+    """The DaemonSet entry point on the card; returns it, the port its
+    log names, and its log lines (read on until it exits)."""
+    cmd = [sys.executable, "-m", "kube_gpu_stats_tpu_torch", "--backend",
+           "nvml", "--listen-port", "0", "--interval",
+           str(DAEMON_INTERVAL_S), "--attribution", "off",
+           "--textfile-dir", textfile_dir]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stderr=subprocess.PIPE,
+                            stdout=subprocess.DEVNULL, text=True)
+    lines: queue.Queue = queue.Queue()
+    log: list[str] = []
+
+    def read() -> None:
+        for line in proc.stderr:
+            log.append(line.rstrip("\n"))
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=read, daemon=True).start()
+    deadline = time.monotonic() + CLI_START_S
+    try:
+        while True:
+            line = lines.get(timeout=max(0.0, deadline - time.monotonic()))
+            require(line is not None,
+                    f"the daemon exited before serving: {log}")
+            match = re.search(r"listening on \S+:(\d+)", line)
+            if match:
+                return proc, int(match.group(1)), log
+    except BaseException:
+        proc.kill()
+        proc.wait(timeout=30)
+        raise
+
+
+def poll_count(series) -> float:
+    """Ticks the daemon has published; 0 before its first publish."""
+    name = schema.SELF_POLL_DURATION.name + "_count"
+    return sum(value for family, _, value in series if family == name)
+
+
+def fresh_scrape(port: int, after: float):
+    """The first scrape whose tick count passed ``after``: read right at a
+    publish, so what is read beside it lines up with the tick."""
+    deadline = time.monotonic() + 10
+    while True:
+        series = parse_metrics(scrape(port))
+        if poll_count(series) > after:
+            return series
+        require(time.monotonic() < deadline, "the daemon stopped ticking")
+        time.sleep(0.02)
+
+
+def card_series(series, uuid: str) -> dict:
+    """family -> (labels, value) of one card's per-device series."""
+    out = {}
+    for family, labels, value in series:
+        if labels.get("uuid") == uuid and "pid" not in labels:
+            out[family] = (labels, value)
+    return out
+
+
+def holders(series, device_path: str) -> set[str]:
+    return {labels["pid"] for family, labels, _ in series
+            if family == schema.PROCESS_OPEN.name
+            and labels["device_path"] == device_path}
+
+
+def histogram_summary(series, name: str, labels: dict | None = None) -> dict:
+    """count, mean (ms) and the le of the p50 bucket (ms) of one
+    histogram in a parsed exposition."""
+    want = labels or {}
+
+    def mine(got: dict) -> bool:
+        return all(got.get(k) == v for k, v in want.items())
+
+    count = sum(v for f, lab, v in series if f == name + "_count"
+                and mine(lab))
+    total = sum(v for f, lab, v in series if f == name + "_sum"
+                and mine(lab))
+    buckets = sorted((float(lab["le"]), v) for f, lab, v in series
+                     if f == name + "_bucket" and mine(lab))
+    p50 = next(le for le, cum in buckets if cum >= 0.5 * count)
+    return {"count": count, "mean_ms": total / count * 1e3,
+            "p50_bucket_le_ms": p50 * 1e3}
+
+
+def tick_phases_ms(series) -> dict:
+    """The daemon's own flight-recorder digest: p50/p99/max ms per tick
+    phase (``env_round`` is the sampling round, ``sample`` one card's
+    reads on the pool, ``fold``/``plan_write``/``publish`` the build)."""
+    out: dict = {}
+    for family, labels, value in series:
+        if family == schema.TICK_PHASE_SECONDS.name:
+            out.setdefault(labels["phase"], {})[labels["quantile"]] = \
+                value * 1e3
+    return out
+
+
+def nvml_call_us(uuid: str) -> dict:
+    """Median microseconds of each bound NVML call over NVML_CALLS calls,
+    through the port's binding, on the card named by ``uuid``."""
+    nvml = nvml_binding.Nvml()
+    nvml.init()
+    try:
+        handles = [nvml.handle(i) for i in range(nvml.device_count())]
+        handle = next(h for h in handles if nvml.uuid(h) == uuid)
+        index = handles.index(handle)
+        count_field = [(nvml_binding.NVML_FI_DEV_NVLINK_LINK_COUNT, 0)]
+        [(_, links)] = nvml.field_values(handle, count_field)
+        link_fields = [(f, link) for link in range(int(links or 0))
+                       for f in (nvml_binding.NVML_FI_DEV_NVLINK_THROUGHPUT_DATA_TX,
+                                 nvml_binding.NVML_FI_DEV_NVLINK_THROUGHPUT_DATA_RX)]
+        calls = {
+            "nvmlDeviceGetCount_v2": nvml.device_count,
+            "nvmlDeviceGetHandleByIndex_v2": lambda: nvml.handle(index),
+            "nvmlDeviceGetUUID": lambda: nvml.uuid(handle),
+            "nvmlDeviceGetName": lambda: nvml.name(handle),
+            "nvmlDeviceGetMinorNumber": lambda: nvml.minor_number(handle),
+            "nvmlDeviceGetUtilizationRates": lambda: nvml.utilization(handle),
+            "nvmlDeviceGetMemoryInfo": lambda: nvml.memory(handle),
+            "nvmlDeviceGetPowerUsage": lambda: nvml.power_mw(handle),
+            "nvmlDeviceGetTemperature": lambda: nvml.temperature(handle),
+            "nvmlDeviceGetTotalEnergyConsumption":
+                lambda: nvml.energy_mj(handle),
+            "nvmlDeviceGetFieldValues(NVLink link count)":
+                lambda: nvml.field_values(handle, count_field),
+        }
+        if link_fields:
+            calls[f"nvmlDeviceGetFieldValues({len(link_fields)} NVLink "
+                  f"fields)"] = lambda: nvml.field_values(handle, link_fields)
+        out = {}
+        for name, call in calls.items():
+            times = []
+            for _ in range(NVML_CALLS):
+                t0 = time.perf_counter()
+                call()
+                times.append((time.perf_counter() - t0) * 1e6)
+            out[name] = statistics.median(times)
+        return {"links": int(links or 0), "median_us": out}
+    finally:
+        nvml.shutdown()
+
+
+def render_ms() -> dict:
+    """Render of the daemon's own snapshot: the same daemon in this
+    process, on the card, two ticks in; median of 20."""
+    cfg = config.from_args(["--backend", "nvml", "--listen-host",
+                            "127.0.0.1", "--listen-port", "0", "--interval",
+                            str(DAEMON_INTERVAL_S), "--attribution", "off"])
+    instance = daemon.Daemon(cfg)
+    instance.start()
+    try:
+        require(instance.registry.wait_for_publish(1, 10),
+                "the in-process daemon did not tick twice")
+        snapshot = instance.registry.snapshot()
+    finally:
+        instance.stop()
+    times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        snapshot.render()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"median": statistics.median(times), "min": min(times),
+            "max": max(times), "series": len(snapshot.series)}
+
+
+def burn_scrape_row(series, uuid: str, smi_now: dict,
+                    reserved: int) -> dict:
+    """The burn's card in one scrape, beside what was read with it."""
+    mine = card_series(series, uuid)
+    value = {family: mine[family][1] if family in mine else None
+             for family in (schema.DEVICE_UP.name, schema.DUTY_CYCLE.name,
+                            schema.MEMORY_USED.name, schema.MEMORY_TOTAL.name,
+                            schema.POWER.name, schema.TEMPERATURE.name,
+                            schema.ENERGY.name)}
+    labels = mine.get(schema.DEVICE_UP.name, ({}, None))[0]
+    return {"up": value[schema.DEVICE_UP.name],
+            "accel_type": labels.get("accel_type"),
+            "duty": value[schema.DUTY_CYCLE.name],
+            "used": value[schema.MEMORY_USED.name],
+            "total": value[schema.MEMORY_TOTAL.name], "reserved": reserved,
+            "power_w": value[schema.POWER.name],
+            "temperature": value[schema.TEMPERATURE.name],
+            "energy_j": value[schema.ENERGY.name],
+            "smi_power_w": smi_now["power_w"], "smi_util": smi_now["util"],
+            "smi_memory_used_mib": smi_now["memory_used_mib"]}
+
+
+def check_burn_row(row: dict, card: dict) -> None:
+    """What the daemon must serve for the burn's card during the burn."""
+    require(row["up"] == 1.0, f"burn card not up: {row}")
+    require(row["accel_type"] == "gpu-h100", f"accel_type {row}")
+    require(row["duty"] >= DUTY_MIN,
+            f"duty cycle {row['duty']} < {DUTY_MIN} in the burn")
+    require(row["reserved"] <= row["used"] <= row["total"],
+            f"memory used {row['used']} not in [reserved "
+            f"{row['reserved']}, {row['total']}]")
+    require(abs(row["total"] - card["memory_total_mib"] * MIB) <= MIB,
+            f"memory total {row['total']} != nvidia-smi's "
+            f"{card['memory_total_mib']} MiB")
+    require(0 < row["power_w"] <= card["power_limit_w"],
+            f"power {row['power_w']} W not in (0, {card['power_limit_w']}]")
+    require(abs(row["power_w"] - row["smi_power_w"])
+            <= POWER_TOL * row["smi_power_w"],
+            f"power {row['power_w']} W vs nvidia-smi {row['smi_power_w']} W")
+    require(20 <= row["temperature"] <= 100,
+            f"temperature {row['temperature']}")
+
+
+def phase_daemon(card_line: str) -> int:
+    """The DaemonSet exporter on the card under the ``cuda`` burn; returns
+    the kernel launches of the burn."""
+    cards = {row[1]: {"index": int(row[0]), "uuid": row[1], "name": row[2],
+                      "memory_total_mib": float(row[3]),
+                      "power_limit_w": float(row[4])}
+             for row in smi("index,uuid,name,memory.total,power.limit")}
+    burn_uuid = "GPU-" + str(torch.cuda.get_device_properties(0).uuid)
+    require(burn_uuid in cards, f"card 0 {burn_uuid} not in {sorted(cards)}")
+    card = cards[burn_uuid]
+    nvml = nvml_binding.Nvml()
+    nvml.init()
+    textfile_dir = tempfile.mkdtemp(prefix="kts-textfile-")
+    proc = None
+    try:
+        proc, port, log = start_daemon(textfile_dir)
+        # Idle: every card up, with nvidia-smi's UUIDs.
+        idle = fresh_scrape(port, 0.0)
+        ups = {labels["uuid"]: value for family, labels, value in idle
+               if family == schema.DEVICE_UP.name}
+        require(ups == {uuid: 1.0 for uuid in cards},
+                f"accelerator_up {ups} != nvidia-smi's cards {sorted(cards)}")
+        device_path = card_series(idle, burn_uuid)[
+            schema.DEVICE_UP.name][0]["device_path"]
+        require(stat.S_ISCHR(os.stat(device_path).st_mode),
+                f"{device_path} is not a character device")
+        handle = next(h for h in (nvml.handle(i)
+                                  for i in range(nvml.device_count()))
+                      if nvml.uuid(h) == burn_uuid)
+
+        # The burn on card 0, scraped from another thread.
+        seen: list = []
+        failure: list = []
+
+        def scraper(start: float) -> None:
+            try:
+                after = poll_count(idle)
+                for k in range(DAEMON_SCRAPES):
+                    time.sleep(max(0.0, start + DAEMON_SCRAPE_START_S
+                                   + DAEMON_SCRAPE_GAP_S * k
+                                   - time.monotonic()))
+                    series = fresh_scrape(port, after)
+                    energy_mj = nvml.energy_mj(handle)
+                    reserved = torch.cuda.memory_reserved(0)
+                    at = time.monotonic()
+                    row = {r[0]: r for r in
+                           smi("uuid,utilization.gpu,memory.used,"
+                               "power.draw")}[burn_uuid]
+                    smi_now = {"util": float(row[1]),
+                               "memory_used_mib": float(row[2]),
+                               "power_w": float(row[3])}
+                    seen.append((at, series, energy_mj, smi_now, reserved))
+                    after = poll_count(series)
+            except Exception as exc:  # noqa: BLE001 - re-raised below
+                failure.append(exc)
+
+        tiled_burn.launches = 0
+        thread = threading.Thread(target=scraper, args=(time.monotonic(),),
+                                  daemon=True)
+        thread.start()
+        result: dict = {}
+        steps = run_burn(seconds=DAEMON_BURN_S, size=MAIN_SIZE,
+                         report_every=1e9, kernel="cuda", result=result,
+                         device="cuda:0")
+        launches = tiled_burn.launches
+        thread.join(timeout=30)
+        require(not failure, f"scraping failed: {failure}")
+        require(len(seen) == DAEMON_SCRAPES,
+                f"{len(seen)} scrapes in the burn")
+        require(launches == steps + 1,
+                f"{launches} launches for {steps} steps on one card")
+        burn_rows = [burn_scrape_row(series, burn_uuid, smi_now, reserved)
+                     for _, series, _, smi_now, reserved in seen]
+        emit("daemon_burn_scrapes", {
+            "at_s": [at - seen[0][0] for at, *_ in seen],
+            "nvml_energy_mj": [e for _, _, e, _, _ in seen],
+            "rows": burn_rows})
+        for row in burn_rows:
+            check_burn_row(row, card)
+        energies = [row["energy_j"] for row in burn_rows]
+        require(all(b > a for a, b in zip(energies, energies[1:])),
+                f"energy not rising: {energies}")
+        served_j = energies[-1] - energies[0]
+        nvml_j = (seen[-1][2] - seen[0][2]) / 1000.0
+        require(abs(served_j - nvml_j) <= ENERGY_TOL * nvml_j,
+                f"energy +{served_j} J vs NVML's +{nvml_j} J")
+        pid = str(os.getpid())
+        for _, series, _, _, _ in seen:
+            require(pid in holders(series, device_path),
+                    f"pid {pid} not among {device_path}'s holders")
+
+        # The textfile mirrors a scrape of the same publish.
+        textfile = pathlib.Path(textfile_dir) / "accelerator.prom"
+        for _ in range(50):
+            before = textfile.read_text()
+            body = scrape(port)
+            if before == body == textfile.read_text():
+                break
+        else:
+            raise RuntimeError("the textfile never matched a scrape")
+        require(not list(pathlib.Path(textfile_dir).glob("*.tmp")),
+                "a *.tmp was left behind")
+        healthz = scrape(port, "/healthz")
+        require(healthz.startswith("ok\n"), f"/healthz said {healthz!r}")
+        last = seen[-1][1]
+        tick = histogram_summary(last, schema.SELF_POLL_DURATION.name)
+        phases = tick_phases_ms(last)
+        cached_scrape = histogram_summary(
+            last, schema.SELF_SCRAPE_DURATION.name, {"output": "http"})
+    finally:
+        rc = None
+        if proc is not None:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=5)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+        nvml.shutdown()
+    require(rc == 0, f"the daemon exited {rc} on SIGTERM: {log[-20:]}")
+    n_series = sum(1 for line in body.splitlines()
+                   if line and not line.startswith("#"))
+    emit("daemon", {
+        "card": card_line, "cards": len(cards),
+        "tick_ms": {**tick, "budget_ms": TICK_BUDGET_MS},
+        "tick_phases_ms": phases,
+        "nvml": nvml_call_us(burn_uuid),
+        "render_ms": render_ms(),
+        "cached_scrape_ms": cached_scrape["mean_ms"],
+        "scrapes": cached_scrape["count"],
+        "series": n_series,
+        "series_per_s_per_card": n_series / DAEMON_INTERVAL_S / len(cards),
+        "burn": {"steps": steps, "steps_per_s": result["steps_per_s"],
+                 "launches": launches, "scrapes": burn_rows,
+                 "energy_served_j": served_j, "energy_nvml_j": nvml_j},
+        "device_path": device_path})
+    require(tick["p50_bucket_le_ms"] <= TICK_BUDGET_MS,
+            f"tick p50 bucket {tick['p50_bucket_le_ms']} ms over the "
+            f"{TICK_BUDGET_MS} ms budget")
+    return launches
+
+
 def library_call():
     """The yardstick: one PyTorch call computing the same function. Returns
     (name, fn(a, b))."""
@@ -758,6 +1151,7 @@ def main() -> int:
     phase_trace()
     phase_entry()
     launches += phase_embedded(card, cuda_steps_per_s)
+    launches += phase_daemon(card)
     t = phase_timing(card)
     emit("kernels", [{
         "name": KERNEL_NAME, "route": "cuda", "source": KERNEL_SOURCE,

@@ -1,9 +1,9 @@
 """Device backends: the collector trait the poll loop samples.
 
 The port's copy of the reference's trait (``Device``, ``Sample``,
-``CollectorError``, ``Collector``). The only backend so far is the
-embedded one, ``embedded.TorchIntrospectCollector``; an NVML backend for
-the DaemonSet comes later.
+``CollectorError``, ``Collector``). Backends: the DaemonSet's NVML one
+(``nvml.NvmlCollector``), ``mock`` and ``null`` (``mock.py``), and the
+embedded one (``embedded.TorchIntrospectCollector``).
 """
 
 from __future__ import annotations
@@ -17,9 +17,10 @@ from typing import Mapping, Sequence
 class Device:
     """One local accelerator chip.
 
-    ``device_id`` is the stable node-local identity (the CUDA ordinal for
-    the embedded collector); ``device_path`` the node-local device file
-    (``/dev/nvidiaN``, ``docs/UNIFIED_SCHEMA.md``).
+    ``device_id`` is the stable node-local identity (the NVML index for
+    the daemon, the CUDA ordinal for the embedded collector);
+    ``device_path`` the node-local device file (``/dev/nvidiaN``,
+    ``docs/UNIFIED_SCHEMA.md``).
     """
 
     index: int

@@ -1,0 +1,348 @@
+"""Process wiring of the DaemonSet exporter for H100 nodes.
+
+The port's counterpart of the reference's ``daemon.py``: parse flags →
+choose the backend (NVML when a card is present, else null, or mock) →
+discover devices → start the attribution and device-process watchers →
+registry → HTTP server (+ textfile) → poll loop, all under a crash-only
+supervisor. Process-boundary crossings: the kubelet's PodResources gRPC
+over its unix socket, and the NVIDIA driver through ``libnvidia-ml.so.1``.
+
+The daemon path imports no ``torch``: the DaemonSet image carries no CUDA
+userspace beyond the NVML the container runtime injects.
+
+Not wired here (the reference's, left for later): push egress
+(Pushgateway, remote write, delta push, spill queue), TLS, basic auth and
+``/debug/*``, the burst sampler, the energy accountant, host signals and
+``reconfigure``.
+"""
+
+from __future__ import annotations
+
+import logging
+import signal
+import threading
+
+from . import __version__, topology
+from .collectors import Collector
+from .collectors.mock import MockCollector, NullCollector
+from .config import Config
+from .exposition import MetricsServer, RenderStats, TextfileWriter
+from .native.nvml import NvmlError
+from .poll import AttributionProvider, NullAttribution, PollLoop
+from .procopen import DeviceProcessWatcher
+from .registry import Registry
+from .supervisor import Supervisor
+from .tracing import Tracer
+from .workers import PeriodicRefresher
+
+log = logging.getLogger(__name__)
+
+
+def build_collector(cfg: Config) -> Collector:
+    """The backend ``cfg.backend`` names. ``nvml`` raises ``NvmlError``
+    when the library cannot be loaded or ``nvmlInit_v2`` fails: asked for
+    by name, it never degrades to null."""
+    if cfg.backend == "mock":
+        return MockCollector(num_devices=cfg.mock_devices)
+    if cfg.backend == "null":
+        return NullCollector()
+    if cfg.backend == "nvml":
+        return _nvml_collector()
+    # auto: NVML when a card is present, else a schema-valid null exporter
+    # (card-less nodes; the daemon keeps re-probing while on null — see
+    # BackendUpgradeWatcher).
+    return probe_accelerator(cfg) or NullCollector()
+
+
+def _nvml_collector() -> Collector:
+    from .collectors.nvml import NvmlCollector
+
+    return NvmlCollector()
+
+
+def probe_accelerator(cfg: Config, loglevel: int = logging.WARNING
+                      ) -> Collector | None:
+    """One pass of the auto-backend probe: an NVML collector when the
+    driver answers and lists at least one card, else None. The probe
+    instance IS the production collector when devices are found — probing
+    and serving never disagree about what "present" means. ``loglevel``
+    lets the periodic re-probe demote the expected "nothing here yet"
+    outcome to debug."""
+    try:
+        collector = _nvml_collector()
+    except Exception as exc:  # noqa: BLE001 - no driver: null, not a crash
+        log.log(loglevel, "NVML probe failed (%s); falling back to null "
+                "backend", exc)
+        return None
+    try:
+        if collector.discover():
+            return collector
+    except Exception as exc:  # noqa: BLE001 - same degradation
+        log.log(loglevel, "NVML discovery failed (%s); falling back to "
+                "null backend", exc)
+    collector.close()
+    return None
+
+
+def build_attribution(cfg: Config) -> AttributionProvider:
+    if cfg.attribution == "off":
+        return NullAttribution()
+    try:
+        from .attribution import build as build_attr
+
+        return build_attr(
+            mode=cfg.attribution,
+            kubelet_socket=cfg.kubelet_socket,
+            checkpoint_path=cfg.checkpoint_path,
+            refresh_interval=cfg.attribution_interval,
+        )
+    except Exception as exc:
+        # Attribution is an enrichment, never a reason for the DaemonSet to
+        # crash-loop: degrade to unattributed metrics.
+        log.warning("attribution unavailable (%s); exporting without pod labels",
+                    exc)
+        return NullAttribution()
+
+
+def _backend_priority(collector) -> int:
+    """auto-mode upgrade ordering: nvml beats null."""
+    return 1 if getattr(collector, "name", "") == "nvml" else 0
+
+
+class BackendUpgradeWatcher(PeriodicRefresher):
+    """Re-probe for NVML while ``--backend auto`` latched the null backend
+    (a daemon started before the driver was loaded, or before the card
+    was attached, must not export nulls for its whole lifetime). Runs on
+    the rediscovery cadence with capped backoff; the upgrade applies
+    between ticks, and the watcher retires once NVML is in place. The
+    first probe waits one interval: construction just probed."""
+
+    def __init__(self, daemon: "Daemon", interval: float) -> None:
+        super().__init__(interval, "backend-upgrade",
+                         first_refresh_immediately=False)
+        self._daemon = daemon
+
+    def refresh_once(self) -> None:
+        current_priority = _backend_priority(self._daemon.collector)
+        if current_priority >= 1:
+            self._stop_event.set()
+            return
+        try:
+            new = probe_accelerator(self._daemon.cfg, loglevel=logging.DEBUG)
+        except Exception:  # noqa: BLE001 - probe bug must not kill the thread
+            log.debug("backend re-probe crashed", exc_info=True)
+            new = None
+        if new is None:
+            # Modest backoff cap: a driver can appear any time, so keep
+            # probing at most ~4x the base cadence.
+            self.consecutive_failures = min(self.consecutive_failures + 1, 2)
+            return
+        log.info("auto backend: %s now present; upgrading from %s",
+                 new.name, self._daemon.collector.name)
+        self._daemon.collector = new
+        self._daemon.poll.replace_collector(new)
+        # Applied between ticks; retire this watcher (set, don't join —
+        # we ARE the watcher thread).
+        self._stop_event.set()
+
+
+class Daemon:
+    """Owns every long-lived component; stop() tears down in reverse
+    order."""
+
+    def __init__(self, cfg: Config) -> None:
+        self.cfg = cfg
+        self.registry = Registry()
+        self.render_stats = RenderStats()
+        self.tracer = Tracer(enabled=cfg.trace_enabled)
+        self.collector = build_collector(cfg)
+        self.attribution = build_attribution(cfg)
+        # Crash-only supervisor: liveness/hang detection and restart with
+        # backoff for every worker thread, and the circuit-breaker state of
+        # the kubelet edge in the kts_* self-metrics and /healthz reasons.
+        # The attribution source's breaker is late-bound (auto mode builds
+        # its PodResources client lazily).
+        self.supervisor = Supervisor(
+            check_interval=max(0.1, min(1.0, cfg.interval)))
+        self.supervisor.register_breaker_provider(self._attribution_breakers)
+        # Per-process device holders (accelerator_process_open): the lazy
+        # paths_fn closes over self.poll, which exists before the watcher's
+        # first refresh (start()).
+        self.procwatch = (
+            DeviceProcessWatcher(
+                lambda: [d.device_path for d in self.poll.devices],
+                proc_root=cfg.proc_root,
+                refresh_interval=cfg.attribution_interval,
+                max_holders=cfg.max_process_series,
+            )
+            if cfg.device_processes == "on"
+            else None
+        )
+        self.poll = PollLoop(
+            self.collector,
+            self.registry,
+            interval=cfg.interval,
+            deadline=cfg.deadline,
+            attribution=self.attribution,
+            topology_labels=topology.topology_labels(),
+            version=__version__,
+            rediscovery_interval=cfg.rediscovery_interval,
+            drop_labels=cfg.drop_labels,
+            disabled_metrics=cfg.disabled_metrics,
+            process_openers=self.procwatch.lookup if self.procwatch else None,
+            render_stats=self.render_stats.contribute,
+            health_stats=self.supervisor.contribute,
+            heartbeat=self.supervisor.beater("poll"),
+            tracer=self.tracer,
+            label_value_cap=cfg.label_value_cap,
+        )
+        # Hung-tick watchdog threshold: same formula as healthz_max_age,
+        # so the supervisor respawns the loop BEFORE the liveness probe
+        # would kill the whole pod for the same hang.
+        self.supervisor.register(
+            "poll", is_alive=self.poll.thread_alive,
+            restart=self.poll.respawn,
+            heartbeat_timeout=max(5.0, cfg.interval * 5))
+        self.server = MetricsServer(
+            self.registry, cfg.listen_host, cfg.listen_port,
+            # A few missed intervals = unhealthy (floor for tiny test
+            # intervals where scheduling jitter dominates).
+            healthz_max_age=max(5.0, cfg.interval * 5),
+            render_stats=self.render_stats,
+            health_provider=self.supervisor.health_report,
+        )
+        self.textfile = (
+            TextfileWriter(self.registry, cfg.textfile_dir,
+                           render_stats=self.render_stats)
+            if cfg.textfile_enabled
+            else None
+        )
+        self.upgrade_watcher = (
+            BackendUpgradeWatcher(self, cfg.rediscovery_interval)
+            if cfg.backend == "auto"
+            and _backend_priority(self.collector) < 1
+            and cfg.rediscovery_interval > 0
+            else None
+        )
+
+    def _attribution_breakers(self):
+        """The attribution source's kubelet breaker, once it exists."""
+        breaker = getattr(self.attribution, "breaker", None)
+        return {"kubelet": breaker} if breaker is not None else {}
+
+    def start(self) -> None:
+        starter = getattr(self.attribution, "start", None)
+        if starter:
+            starter()
+        if self.procwatch:
+            self.procwatch.start()
+        self.server.start()
+        if self.textfile:
+            self.textfile.start()
+        if self.upgrade_watcher:
+            self.upgrade_watcher.start()
+        self.poll.start()
+        # Liveness-only supervision for the auxiliary worker threads
+        # (their loops already contain exceptions, so death is a bug — the
+        # crash-only answer is a fresh thread over retained state). The
+        # upgrade watcher is deliberately NOT supervised: it retires itself
+        # once NVML latches, and a restart would resurrect it. The
+        # supervisor starts last so no watchdog pass can see a component
+        # before its thread exists.
+        for name, component in (
+            ("attribution", self.attribution),
+            ("textfile", self.textfile),
+            ("procwatch", self.procwatch),
+        ):
+            alive = getattr(component, "thread_alive", None)
+            starter = getattr(component, "start", None)
+            if component is not None and callable(alive) and callable(starter):
+                self.supervisor.register(
+                    name, is_alive=alive, restart=starter,
+                    breaker_prefixes=(("kubelet",)
+                                      if name == "attribution" else ()))
+        # The render pre-warmer: a dead warmer makes every scrape pay the
+        # render inline, with no functional symptom.
+        self.supervisor.register(
+            "render-warmer", is_alive=self.server.warm_thread_alive,
+            restart=self.server.respawn_warm)
+        self.supervisor.start()
+        log.info(
+            "kube-tpu-stats %s: backend=%s devices=%d listening on %s:%d",
+            __version__, self.collector.name, len(self.poll.devices),
+            self.cfg.listen_host, self.server.port,
+        )
+
+    def stop(self) -> None:
+        # Supervisor first: a watchdog firing mid-teardown would respawn
+        # the very threads stop() is joining.
+        self.supervisor.stop()
+        if self.upgrade_watcher:
+            self.upgrade_watcher.stop()
+        self.poll.stop()
+        if self.procwatch:
+            self.procwatch.stop()
+        if self.textfile:
+            self.textfile.stop()
+        self.server.stop()
+        stopper = getattr(self.attribution, "stop", None)
+        if stopper:
+            stopper()
+        self.collector.close()
+
+
+class JsonLogFormatter(logging.Formatter):
+    """One JSON object per line, keys aligned with Cloud Logging's
+    structured-log parsing (severity/message/timestamp); exception text
+    folded into the message so every record stays single-line."""
+
+    def format(self, record: logging.LogRecord) -> str:
+        import json
+        import time as _time
+
+        message = record.getMessage()
+        if record.exc_info:
+            message += "\n" + self.formatException(record.exc_info)
+        return json.dumps({
+            "timestamp": _time.strftime(
+                "%Y-%m-%dT%H:%M:%S", _time.gmtime(record.created)
+            ) + f".{int(record.msecs):03d}Z",
+            "severity": record.levelname,
+            "logger": record.name,
+            "message": message,
+        })
+
+
+def setup_logging(cfg: Config) -> None:
+    level = getattr(logging, cfg.log_level.upper(), logging.INFO)
+    if cfg.log_format == "json":
+        handler = logging.StreamHandler()
+        handler.setFormatter(JsonLogFormatter())
+        logging.basicConfig(level=level, handlers=[handler])
+    else:
+        logging.basicConfig(
+            level=level,
+            format="%(asctime)s %(levelname)s %(name)s %(message)s",
+        )
+
+
+def run(cfg: Config) -> int:
+    setup_logging(cfg)
+    try:
+        daemon = Daemon(cfg)
+    except NvmlError as exc:
+        # --backend nvml without a usable driver: fail at startup with
+        # NVML's own error, never serve null in its place.
+        log.error("cannot start the %s backend: %s", cfg.backend, exc)
+        return 1
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: stop.set())
+    try:
+        # Inside the try: a partial start (unwritable textfile dir) must
+        # still tear down what DID start.
+        daemon.start()
+        stop.wait()
+    finally:
+        daemon.stop()
+    return 0

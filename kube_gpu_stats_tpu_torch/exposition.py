@@ -243,10 +243,17 @@ class MetricsServer:
 
     def __init__(self, registry: Registry, host: str = "0.0.0.0",
                  port: int = 9400, healthz_max_age: float = 0.0,
-                 render_stats: RenderStats | None = None):
+                 render_stats: RenderStats | None = None,
+                 health_provider=None):
         self._registry = registry
         self._healthz_max_age = healthz_max_age
         self._render_stats = render_stats
+        # Optional () -> [(component, state, reason)] rows (the
+        # supervisor's health_report): /healthz carries per-component
+        # reasons so "degraded" is diagnosable from one probe, while the
+        # 200/503 verdict stays snapshot-staleness only — a degraded (but
+        # collecting) exporter must NOT be liveness-restarted.
+        self._health_provider = health_provider
         # Render pre-warmer: a publish-following thread fills the
         # per-generation render cache (text + gzip) the moment a snapshot
         # lands, so a scrape serves pre-rendered, pre-gzipped bytes
@@ -404,6 +411,17 @@ class MetricsServer:
                     else:
                         verdict = "ok\n"
                         self.send_response(200)
+                    if outer._health_provider is not None:
+                        try:
+                            rows = list(outer._health_provider())
+                        except Exception as exc:  # noqa: BLE001 - probe-safe
+                            rows = [("health-provider", "stale",
+                                     f"crashed: {exc}")]
+                        for name, state, reason in rows:
+                            verdict += f"component={name} state={state}"
+                            if reason:
+                                verdict += f" reason={reason}"
+                            verdict += "\n"
                     body = verdict.encode()
                     self.send_header("Content-Type", "text/plain")
                 elif path == "/readyz":
@@ -468,6 +486,19 @@ class MetricsServer:
         self._thread = spawn(self._server.serve_forever,
                              name="metrics-http")
         self._thread.start()
+        self.respawn_warm()
+
+    def warm_thread_alive(self) -> bool:
+        """Liveness probe for the supervisor's render-warmer row."""
+        return (self._warm_thread is not None
+                and self._warm_thread.is_alive())
+
+    def respawn_warm(self) -> None:
+        """Crash-only restart for the render pre-warmer: a fresh thread
+        over the same registry (the per-generation cache IS the retained
+        state). Doubles as the initial start."""
+        if self._warm_stop.is_set() or self.warm_thread_alive():
+            return
         self._warm_thread = spawn(self._warm_loop, name="render-warmer")
         self._warm_thread.start()
 
@@ -529,6 +560,11 @@ class TextfileWriter:
     def start(self) -> None:
         self._thread = spawn(self.run_forever, name="textfile-writer")
         self._thread.start()
+
+    def thread_alive(self) -> bool:
+        """Liveness probe for the supervisor; start() doubles as the
+        crash-only restart."""
+        return self._thread is not None and self._thread.is_alive()
 
     def stop(self) -> None:
         self._stop.set()

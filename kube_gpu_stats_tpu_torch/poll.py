@@ -4,6 +4,8 @@ Design rules, the reference's:
 
 - per-device sampling fans out in parallel with a hard per-tick deadline —
   never serialized across devices;
+- attribution is a cached in-memory join (refreshed on its own cadence) —
+  no RPC on this path;
 - publishing is one snapshot swap — scrape traffic can't block a tick;
 - any per-device failure marks that device stale (accelerator_up 0) and the
   loop keeps running.
@@ -11,17 +13,20 @@ Design rules, the reference's:
 Tick plans: per-device *series plans* — label tuples pre-joined, series
 prefixes pre-rendered into the render cache, per-slot Series objects
 reused while their value is unchanged — are compiled once per device and
-invalidated only on device churn (rediscover). The snapshot build then
-writes values into plan slots instead of rebuilding every label list per
-tick.
+invalidated only on device churn (rediscover) or an attribution change for
+that device. The snapshot build then writes values into plan slots
+instead of rebuilding every label list per tick.
 
 The port's copy of the reference's ``PollLoop`` on its tick-plan path and
 its generic sampling path (one ``Collector.sample`` per device on the
-pool). Left for the daemon slice: pod attribution, process holders, the
-split/pipelined sampling of runtime backends, push/egress self-metrics,
-the burst sampler, the energy accountant, host signals and supervised
-respawn. The reference's pre-plan emit path is not copied either: the
-reference itself is this loop's oracle (``tests/test_torch_poll.py``).
+pool), with what the daemon wires: pod attribution behind the label
+fence, process holders, the supervisor's health self-metrics and
+heartbeat, label dropping, backend replacement between ticks and
+crash-only respawn. Not ported: the split/pipelined sampling of runtime
+backends, push/egress self-metrics, the burst sampler, the energy
+accountant, host signals and ``reconfigure``. The reference's pre-plan
+emit path is not copied either: the reference itself is this loop's
+oracle (``tests/test_torch_poll.py``, ``tests/test_torch_daemon.py``).
 """
 
 from __future__ import annotations
@@ -30,9 +35,10 @@ import concurrent.futures
 import logging
 import threading
 import time
-from typing import Callable, Mapping, NamedTuple
+from typing import Callable, Mapping, NamedTuple, Protocol, Sequence
 
 from . import procstats, schema
+from .cardinality import LabelFence
 from .collectors import Collector, Device, Sample
 from .delta import PROTO_MAX, PROTO_MIN
 from .fleetlens import contribute_trace_digest
@@ -46,6 +52,19 @@ from .tracing import Tracer, log_every
 from .workers import DaemonSamplerPool
 
 log = logging.getLogger(__name__)
+
+
+class AttributionProvider(Protocol):
+    """Cached device→pod mapping. ``lookup`` must be RPC-free."""
+
+    def lookup(self, device: Device) -> Mapping[str, str]:
+        """Return {"pod": ..., "namespace": ..., "container": ...} or {}."""
+        ...
+
+
+class NullAttribution:
+    def lookup(self, device: Device) -> Mapping[str, str]:
+        return {}
 
 
 class _SeriesSlot:
@@ -95,34 +114,44 @@ class _SeriesSlot:
 class _DevicePlan:
     """Compiled per-device tick plan: the base/stale label tuples, one
     slot per known metric family (including percentile expansions), and
-    lazily-grown slot maps for the per-link and passthrough families
-    whose label dimensions are only known at runtime. Valid until the
-    device list changes (rediscover)."""
+    lazily-grown slot maps for the per-link / passthrough / process-
+    holder families whose label dimensions are only known at runtime.
+    Valid for exactly one attribution key; the loop recompiles on any
+    change (device churn, attribution)."""
 
     # Lazy slot maps are bounded: link/raw dimensions are already capped
-    # upstream (_MAX_ICI_LINKS / _MAX_RAW_FAMILIES) — this is a second
-    # fence so a churning dimension can never grow a plan without bound
-    # (overflow emits uncached, still correct).
+    # upstream (_MAX_ICI_LINKS / _MAX_RAW_FAMILIES), process holders by
+    # procopen's per-device cap — this is a second fence so a churning
+    # dimension can never grow a plan without bound (overflow emits
+    # uncached, still correct).
     _MAX_LAZY_SLOTS = 512
 
-    __slots__ = ("base", "gbase", "emit", "up", "restarts", "energy",
-                 "collectives", "memory_total", "_ici", "_raw", "_cell",
-                 "ici_traffic_on", "ici_bw_on", "raw_on")
+    __slots__ = ("key", "base", "gbase", "emit", "up", "restarts", "energy",
+                 "collectives", "memory_total", "_ici", "_raw", "_holders",
+                 "_cell", "ici_traffic_on", "ici_bw_on", "raw_on",
+                 "holders_on")
 
-    def __init__(self, dev: Device, topology: Mapping[str, str],
-                 disabled: frozenset[str], cell: list[int]) -> None:
+    def __init__(self, dev: Device, key: tuple,
+                 attribution: Mapping[str, str],
+                 topology: Mapping[str, str],
+                 drop_labels: frozenset[str],
+                 disabled: frozenset[str],
+                 cell: list[int]) -> None:
         labels = [
             ("accel_type", dev.accel_type),
             ("chip", str(dev.index)),
             ("device_path", dev.device_path),
             ("uuid", dev.uuid),
         ]
-        # No attribution join in the embedded exporter: the label set
-        # stays constant with empty values.
         for k in schema.ATTRIBUTION_LABELS:
-            labels.append((k, ""))
+            labels.append((k, attribution.get(k, "")))
         for k in schema.TOPOLOGY_LABELS:
             labels.append((k, topology.get(k, "")))
+        if drop_labels:
+            labels = [
+                (k, "" if k in drop_labels else v) for k, v in labels
+            ]
+        self.key = key
         self.base = tuple(labels)
         self.gbase = self.base + (("stale", "true"),)
         self._cell = cell
@@ -156,8 +185,10 @@ class _DevicePlan:
         self.ici_traffic_on = schema.ICI_TRAFFIC_TOTAL.name not in disabled
         self.ici_bw_on = schema.ICI_BANDWIDTH.name not in disabled
         self.raw_on = schema.PASSTHROUGH.name not in disabled
+        self.holders_on = schema.PROCESS_OPEN.name not in disabled
         self._ici: dict[str, tuple[_SeriesSlot, _SeriesSlot]] = {}
         self._raw: dict[tuple[str, str], _SeriesSlot] = {}
+        self._holders: dict[tuple[str, str, str], _SeriesSlot] = {}
 
     def ici_slots(self, link: str) -> tuple[_SeriesSlot, _SeriesSlot]:
         slots = self._ici.get(link)
@@ -183,6 +214,22 @@ class _DevicePlan:
                 self._raw[(family, link)] = slot
         return slot
 
+    def holder_slot(self, pid: str, comm: str, pod_uid: str) -> _SeriesSlot:
+        key = (pid, comm, pod_uid)
+        slot = self._holders.get(key)
+        if slot is None:
+            labels = self.base + (("pid", pid), ("comm", comm),
+                                  ("pod_uid", pod_uid))
+            slot = _SeriesSlot(schema.PROCESS_OPEN, labels, labels,
+                               self._cell)
+            if len(self._holders) >= self._MAX_LAZY_SLOTS:
+                # Holder keys churn (pids of dead processes linger for
+                # the plan's life). At saturation, dump the map and let
+                # the live holders re-cache over the next ticks.
+                self._holders.clear()
+            self._holders[key] = slot
+        return slot
+
 
 class _TickDevice(NamedTuple):
     """One device's derived per-tick data: everything the emitter needs,
@@ -198,12 +245,10 @@ class _TickDevice(NamedTuple):
     energy: float | None          # None = never observed power: no series
     ici: tuple[tuple[str, int, float | None], ...]  # (link, counter, rate)
     raw: tuple[tuple[str, str, float], ...]  # admitted (family, link, value)
+    holders: Sequence[tuple[str, str, str, float]] | None
 
 
 class PollLoop:
-    # Seconds between re-enumerations of the devices (off the tick path).
-    REDISCOVERY_INTERVAL = 60.0
-
     def __init__(
         self,
         collector: Collector,
@@ -211,31 +256,64 @@ class PollLoop:
         *,
         interval: float = 1.0,
         deadline: float = 0.050,
+        attribution: AttributionProvider | None = None,
         topology_labels: Mapping[str, str] | None = None,
         version: str = "dev",
+        rediscovery_interval: float = 60.0,
+        drop_labels: Sequence[str] = (),
         disabled_metrics: frozenset[str] = frozenset(),
+        process_openers: Callable[[str], Sequence[tuple[str, str, str, float]]] | None = None,
         render_stats: Callable[[SnapshotBuilder], None] | None = None,
+        health_stats: Callable[[SnapshotBuilder], None] | None = None,
+        heartbeat: Callable[[], None] | None = None,
+        tracer: Tracer | None = None,
+        label_value_cap: int = 0,
         clock: Callable[[], float] = time.monotonic,
     ) -> None:
         self._collector = collector
         self._registry = registry
         self._interval = interval
         self._deadline = deadline
+        self._attribution = attribution or NullAttribution()
         self._topology = dict(topology_labels or {})
         self._version = version
+        # Seconds between re-enumerations of the devices (off the tick
+        # path); 0 disables.
+        self._rediscovery_interval = rediscovery_interval
+        # Cardinality control: listed keys are emitted as "" rather than
+        # removed — the label SET stays constant so series identity is
+        # stable regardless of operator config.
+        self._drop_labels = frozenset(drop_labels)
         # Family selection (--metrics-include/--metrics-exclude): names
         # the builder silently drops. Resolved + validated by
         # schema.resolve_metric_filter at config time.
         self._disabled_metrics = frozenset(disabled_metrics)
+        # Cached device→holding-process map (procopen.py); a dict read,
+        # same off-hot-path contract as attribution. None = disabled.
+        self._process_openers = process_openers
         # Scrape/render self-observability contributor (RenderStats.
         # contribute): folds scrape-duration histograms and rendered-bytes
         # counters into each snapshot.
         self._render_stats = render_stats
+        # Resilience self-observability contributor (the daemon wires
+        # Supervisor.contribute): kts_breaker_state / kts_component_*
+        # families ride every snapshot.
+        self._health_stats = health_stats
+        # Supervisor heartbeat: called once per run_forever iteration so
+        # a tick wedged inside a blocking call no timeout covers is
+        # detected (and the loop respawned) by the watchdog.
+        self._heartbeat = heartbeat
         self._clock = clock
         # Flight recorder: every tick records phase spans (sample round,
         # fold, plan_write, publish) plus the per-device reads from the
-        # pool as aux spans.
-        self.tracer = Tracer()
+        # pool as aux spans. A disabled recorder (--no-trace) makes every
+        # call a cheap no-op.
+        self.tracer = tracer if tracer is not None else Tracer()
+        # Label-churn fence: caps distinct values per attribution label
+        # key at the plan compiler, so a kubelet join minting a fresh pod
+        # per tick degrades to pod="overflow" aggregation instead of a
+        # per-tick series (and plan) explosion. 0 = unfenced.
+        self._label_fence = LabelFence(label_value_cap)
         self._tick_seq = 0
 
         self._devices: list[Device] = list(collector.discover())
@@ -256,6 +334,9 @@ class PollLoop:
         self._errors: dict[str, int] = {}
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
+        # Backend swap requested by replace_collector; applied between
+        # ticks on whichever thread runs tick().
+        self._pending_collector: Collector | None = None
         # Retained last-known MEMORY_TOTAL per device so a stale tick keeps
         # capacity gauges stable instead of dropping series.
         self._last_totals: dict[str, float] = {}
@@ -270,7 +351,9 @@ class PollLoop:
         # observe.
         self._energy: dict[str, float] = {}
         self._last_power_at: dict[str, float] = {}
-        # Compiled tick plans, one per device, keyed by device_id.
+        # Compiled tick plans, one per device, keyed by device_id; the
+        # stored attribution key detects a changed join for the SAME
+        # device.
         self._plans: dict[str, _DevicePlan] = {}
         self._plan_compiles: dict[str, int] = {}
         self._plan_cache_hits = 0
@@ -285,11 +368,11 @@ class PollLoop:
         self._procstats: Mapping[str, float] | None = None
         self._proc_future: concurrent.futures.Future | None = None
         self.last_tick_stats: dict[str, float] = {}
-        # One builder, reset per tick (build() materializes the
-        # snapshot's tuples, so clearing the backing lists is safe); the
-        # filter set is fixed for the loop's life.
-        self._builder = (FilteredSnapshotBuilder(self._disabled_metrics)
-                         if self._disabled_metrics else SnapshotBuilder())
+        # Per-thread snapshot builder, reset per tick: a superseded loop
+        # thread can wedge inside the build and resume after the
+        # watchdog's replacement has started its own build, and a shared
+        # builder would interleave two ticks' series.
+        self._tls = threading.local()
         # Emit order: results are assembled by slot (rank of the
         # device's index) instead of sorted per tick.
         self._slot_of: dict[str, int] = {}
@@ -310,6 +393,29 @@ class PollLoop:
     @property
     def poll_histogram(self) -> HistogramState:
         return self._hist
+
+    def replace_collector(self, collector: Collector) -> None:
+        """Hand the loop a new backend; applied at the top of the next
+        tick, never mid-tick (the auto-mode backend upgrade: the daemon's
+        re-probe watcher swaps the null backend for NVML when the driver
+        appears after startup). Intended for upgrading FROM the null
+        backend, which never has samples outstanding; the old collector
+        is closed on the loop thread."""
+        self._pending_collector = collector
+
+    def _apply_pending_collector(self) -> None:
+        pending = self._pending_collector
+        if pending is None:
+            return
+        self._pending_collector = None
+        old = self._collector
+        self._collector = pending
+        try:
+            old.close()
+        except Exception:  # noqa: BLE001 - old backend teardown is best-effort
+            log.warning("old backend close failed during upgrade", exc_info=True)
+        log.info("backend upgraded: %s -> %s", old.name, pending.name)
+        self.rediscover()
 
     def _rebuild_slots(self) -> None:
         """Map device_id -> emit slot (rank by device index, ties keeping
@@ -353,14 +459,30 @@ class PollLoop:
     def tick(self) -> float:
         """Run one poll over all devices; publish a snapshot; return tick
         duration in seconds."""
+        return self._tick_as(None)
+
+    def _tick_as(self, owner: threading.Thread | None) -> float:
+        """One tick on behalf of ``owner`` (the loop thread, or None for
+        direct callers). A thread superseded by a respawn mid-tick — it
+        was wedged inside sampling when the watchdog gave up on it —
+        must not touch shared per-device state or publish a stale
+        snapshot over the fresh thread's: it discards its results at the
+        first post-sample check and retires."""
+        if owner is not None and self._thread is not owner:
+            return 0.0  # superseded before starting: don't sample at all
+        self._apply_pending_collector()
         tracer = self.tracer
         self._tick_seq += 1
         tracer.begin("tick", self._tick_seq)
         start = self._clock()
         results = self._sample_all()
         duration = self._clock() - start
+        if owner is not None and self._thread is not owner:
+            return duration  # superseded while sampling: discard
         self._hist = self._hist.observe(duration)
         snapshot = self._build_snapshot(results, now=start + duration)
+        if owner is not None and self._thread is not owner:
+            return duration  # superseded during the build: don't publish
         mark = tracer.mark()
         self._registry.publish(snapshot)
         tracer.add_span("publish", mark)
@@ -371,15 +493,25 @@ class PollLoop:
 
     def run_forever(self) -> None:
         """Drift-free fixed-rate loop until stop(); re-enumerates devices on
-        its own (slower) cadence."""
+        its own (slower) cadence so hotplug and renumbering heal without a
+        restart."""
+        me = threading.current_thread()
         next_fire = self._clock()
-        next_rediscovery = next_fire + self.REDISCOVERY_INTERVAL
+        next_rediscovery = next_fire + self._rediscovery_interval
         while not self._stop.is_set():
-            if self._clock() >= next_rediscovery:
+            if self._thread is not None and self._thread is not me:
+                # Crash-only supervision: a respawn replaced this thread
+                # while it was wedged. Now that it unwedged, retire
+                # quietly — the fresh thread owns the loop.
+                log.info("poll loop thread %s superseded by respawn; "
+                         "retiring", me.name)
+                return
+            if (self._rediscovery_interval > 0
+                    and self._clock() >= next_rediscovery):
                 self.rediscover()
-                next_rediscovery = self._clock() + self.REDISCOVERY_INTERVAL
+                next_rediscovery = self._clock() + self._rediscovery_interval
             try:
-                self.tick()
+                self._tick_as(me)
             except Exception:
                 # A tick must never kill the loop: an exception escaping a
                 # collector would otherwise leave the HTTP server serving a
@@ -387,6 +519,13 @@ class PollLoop:
                 # max age. Count, log, keep ticking.
                 self._count_error("tick_crash")
                 log.exception("poll tick crashed; continuing")
+            if self._heartbeat is not None:
+                # After the tick, crash or not: only a HUNG tick must
+                # starve the watchdog into a respawn.
+                try:
+                    self._heartbeat()
+                except Exception:  # noqa: BLE001 - observer must not kill us
+                    log.debug("poll heartbeat raised", exc_info=True)
             next_fire += self._interval
             delay = next_fire - self._clock()
             if delay <= 0:
@@ -397,8 +536,21 @@ class PollLoop:
             self._stop.wait(delay)
 
     def start(self) -> None:
-        self._thread = spawn(self.run_forever, name="poll-loop")
-        self._thread.start()
+        self.respawn()
+
+    def respawn(self) -> None:
+        """(Re)start the loop thread — the supervisor's crash-only restart
+        path: a wedged previous thread is abandoned and retires itself at
+        its next loop check. State carried by self (rate baselines,
+        restart counters, energy) survives, so a respawn is not a
+        telemetry reset."""
+        thread = spawn(self.run_forever, name="poll-loop")
+        self._thread = thread
+        thread.start()
+
+    def thread_alive(self) -> bool:
+        """Liveness probe for the supervisor."""
+        return self._thread is not None and self._thread.is_alive()
 
     def stop(self) -> None:
         self._stop.set()
@@ -445,6 +597,8 @@ class PollLoop:
                     self._count_error("stuck")
                     results[slot_of[dev.device_id]] = (dev, None)
                     continue
+                # pop, not del: an abandoned (superseded) loop thread
+                # can race this check-then-remove with the fresh thread.
                 self._outstanding.pop(dev.device_id, None)
             futures[self._pool.submit(work, dev)] = dev
         # One shared budget for the whole tick: every wait draws down the
@@ -516,13 +670,24 @@ class PollLoop:
         return True
 
     def _plan_for(self, dev: Device) -> _DevicePlan:
-        """Current compiled plan for this device — compile-on-miss."""
+        """Current compiled plan for this device — compile-on-miss. The
+        attribution key (sorted items) is the validity condition: a value
+        change for the SAME key set (pod rescheduled, empty→populated→
+        empty transitions) recompiles exactly this device's plan."""
+        attribution = self._attribution.lookup(dev)
+        # Cardinality fence BEFORE the plan key: an over-cap label value
+        # degrades to the "overflow" aggregate here, so churned values
+        # share one plan (and one series set) per device.
+        attribution = self._label_fence.fence(attribution)
+        key = tuple(sorted(attribution.items()))
         plan = self._plans.get(dev.device_id)
-        if plan is not None:
+        if plan is not None and plan.key == key:
             self._plan_cache_hits += 1
             return plan
-        self._plan_compiles["device"] = self._plan_compiles.get("device", 0) + 1
-        plan = _DevicePlan(dev, self._topology, self._disabled_metrics,
+        reason = "device" if plan is None else "attribution"
+        self._plan_compiles[reason] = self._plan_compiles.get(reason, 0) + 1
+        plan = _DevicePlan(dev, key, attribution, self._topology,
+                           self._drop_labels, self._disabled_metrics,
                            self._built_cell)
         self._plans[dev.device_id] = plan
         return plan
@@ -537,18 +702,26 @@ class PollLoop:
         baselines, passthrough admission) and return the derived per-
         device records. All mutation lives here; the emitter below is a
         pure function of the returned records."""
+        # Attribution staleness: the kubelet breaker is open / refreshes
+        # persistently failing, so lookups serve the retained last-good
+        # mapping. Evaluated once per snapshot.
+        attr_stale = bool(getattr(self._attribution, "stale", False))
+        openers = self._process_openers
         tick: list[_TickDevice] = []
         for dev, sample in results:
             plan = self._plan_for(dev)
             device_id = dev.device_id
+            holders = (tuple(openers(dev.device_path))
+                       if openers is not None else None)
+            stale = attr_stale or (sample is not None and sample.stale)
             if sample is None:
                 tick.append(_TickDevice(
-                    dev, None, plan, False,
+                    dev, None, plan, stale,
                     self._last_totals.get(device_id),
                     float(self._restarts.get(device_id, 0)),
                     (self._energy.get(device_id, 0.0)
                      if device_id in self._last_power_at else None),
-                    (), (),
+                    (), (), holders,
                 ))
                 continue
             retained_total = None
@@ -608,7 +781,7 @@ class PollLoop:
                     admitted.append((family, link, sample.raw_values[key]))
                 raw = tuple(admitted)
             tick.append(_TickDevice(
-                dev, sample, plan, sample.stale,
+                dev, sample, plan, stale,
                 retained_total,
                 # Unconditional, born at 0 (increase() discipline): the
                 # series must exist before the first restart or the alert
@@ -619,7 +792,7 @@ class PollLoop:
                 # source, like the embedded one).
                 (self._energy.get(device_id, 0.0)
                  if device_id in self._last_power_at else None),
-                ici, raw,
+                ici, raw, holders,
             ))
         return tick
 
@@ -678,6 +851,14 @@ class PollLoop:
                            tick: list[_TickDevice]) -> None:
         """Self-observability tail of every snapshot."""
         builder.add(schema.SELF_DEVICES, float(len(tick)))
+        allocatable = getattr(self._attribution, "allocatable", None)
+        if allocatable is not None:
+            for resource, count in sorted(allocatable().items()):
+                builder.add(
+                    schema.SELF_ALLOCATABLE,
+                    float(count),
+                    [("resource", resource)],
+                )
         for reason in sorted(self._errors):
             builder.add(
                 schema.SELF_POLL_ERRORS,
@@ -710,6 +891,14 @@ class PollLoop:
         builder.add(schema.SERIES_LIVE,
                     float(len(self._registry.snapshot().series)),
                     (("component", "exposition"),))
+        # The label fence's per-key hit counters when the fence is on
+        # (enabling it is a deliberate series-set change).
+        if self._label_fence.enabled:
+            fenced = self._label_fence.fenced_totals()
+            for label_key in sorted(fenced):
+                builder.add(schema.CARDINALITY_FENCED,
+                            float(fenced[label_key]),
+                            (("label", label_key),))
         builder.add(
             schema.SELF_INFO,
             1.0,
@@ -736,12 +925,33 @@ class PollLoop:
                 builder.add_histogram(hist)
         if self._render_stats is not None:
             self._render_stats(builder)
+        if self._health_stats is not None:
+            # Supervisor.contribute: kts_breaker_state / kts_component_*
+            # resilience self-metrics ride every snapshot.
+            self._health_stats(builder)
 
     def _emit_snapshot(self, tick: list[_TickDevice]):
-        builder = self._builder
-        builder.reset()
+        tls = self._tls
+        builder = getattr(tls, "builder", None)
+        if builder is None:
+            builder = tls.builder = (
+                FilteredSnapshotBuilder(self._disabled_metrics)
+                if self._disabled_metrics else SnapshotBuilder())
+        else:
+            builder.reset()
         for rec in tick:
             self._emit_device_plan(builder, rec)
+        if self._process_openers is not None:
+            for rec in tick:
+                if not rec.plan.holders_on:
+                    continue
+                # Holder entries are (pid, comm, pod_uid, value): 1 per
+                # real holder, the fold count on the capped
+                # {comm="_overflow"} series (procopen.scan).
+                for pid, comm, pod_uid, value in rec.holders or ():
+                    builder.add_series(
+                        rec.plan.holder_slot(pid, comm, pod_uid)
+                        .emit(value, False))
         device_series = builder.count
         self._contribute_shared(builder, tick)
         total = builder.count

@@ -56,8 +56,10 @@ class Tracer:
     CAPACITY = 128
     MAX_SPANS = 256
 
-    def __init__(self) -> None:
-        self.enabled = True
+    def __init__(self, *, enabled: bool = True) -> None:
+        # False (the daemon's --no-trace) turns every recording call into
+        # a cheap no-op and keeps the digest families absent.
+        self.enabled = enabled
         self.clock_ns = time.perf_counter_ns
         self._max_spans = self.MAX_SPANS
         self._ring: "collections.deque[TickTrace]" = collections.deque(

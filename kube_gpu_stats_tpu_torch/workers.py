@@ -1,4 +1,12 @@
-"""Daemon-thread sampler pool.
+"""Worker scaffolds: the refresh loop behind the daemon's caches, and the
+daemon-thread sampler pool.
+
+:class:`PeriodicRefresher` runs ``refresh_once()`` on its own daemon
+thread at a fixed cadence, with capped exponential backoff on persistent
+failure: the pod-attribution cache, the device-process watcher and the
+backend-upgrade watcher build on it.
+
+:class:`DaemonSamplerPool`:
 
 `concurrent.futures.ThreadPoolExecutor` creates non-daemon workers and
 registers an interpreter-exit hook that joins them — so one sample call
@@ -18,11 +26,74 @@ never waits (the wedged-backend rationale above).
 from __future__ import annotations
 
 import concurrent.futures
+import logging
 import queue
 import threading
 from typing import Callable
 
+from .resilience import BackoffPolicy
 from .supervisor import spawn
+
+log = logging.getLogger(__name__)
+
+
+class PeriodicRefresher:
+    """Background cache-refresh scaffold shared by the attribution watcher,
+    the device-process watcher and the backend-upgrade watcher (never on
+    the poll path): daemon thread, ``refresh_once()`` per period, capped
+    exponential backoff on persistent failure so a dead dependency isn't
+    hammered. Subclasses implement ``refresh_once()`` and maintain
+    ``consecutive_failures`` (an exported health counter, which is why
+    the policy is consulted statelessly from it)."""
+
+    BACKOFF_CAP_FACTOR = 6.0  # max wait = interval * this
+
+    def __init__(self, refresh_interval: float, thread_name: str,
+                 first_refresh_immediately: bool = True) -> None:
+        self._interval = refresh_interval
+        self._thread_name = thread_name
+        self._first_immediately = first_refresh_immediately
+        self._stop_event = threading.Event()
+        self._thread: threading.Thread | None = None
+        self.consecutive_failures = 0
+        self.backoff = BackoffPolicy(
+            base=max(refresh_interval, 1e-6),
+            cap=max(refresh_interval, 1e-6) * self.BACKOFF_CAP_FACTOR)
+
+    def refresh_once(self) -> None:
+        raise NotImplementedError
+
+    def _run(self) -> None:
+        if not self._first_immediately:
+            # e.g. the backend-upgrade watcher: construction just probed,
+            # an immediate re-probe would be a duplicate.
+            self._stop_event.wait(self._interval)
+        while not self._stop_event.is_set():
+            try:
+                self.refresh_once()
+            except Exception:  # noqa: BLE001 - a raising subclass must not
+                # silently kill its watcher thread (stale cache forever);
+                # containment lives HERE, once, not in every subclass.
+                self.consecutive_failures += 1
+                log.warning("%s refresh crashed (%d consecutive)",
+                            self._thread_name, self.consecutive_failures,
+                            exc_info=True)
+            wait = self.backoff.interval_for(self.consecutive_failures)
+            self._stop_event.wait(wait)
+
+    def start(self) -> None:
+        self._thread = spawn(self._run, name=self._thread_name)
+        self._thread.start()
+
+    def thread_alive(self) -> bool:
+        """Liveness probe for the supervisor; start() doubles as the
+        crash-only restart (fresh thread, retained cache/state)."""
+        return self._thread is not None and self._thread.is_alive()
+
+    def stop(self) -> None:
+        self._stop_event.set()
+        if self._thread:
+            self._thread.join(timeout=5)
 
 
 class DaemonSamplerPool:

@@ -11,7 +11,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from kube_gpu_stats_tpu.loadgen import burn as jax_burn  # noqa: E402
-from kube_gpu_stats_tpu_torch import embedded, entry  # noqa: E402
+from kube_gpu_stats_tpu_torch import entry, kinds  # noqa: E402
 from kube_gpu_stats_tpu_torch.convert import from_jax_arrays  # noqa: E402
 from kube_gpu_stats_tpu_torch.loadgen import burn  # noqa: E402
 
@@ -174,5 +174,5 @@ def test_main_offers_only_this_slice(argv):
     ("TPU v5 lite", None, None),
 ])
 def test_kind_tables(name, capacity, peak):
-    assert embedded._kind_capacity(name) == capacity
-    assert embedded._kind_peak_flops(name) == peak
+    assert kinds._kind_capacity(name) == capacity
+    assert kinds._kind_peak_flops(name) == peak

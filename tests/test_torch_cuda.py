@@ -1,10 +1,20 @@
 """The tiled GEMM kernel on the card (sm_90a) against its plain version,
-and the embedded collector's memory and MFU on the card.
+the embedded collector's memory and MFU on the card, and the NVML binding
+and backend on the card: the binding's constants and struct layouts
+against the toolkit's ``nvml.h``, discovery against ``nvidia-smi``, one
+sample within the ranges of the smoke test.
 
 Marked ``cuda``: these skip without a compute-capability-9.0 card. On
 one, run them with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 This file imports no JAX, so it also runs where JAX is not installed.
 """
+
+import ctypes
+import json
+import os
+import pathlib
+import shutil
+import subprocess
 
 import pytest
 import torch
@@ -145,3 +155,129 @@ def test_embedded_collector_mfu_against_the_h100_peak(card, monkeypatch):
     assert values[schema.PEAK_FLOPS.name] == 989e12
     # 989e12 FLOPs over a 2 s window on one card: 50% of the peak.
     assert values[schema.WORKLOAD_MFU.name] == pytest.approx(50.0, rel=1e-12)
+
+
+# -- NVML ----------------------------------------------------------------------
+
+# The binding's constants, by their nvml.h names.
+_NVML_CONSTANTS = (
+    "NVML_SUCCESS", "NVML_ERROR_UNINITIALIZED", "NVML_ERROR_NOT_SUPPORTED",
+    "NVML_ERROR_DRIVER_NOT_LOADED", "NVML_ERROR_LIBRARY_NOT_FOUND",
+    "NVML_ERROR_FUNCTION_NOT_FOUND", "NVML_ERROR_GPU_IS_LOST",
+    "NVML_ERROR_UNKNOWN", "NVML_TEMPERATURE_GPU",
+    "NVML_DEVICE_UUID_V2_BUFFER_SIZE", "NVML_DEVICE_NAME_V2_BUFFER_SIZE",
+    "NVML_FI_DEV_NVLINK_LINK_COUNT", "NVML_FI_DEV_NVLINK_THROUGHPUT_DATA_TX",
+    "NVML_FI_DEV_NVLINK_THROUGHPUT_DATA_RX", "NVML_VALUE_TYPE_DOUBLE",
+    "NVML_VALUE_TYPE_UNSIGNED_INT", "NVML_VALUE_TYPE_UNSIGNED_LONG",
+    "NVML_VALUE_TYPE_UNSIGNED_LONG_LONG", "NVML_VALUE_TYPE_SIGNED_LONG_LONG",
+    "NVML_VALUE_TYPE_SIGNED_INT",
+)
+
+
+def _nvml_structs():
+    from kube_gpu_stats_tpu_torch.native import nvml as binding
+
+    return {"nvmlUtilization_t": binding.NvmlUtilization,
+            "nvmlMemory_t": binding.NvmlMemory,
+            "nvmlValue_t": binding.NvmlValue,
+            "nvmlFieldValue_t": binding.NvmlFieldValue}
+
+
+def _nvml_header() -> pathlib.Path:
+    roots = [os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"]
+    for root in filter(None, roots):
+        for sub in ("include", "targets/x86_64-linux/include"):
+            path = pathlib.Path(root) / sub / "nvml.h"
+            if path.exists():
+                return path
+    raise AssertionError(f"no nvml.h under {roots}")
+
+
+def test_nvml_binding_matches_the_header(card, tmp_path):
+    """Compiles a probe against the toolkit's nvml.h and holds every
+    constant, struct size and member offset of the binding against it."""
+    from kube_gpu_stats_tpu_torch.native import nvml as binding
+
+    header = _nvml_header()
+    lines = ["#include <stdio.h>", "#include <stddef.h>", "#include <nvml.h>",
+             "int main(void) {", 'printf("{");']
+    for name in _NVML_CONSTANTS:
+        lines.append(f'printf("\\"{name}\\": %lld, ", (long long)({name}));')
+    for ctype, cls in _nvml_structs().items():
+        lines.append(f'printf("\\"sizeof {ctype}\\": %zu, ", '
+                     f"sizeof({ctype}));")
+        for member, _ in cls._fields_:
+            lines.append(f'printf("\\"{ctype}.{member}\\": %zu, ", '
+                         f"offsetof({ctype}, {member}));")
+    lines += ['printf("\\"end\\": 0}\\n");', "return 0; }"]
+    source = tmp_path / "probe.c"
+    source.write_text("\n".join(lines))
+    compiler = shutil.which("cc") or shutil.which("gcc")
+    cmd = ([compiler] if compiler else
+           [shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc", "-x", "c"])
+    exe = tmp_path / "probe"
+    subprocess.run(cmd + [f"-I{header.parent}", str(source), "-o", str(exe)],
+                   check=True, capture_output=True, timeout=300)
+    got = json.loads(subprocess.run([str(exe)], check=True,
+                                    capture_output=True, text=True,
+                                    timeout=60).stdout)
+    for name in _NVML_CONSTANTS:
+        assert getattr(binding, name) == got[name], name
+    for ctype, cls in _nvml_structs().items():
+        assert ctypes.sizeof(cls) == got[f"sizeof {ctype}"], ctype
+        for member, _ in cls._fields_:
+            assert getattr(cls, member).offset == got[f"{ctype}.{member}"], \
+                f"{ctype}.{member}"
+
+
+def _smi(fields: str) -> list[list[str]]:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={fields}",
+                          "--format=csv,noheader,nounits"], check=True,
+                         capture_output=True, text=True, timeout=60).stdout
+    return [[c.strip() for c in line.split(",")]
+            for line in out.strip().splitlines()]
+
+
+def test_nvml_discovery_matches_nvidia_smi(card):
+    from kube_gpu_stats_tpu_torch.collectors.nvml import NvmlCollector
+
+    collector = NvmlCollector()
+    try:
+        devices = collector.discover()
+    finally:
+        collector.close()
+    rows = _smi("index,uuid,name")
+    assert [(d.index, d.uuid) for d in devices] == \
+        [(int(r[0]), r[1]) for r in rows]
+    for dev, row in zip(devices, rows):
+        assert dev.device_path.startswith("/dev/nvidia")
+        assert dev.accel_type == ("gpu-h100" if "H100" in row[2]
+                                  else dev.accel_type)
+    assert "GPU-" + str(torch.cuda.get_device_properties(0).uuid) in \
+        {d.uuid for d in devices}
+
+
+def test_nvml_sample_within_the_smoke_ranges(card):
+    from kube_gpu_stats_tpu_torch import schema
+    from kube_gpu_stats_tpu_torch.collectors.nvml import NvmlCollector
+
+    held = torch.empty(256 << 20, dtype=torch.uint8, device="cuda:0")
+    uuid = "GPU-" + str(torch.cuda.get_device_properties(0).uuid)
+    limits = {r[0]: (float(r[1]), float(r[2]))
+              for r in _smi("uuid,memory.total,power.limit")}
+    collector = NvmlCollector()
+    try:
+        (dev,) = [d for d in collector.discover() if d.uuid == uuid]
+        values = collector.sample(dev).values
+    finally:
+        collector.close()
+    total_mib, limit_w = limits[uuid]
+    assert 0 <= values[schema.DUTY_CYCLE.name] <= 100
+    assert 0 <= values[schema.MEMORY_BANDWIDTH_UTIL.name] <= 100
+    used = values[schema.MEMORY_USED.name]
+    total = values[schema.MEMORY_TOTAL.name]
+    assert torch.cuda.memory_reserved(0) <= used <= total
+    assert abs(total - total_mib * 1024**2) <= 1024**2
+    assert 0 < values[schema.POWER.name] <= limit_w
+    assert 20 <= values[schema.TEMPERATURE.name] <= 100
+    del held

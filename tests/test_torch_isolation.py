@@ -72,3 +72,26 @@ def _imported_modules(path: pathlib.Path) -> list[str]:
                          ids=[str(p.relative_to(ROOT)) for p in SOURCES])
 def test_no_import_statement_names_jax_or_the_reference(path):
     assert [m for m in _imported_modules(path) if _forbidden(m)] == []
+
+
+_IMPORT_DAEMON_PATH = """
+import json, sys
+import kube_gpu_stats_tpu_torch.cli
+import kube_gpu_stats_tpu_torch.collectors.nvml
+import kube_gpu_stats_tpu_torch.daemon
+import kube_gpu_stats_tpu_torch.testing.fake_nvml
+print(json.dumps(sorted(sys.modules)))
+"""
+
+
+def test_the_daemon_path_imports_no_torch():
+    """The DaemonSet image carries no CUDA userspace beyond NVML: the
+    daemon, its CLI and its NVML backend must not pull torch in (nor,
+    as everywhere, JAX or the reference)."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_DAEMON_PATH],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert [m for m in loaded
+            if m == "torch" or m.startswith("torch.") or _forbidden(m)] == []
