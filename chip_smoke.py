@@ -25,6 +25,12 @@ prints its result line after one):
 5. trace 100 steps of the ``cuda`` burn at size 4096 with torch.profiler:
    device time per step by kernel, and the device's busy share;
 6. ``entry()`` once on the card;
+6b. the multi-card load generator (``multichip``), in spawned ranks so no
+   process group stays up in this process: ``dryrun_multichip(1)`` over
+   NCCL; one ``make_sharded_train_step`` step at the reference's default
+   widths on the card held against the same step on the CPU, and its
+   time; ``run_ici_burn`` for 3 s at ``shard_mb=4``; ``python -m
+   kube_gpu_stats_tpu_torch loadgen --mode ici --seconds 3``;
 7. the embedded exporter: ``python -m kube_gpu_stats_tpu_torch.loadgen
    --kernel cuda --size 4096 --embedded-port 0`` as a subprocess, its
    ``/metrics`` scraped while it burns (per-card steps, MFU, peak FLOPs,
@@ -32,16 +38,23 @@ prints its result line after one):
    ``embedded.start(0)`` with ``step_hook=exporter.record_step`` (launch
    counter set to 0 before, read after), its exported counters held
    against the burn's own, and the burn without the exporter beside it;
+   every scrape held to the ``accelerator_*`` contract by the port's
+   ``validate.check`` against the scrape before it;
 8. the DaemonSet exporter: ``python -m kube_gpu_stats_tpu_torch
    --backend nvml --listen-port 0 --interval 0.5 --attribution off
    --textfile-dir <tmp>`` as a subprocess, scraped once while the card
    idles and three times during the ``cuda`` burn on card 0 in this
    process (launch counter set to 0 before, read after), each scrape
    held against ``nvidia-smi`` and NVML's energy counter read beside it:
-   one ``accelerator_up 1`` per card with the same UUIDs, duty cycle,
-   memory, power, temperature, energy, this process among the card's
-   holders; the textfile, ``/healthz``, exit 0 on SIGTERM; then the tick,
-   render and scrape costs and the median time of each bound NVML call;
+   one ``accelerator_up 1`` per card with the same UUIDs, the embedded
+   exporter's ``device_path`` equal to the daemon's for the same UUID,
+   duty cycle, memory used within MEM_TOL_MIB of ``nvidia-smi``'s, power,
+   temperature, energy, the GPM families (or, where the container refuses
+   GPM, their absence and the return code), this process among the
+   card's holders, every scrape through ``validate.check``; ``python -m
+   kube_gpu_stats_tpu_torch validate --two-scrapes``, the textfile,
+   ``/healthz``, exit 0 on SIGTERM; then the tick, render and scrape
+   costs and the median time of each bound NVML call;
 9. time the kernel, its plain version and one library call
    (``torch.mm`` with f32 out) at the main path's and the sweep's sizes,
    each as the median of batches of back-to-back calls;
@@ -54,6 +67,7 @@ Exits non-zero, printing no result, when CUDA is unavailable.
 from __future__ import annotations
 
 import collections
+import gzip
 import json
 import math
 import os
@@ -72,15 +86,20 @@ import urllib.request
 
 import torch
 
-from kube_gpu_stats_tpu_torch import _build, config, daemon, embedded, schema
+from kube_gpu_stats_tpu_torch import (_build, config, daemon, embedded, schema,
+                                      validate)
 from kube_gpu_stats_tpu_torch.kinds import _kind_lookup, _kind_peak_flops
-from kube_gpu_stats_tpu_torch.entry import entry
+from kube_gpu_stats_tpu_torch.entry import dryrun_multichip, entry
 from kube_gpu_stats_tpu_torch.loadgen import tiled_burn
 from kube_gpu_stats_tpu_torch.loadgen.burn import (make_all_device_burn,
+                                                   make_sharded_train_step,
                                                    run_burn, sweep_burn)
 from kube_gpu_stats_tpu_torch.loadgen.tiled_burn import (
     tiled_all_device_burn, tiled_matmul, tiled_matmul_reference)
+from kube_gpu_stats_tpu_torch.loadgen.ici_burn import run_ici_burn
+from kube_gpu_stats_tpu_torch.loadgen.mesh import run_ranks
 from kube_gpu_stats_tpu_torch.native import nvml as nvml_binding
+from kube_gpu_stats_tpu_torch.testing import ranks
 
 MAIN_SIZE = 4096
 SWEEP_SIZES = (1024, 2048, 4096, 8192)
@@ -127,6 +146,20 @@ POWER_TOL = 0.15
 ENERGY_TOL = 0.15
 NVML_CALLS = 200
 TICK_BUDGET_MS = 50.0
+# Served memory used against nvidia-smi's memory.used, read right after
+# the scrape: nvidia-smi reports whole MiB, and between the tick and the
+# read the burn's caching allocator may map one more segment (2 or 20
+# MiB). The bound is a fifteenth of the driver's reservation (480 MiB on
+# an H100 80GB), which version 1 of the memory struct counted as used.
+MEM_TOL_MIB = 32
+# The multichip phase: the ring's length and shard, the step's timing
+# (batches of STEP_CALLS steps, median of TIMING_BATCHES), and the step
+# on the card against the CPU: f32 both, TF32 off, the sums of the
+# products and all-reduces in another order.
+ICI_SECONDS = 3.0
+ICI_SHARD_MB = 4.0
+STEP_CALLS = 20
+SHARDED_RTOL, SHARDED_ATOL = 1e-5, 1e-6
 MIB = 1024**2
 ROOT = pathlib.Path(__file__).resolve().parent
 KERNEL_NAME = "tiled_gemm_bf16_f32"
@@ -456,22 +489,11 @@ def phase_entry() -> None:
     emit("entry", {"shape": list(y.shape), "dtype": str(y.dtype)})
 
 
-_SERIES = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$')
-_LABEL = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
-
-
-def parse_metrics(text: str) -> list[tuple[str, dict, float]]:
-    """(name, labels, value) for every sample line of a Prometheus text
-    exposition."""
-    out = []
-    for line in text.splitlines():
-        if not line or line.startswith("#"):
-            continue
-        match = _SERIES.match(line)
-        require(match is not None, f"unparsable exposition line {line!r}")
-        name, labels, value = match.groups()
-        out.append((name, dict(_LABEL.findall(labels or "")), float(value)))
-    return out
+def conforms(text: str, previous: str | None, what: str) -> None:
+    """The scrape holds to the ``accelerator_*`` contract, and its
+    counters did not go backwards since ``previous``."""
+    problems = validate.check(text, previous)
+    require(not problems, f"{what}: {problems[:10]}")
 
 
 def scrape(port: int, path: str = "/metrics") -> str:
@@ -503,8 +525,9 @@ def check_card_families(series, n_cards: int) -> dict:
     for labels in ups:
         require(labels["accel_type"] == "gpu-h100",
                 f"accel_type {labels['accel_type']!r}")
-        require(labels["device_path"].startswith("/dev/nvidia"),
-                f"device_path {labels['device_path']!r}")
+        # NVML is there: the minor number's file, never the UUID.
+        require(re.fullmatch(r"/dev/nvidia\d+", labels["device_path"])
+                is not None, f"device_path {labels['device_path']!r}")
     info = [labels for family, labels, _ in series
             if family == schema.SELF_INFO.name]
     require(len(info) == 1 and info[0]["backend"] == "torch-embedded",
@@ -570,8 +593,12 @@ def embedded_cli() -> dict:
         # Scrape 1: the first one with steps counted; then two more,
         # SCRAPE_GAP_S apart, while the burn runs.
         deadline = time.monotonic() + CLI_START_S
+        previous = None
         while True:
-            series = parse_metrics(scrape(port))
+            text = scrape(port)
+            conforms(text, previous, "embedded CLI scrape")
+            previous = text
+            series = validate.parse_exposition(text)
             steps = per_card(series, schema.WORKLOAD_STEPS.name)
             if steps and min(steps.values()) > 0:
                 break
@@ -580,7 +607,10 @@ def embedded_cli() -> dict:
         scrapes = [(time.monotonic(), series)]
         for _ in range(2):
             time.sleep(SCRAPE_GAP_S)
-            scrapes.append((time.monotonic(), parse_metrics(scrape(port))))
+            text = scrape(port)
+            conforms(text, previous, "embedded CLI scrape")
+            previous = text
+            scrapes.append((time.monotonic(), validate.parse_exposition(text)))
         healthz = scrape(port, "/healthz")
         require(healthz == "ok\n", f"/healthz said {healthz!r}")
         steps_seen = [check_card_families(series, n_cards)
@@ -603,11 +633,14 @@ def embedded_cli() -> dict:
     steady = [json.loads(line)["steady_state"] for line in out
               if line.startswith('{"steady_state"')]
     require(len(steady) == 1, f"no steady_state line: {out}")
+    paths = {int(labels["chip"]): labels["device_path"]
+             for family, labels, _ in scrapes[-1][1]
+             if family == schema.DEVICE_UP.name}
     return {"scrapes": len(scrapes),
             "scrape_gap_s": [b[0] - a[0] for a, b in zip(scrapes,
                                                          scrapes[1:])],
             "steps": [s[0] for s in steps_seen], "mfu_pct": mfu,
-            "steps_per_s": steady[0]["steps_per_s"]}
+            "steps_per_s": steady[0]["steps_per_s"], "device_paths": paths}
 
 
 def burn_under_exporter() -> dict:
@@ -624,14 +657,23 @@ def burn_under_exporter() -> dict:
         exporter.record_step(n, seconds=seconds, flops=flops)
 
     stop = threading.Event()
+    problems: list = []
+    checked = [0]
 
     def scraper() -> None:
+        previous = None
         while not stop.wait(0.5):
             request = urllib.request.Request(
                 f"http://127.0.0.1:{exporter.port}/metrics",
                 headers={"Accept-Encoding": "gzip"})
             with urllib.request.urlopen(request, timeout=10) as resp:
-                resp.read()
+                body = resp.read()
+                if resp.headers.get("Content-Encoding") == "gzip":
+                    body = gzip.decompress(body)
+            text = body.decode()
+            problems.extend(validate.check(text, previous))
+            checked[0] += 1
+            previous = text
 
     try:
         scraping = threading.Thread(target=scraper, daemon=True)
@@ -654,6 +696,8 @@ def burn_under_exporter() -> dict:
     finally:
         stop.set()
         exporter.stop()
+    require(not problems and checked[0] > 0,
+            f"in-process scrapes: {checked[0]} checked, {problems[:10]}")
     series = [(s.spec.name, dict(s.labels), s.value) for s in snapshot.series]
     exported = per_card(series, schema.WORKLOAD_STEPS.name)
     flops = per_card(series, schema.WORKLOAD_FLOPS.name)
@@ -692,9 +736,10 @@ def burn_under_exporter() -> dict:
                       "series": len(snapshot.series)}}
 
 
-def phase_embedded(card: str, main_cuda_steps_per_s: float) -> int:
+def phase_embedded(card: str, main_cuda_steps_per_s: float
+                   ) -> tuple[int, dict]:
     """The embedded exporter on the card; returns the kernel launches of
-    its in-process burns."""
+    its in-process burns and the ``device_path`` it served per chip."""
     cli = embedded_cli()
     emit("embedded_cli", cli)
     # In turns, with and without the exporter: with, without, without,
@@ -724,7 +769,77 @@ def phase_embedded(card: str, main_cuda_steps_per_s: float) -> int:
         "launches": {"with_exporter": [run["launches"]
                                        for run in runs["with"]],
                      "all": launches}})
-    return launches
+    return launches, cli["device_paths"]
+
+def _step_rank(rank: int, world: int) -> dict:
+    """A spawned NCCL rank: one sharded step at the reference's default
+    widths (TF32 off), then the step's time, median of batches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = ranks.train_step(rank, world, "cuda")
+    _, train_step, params, x = make_sharded_train_step(world)
+    for _ in range(TIMING_WARMUP):
+        params, _ = train_step(params, x)
+    per_step = [_batch_ms(lambda: train_step(params, x), STEP_CALLS)
+                for _ in range(TIMING_BATCHES)]
+    out["step_ms"] = {"median": statistics.median(per_step),
+                      "min": min(per_step), "max": max(per_step),
+                      "steps_per_batch": STEP_CALLS}
+    out["nccl"] = torch.cuda.nccl.version()
+    return out
+
+
+def phase_multichip(card: str) -> None:
+    """The multi-card load generator on this machine's cards, each part
+    in spawned ranks (NCCL), so no process group is left up here: it
+    would change the burn's and the embedded exporter's world size."""
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    dryrun_multichip(n)
+    dryrun_s = time.perf_counter() - t0
+
+    [step] = run_ranks(_step_rank, 1, device="cuda")
+    [plain] = run_ranks(ranks.train_step, 1, device="cpu", args=("cpu",))
+    errors = {}
+    for key in ("w1", "w2", "x"):
+        require((step[key] == plain[key]).all(),
+                f"the card and the CPU started from other {key}")
+    for key in ("new_w1", "new_w2"):
+        err = float(abs(step[key] - plain[key]).max())
+        limit = SHARDED_ATOL + SHARDED_RTOL * float(abs(plain[key]).max())
+        errors[key] = err
+        require(err <= limit, f"sharded step {key} on the card vs the CPU: "
+                f"{err} > {limit}")
+    require(step["loss"] > 0 and math.isclose(
+        step["loss"], plain["loss"], rel_tol=SHARDED_RTOL),
+        f"loss {step['loss']} on the card vs {plain['loss']} on the CPU")
+
+    ring: dict = {}
+    rounds = run_ici_burn(ICI_SECONDS, shard_mb=ICI_SHARD_MB,
+                          report_every=1e9, result=ring)
+    require(rounds > 0 and ring["rounds"] == rounds and ring["devices"] == n,
+            f"ring {ring}")
+    cli = subprocess.run(
+        [sys.executable, "-m", "kube_gpu_stats_tpu_torch", "loadgen",
+         "--mode", "ici", "--seconds", str(ICI_SECONDS)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    reports = [line for line in cli.stdout.splitlines()
+               if line.startswith("ici-burn:")]
+    require(cli.returncode == 0 and reports,
+            f"loadgen --mode ici exited {cli.returncode}: "
+            f"{cli.stdout[-2000:]} {cli.stderr[-2000:]}")
+    emit("multichip", {
+        "card": card, "cards": n, "backend": "nccl",
+        "nccl": step["nccl"],
+        # One rank: no hop leaves the card, so no NVLink byte moves.
+        "links": n if n > 1 else 0,
+        "dryrun_multichip_s": dryrun_s,
+        "step": {"mesh": [step["dp"], step["tp"]], "loss": step["loss"],
+                 "loss_cpu": plain["loss"], "max_abs_err": errors,
+                 "rtol": SHARDED_RTOL, "atol": SHARDED_ATOL,
+                 "ms": step["step_ms"]},
+        "ici": {**ring, "shard_mb": ICI_SHARD_MB},
+        "ici_cli": {"rc": cli.returncode, "last_report": reports[-1]}})
+
 
 def smi(fields: str) -> list[list[str]]:
     """One ``nvidia-smi --query-gpu`` row per card, without units."""
@@ -776,14 +891,16 @@ def poll_count(series) -> float:
     return sum(value for family, _, value in series if family == name)
 
 
-def fresh_scrape(port: int, after: float):
-    """The first scrape whose tick count passed ``after``: read right at a
-    publish, so what is read beside it lines up with the tick."""
+def fresh_scrape(port: int, after: float) -> tuple[str, list]:
+    """The first scrape whose tick count passed ``after``, as text and
+    parsed: read right at a publish, so what is read beside it lines up
+    with the tick."""
     deadline = time.monotonic() + 10
     while True:
-        series = parse_metrics(scrape(port))
+        text = scrape(port)
+        series = validate.parse_exposition(text)
         if poll_count(series) > after:
-            return series
+            return text, series
         require(time.monotonic() < deadline, "the daemon stopped ticking")
         time.sleep(0.02)
 
@@ -910,7 +1027,8 @@ def burn_scrape_row(series, uuid: str, smi_now: dict,
              for family in (schema.DEVICE_UP.name, schema.DUTY_CYCLE.name,
                             schema.MEMORY_USED.name, schema.MEMORY_TOTAL.name,
                             schema.POWER.name, schema.TEMPERATURE.name,
-                            schema.ENERGY.name)}
+                            schema.ENERGY.name, schema.TENSORCORE_UTIL.name,
+                            schema.MEMORY_BANDWIDTH_UTIL.name)}
     labels = mine.get(schema.DEVICE_UP.name, ({}, None))[0]
     return {"up": value[schema.DEVICE_UP.name],
             "accel_type": labels.get("accel_type"),
@@ -920,11 +1038,14 @@ def burn_scrape_row(series, uuid: str, smi_now: dict,
             "power_w": value[schema.POWER.name],
             "temperature": value[schema.TEMPERATURE.name],
             "energy_j": value[schema.ENERGY.name],
+            "tensorcore_util": value[schema.TENSORCORE_UTIL.name],
+            "memory_bandwidth_util": value[schema.MEMORY_BANDWIDTH_UTIL.name],
             "smi_power_w": smi_now["power_w"], "smi_util": smi_now["util"],
             "smi_memory_used_mib": smi_now["memory_used_mib"]}
 
 
-def check_burn_row(row: dict, card: dict) -> None:
+def check_burn_row(row: dict, card: dict, gpm_on: bool,
+                   idle_tensor: float | None) -> None:
     """What the daemon must serve for the burn's card during the burn."""
     require(row["up"] == 1.0, f"burn card not up: {row}")
     require(row["accel_type"] == "gpu-h100", f"accel_type {row}")
@@ -933,6 +1054,10 @@ def check_burn_row(row: dict, card: dict) -> None:
     require(row["reserved"] <= row["used"] <= row["total"],
             f"memory used {row['used']} not in [reserved "
             f"{row['reserved']}, {row['total']}]")
+    require(abs(row["used"] - row["smi_memory_used_mib"] * MIB)
+            <= MEM_TOL_MIB * MIB,
+            f"memory used {row['used']} not within {MEM_TOL_MIB} MiB of "
+            f"nvidia-smi's {row['smi_memory_used_mib']} MiB")
     require(abs(row["total"] - card["memory_total_mib"] * MIB) <= MIB,
             f"memory total {row['total']} != nvidia-smi's "
             f"{card['memory_total_mib']} MiB")
@@ -943,11 +1068,63 @@ def check_burn_row(row: dict, card: dict) -> None:
             f"power {row['power_w']} W vs nvidia-smi {row['smi_power_w']} W")
     require(20 <= row["temperature"] <= 100,
             f"temperature {row['temperature']}")
+    bandwidth = row["memory_bandwidth_util"]
+    if gpm_on:
+        tensor = row["tensorcore_util"]
+        require(tensor is not None and 0 < tensor <= 100
+                and bandwidth is not None and 0 < bandwidth <= 100,
+                f"GPM families not in (0, 100] in the burn: {row}")
+        require(tensor > idle_tensor,
+                f"tensor-core utilization {tensor} not above idle "
+                f"{idle_tensor}")
+    else:
+        # No GPM: no tensor-core reading, NVML's memory time share.
+        require(row["tensorcore_util"] is None,
+                f"tensor-core utilization served without GPM: {row}")
+        require(bandwidth is not None and 0 <= bandwidth <= 100,
+                f"memory bandwidth utilization {bandwidth}")
 
 
-def phase_daemon(card_line: str) -> int:
+def gpm_probe(nvml, handle: int) -> dict:
+    """Whether this card gives GPM in this container: the support query,
+    then one sample, as the daemon's collector tries them."""
+    out: dict = {}
+    try:
+        out["supported"] = nvml.gpm_supported(handle)
+    except nvml_binding.NvmlError as exc:
+        return {"supported": None, "rc": exc.code, "error": str(exc)}
+    if not out["supported"]:
+        return out
+    sample = nvml.gpm_sample_alloc()
+    try:
+        nvml.gpm_sample_get(handle, sample)
+        out["rc"] = nvml_binding.NVML_SUCCESS
+    except nvml_binding.NvmlError as exc:
+        out.update(rc=exc.code, error=str(exc))
+    finally:
+        nvml.gpm_sample_free(sample)
+    if out["rc"] != nvml_binding.NVML_SUCCESS:
+        # Refused: does nvidia-smi read GPM here ("-" where it cannot),
+        # and are the card's counters restricted to admins?
+        dmon = subprocess.run(
+            ["nvidia-smi", "dmon", "--gpm-metrics", "2,5,10", "-c", "1"],
+            capture_output=True, text=True, timeout=60)
+        out["nvidia_smi_dmon_gpm"] = (dmon.stdout.strip().splitlines()[-1]
+                                      if dmon.returncode == 0 and
+                                      dmon.stdout.strip()
+                                      else f"exit {dmon.returncode}")
+        params = pathlib.Path("/proc/driver/nvidia/params")
+        lines = params.read_text().splitlines() if params.exists() else []
+        out["RmProfilingAdminOnly"] = next(
+            (line.split(":", 1)[1].strip() for line in lines
+             if line.startswith("RmProfilingAdminOnly")), None)
+    return out
+
+
+def phase_daemon(card_line: str, embedded_paths: dict) -> int:
     """The DaemonSet exporter on the card under the ``cuda`` burn; returns
-    the kernel launches of the burn."""
+    the kernel launches of the burn. ``embedded_paths``: the embedded
+    exporter's ``device_path`` per CUDA ordinal."""
     cards = {row[1]: {"index": int(row[0]), "uuid": row[1], "name": row[2],
                       "memory_total_mib": float(row[3]),
                       "power_limit_w": float(row[4])}
@@ -960,33 +1137,64 @@ def phase_daemon(card_line: str) -> int:
     textfile_dir = tempfile.mkdtemp(prefix="kts-textfile-")
     proc = None
     try:
+        handle = next(h for h in (nvml.handle(i)
+                                  for i in range(nvml.device_count()))
+                      if nvml.uuid(h) == burn_uuid)
+        # Before the daemon opens its own GPM samples.
+        gpm = gpm_probe(nvml, handle)
+        gpm_on = gpm.get("rc") == nvml_binding.NVML_SUCCESS
+        memory_v2 = dict(zip(("total", "reserved", "free", "used"),
+                             nvml.memory(handle)))
         proc, port, log = start_daemon(textfile_dir)
-        # Idle: every card up, with nvidia-smi's UUIDs.
-        idle = fresh_scrape(port, 0.0)
+        # Idle, two ticks in (GPM serves from the second): every card up,
+        # with nvidia-smi's UUIDs.
+        idle_text, idle = fresh_scrape(port, 1.0)
+        conforms(idle_text, None, "daemon scrape")
         ups = {labels["uuid"]: value for family, labels, value in idle
                if family == schema.DEVICE_UP.name}
         require(ups == {uuid: 1.0 for uuid in cards},
                 f"accelerator_up {ups} != nvidia-smi's cards {sorted(cards)}")
-        device_path = card_series(idle, burn_uuid)[
-            schema.DEVICE_UP.name][0]["device_path"]
+        daemon_paths = {labels["uuid"]: labels["device_path"]
+                        for family, labels, _ in idle
+                        if family == schema.DEVICE_UP.name}
+        device_path = daemon_paths[burn_uuid]
         require(stat.S_ISCHR(os.stat(device_path).st_mode),
                 f"{device_path} is not a character device")
-        handle = next(h for h in (nvml.handle(i)
-                                  for i in range(nvml.device_count()))
-                      if nvml.uuid(h) == burn_uuid)
+        # One card, one device file: the embedded exporter's is the
+        # daemon's for the same UUID.
+        for chip, path in embedded_paths.items():
+            uuid = embedded.cuda_uuid(torch.device("cuda", chip))
+            require(path == daemon_paths[uuid],
+                    f"chip {chip} ({uuid}): embedded device_path {path} "
+                    f"!= the daemon's {daemon_paths[uuid]}")
+        idle_row = card_series(idle, burn_uuid)
+        idle_tensor = idle_row.get(schema.TENSORCORE_UTIL.name,
+                                   (None, None))[1]
+        idle_bandwidth = idle_row.get(schema.MEMORY_BANDWIDTH_UTIL.name,
+                                      (None, None))[1]
+        if gpm_on:
+            require(idle_tensor is not None,
+                    "GPM works here but the daemon serves no tensor-core "
+                    "utilization")
 
         # The burn on card 0, scraped from another thread.
         seen: list = []
+        texts: list = []
         failure: list = []
 
         def scraper(start: float) -> None:
             try:
-                after = poll_count(idle)
                 for k in range(DAEMON_SCRAPES):
                     time.sleep(max(0.0, start + DAEMON_SCRAPE_START_S
                                    + DAEMON_SCRAPE_GAP_S * k
                                    - time.monotonic()))
-                    series = fresh_scrape(port, after)
+                    # Wait for the next tick from here, so each scrape
+                    # (the first too) is read right at a publish and the
+                    # energy counter read beside it lines up with it.
+                    after = poll_count(validate.parse_exposition(
+                        scrape(port)))
+                    text, series = fresh_scrape(port, after)
+                    texts.append(text)
                     energy_mj = nvml.energy_mj(handle)
                     reserved = torch.cuda.memory_reserved(0)
                     at = time.monotonic()
@@ -997,7 +1205,6 @@ def phase_daemon(card_line: str) -> int:
                                "memory_used_mib": float(row[2]),
                                "power_w": float(row[3])}
                     seen.append((at, series, energy_mj, smi_now, reserved))
-                    after = poll_count(series)
             except Exception as exc:  # noqa: BLE001 - re-raised below
                 failure.append(exc)
 
@@ -1023,7 +1230,9 @@ def phase_daemon(card_line: str) -> int:
             "nvml_energy_mj": [e for _, _, e, _, _ in seen],
             "rows": burn_rows})
         for row in burn_rows:
-            check_burn_row(row, card)
+            check_burn_row(row, card, gpm_on, idle_tensor)
+        for before, after in zip([idle_text] + texts, texts):
+            conforms(after, before, "daemon scrape")
         energies = [row["energy_j"] for row in burn_rows]
         require(all(b > a for a, b in zip(energies, energies[1:])),
                 f"energy not rising: {energies}")
@@ -1047,6 +1256,15 @@ def phase_daemon(card_line: str) -> int:
             raise RuntimeError("the textfile never matched a scrape")
         require(not list(pathlib.Path(textfile_dir).glob("*.tmp")),
                 "a *.tmp was left behind")
+        conforms(body, texts[-1], "daemon scrape")
+        # The port's validate CLI against the live daemon.
+        checked = subprocess.run(
+            [sys.executable, "-m", "kube_gpu_stats_tpu_torch", "validate",
+             "--two-scrapes", f"http://127.0.0.1:{port}/metrics"],
+            cwd=ROOT, capture_output=True, text=True, timeout=120)
+        require(checked.returncode == 0,
+                f"validate --two-scrapes exited {checked.returncode}: "
+                f"{checked.stdout[-2000:]} {checked.stderr[-2000:]}")
         healthz = scrape(port, "/healthz")
         require(healthz.startswith("ok\n"), f"/healthz said {healthz!r}")
         last = seen[-1][1]
@@ -1081,7 +1299,18 @@ def phase_daemon(card_line: str) -> int:
         "burn": {"steps": steps, "steps_per_s": result["steps_per_s"],
                  "launches": launches, "scrapes": burn_rows,
                  "energy_served_j": served_j, "energy_nvml_j": nvml_j},
-        "device_path": device_path})
+        "device_path": device_path, "embedded_device_paths": embedded_paths,
+        "memory_used_tolerance_mib": MEM_TOL_MIB,
+        "nvml_memory_v2_before_the_daemon": memory_v2,
+        "gpm": {**gpm, "served": gpm_on,
+                "tensorcore_util": {
+                    "idle": idle_tensor,
+                    "burn": [r["tensorcore_util"] for r in burn_rows]},
+                "memory_bandwidth_util": {
+                    "idle": idle_bandwidth,
+                    "burn": [r["memory_bandwidth_util"]
+                             for r in burn_rows]}},
+        "validate_cli": checked.stdout.strip().splitlines()[-1]})
     require(tick["p50_bucket_le_ms"] <= TICK_BUDGET_MS,
             f"tick p50 bucket {tick['p50_bucket_le_ms']} ms over the "
             f"{TICK_BUDGET_MS} ms budget")
@@ -1150,8 +1379,10 @@ def main() -> int:
     launches, cuda_steps_per_s = phase_main_path()
     phase_trace()
     phase_entry()
-    launches += phase_embedded(card, cuda_steps_per_s)
-    launches += phase_daemon(card)
+    phase_multichip(card)
+    embedded_launches, embedded_paths = phase_embedded(card, cuda_steps_per_s)
+    launches += embedded_launches
+    launches += phase_daemon(card, embedded_paths)
     t = phase_timing(card)
     emit("kernels", [{
         "name": KERNEL_NAME, "route": "cuda", "source": KERNEL_SOURCE,

@@ -12,13 +12,16 @@ hand-written sm_90a tiled GEMM (``csrc/tiled_gemm.cu``) that replaces the
 Pallas kernel; the embedded exporter (``embedded.py``) with its own copy of
 the serving stack — poll loop, registry, HTTP exposition and the schema
 they render; the DaemonSet exporter (``python -m kube_gpu_stats_tpu_torch``)
-on its NVML backend, with process holders and pod attribution; and the
-flagship entry point (``entry.py``). The hub, doctor, validate and top
-come in later slices. The daemon path imports no torch.
+on its NVML backend, with process holders and pod attribution; the
+multi-card load generator (a sharded train step and an NVLink ring over
+a process group of one rank per card); the exposition-contract validator
+(``validate.py``); and the entry points (``entry.py``). The hub, doctor
+and top come in later slices. The daemon path imports no torch.
 
 Layer map:
 
-    cli.py, __main__.py  the daemon's command line (bare flags)
+    cli.py, __main__.py  the daemon's command line (bare flags); the
+                      loadgen and validate subcommands
     daemon.py         Daemon: backend choice, watchers, supervisor, server
     config.py         its flags and KTS_* environment
     collectors/nvml.py  NvmlCollector over native/nvml.py (ctypes NVML)
@@ -26,9 +29,13 @@ Layer map:
     procopen.py       device holders from /proc/*/fd
     attribution/      pod labels from the kubelet (PodResources, checkpoint)
     supervisor.py     crash-only restarts and the /healthz reasons
-    entry.py          entry point: the single-card burn step at size 512
+    entry.py          entry(): the single-card burn step at size 512;
+                      dryrun_multichip(n): one sharded step in n ranks
     loadgen/burn.py   run_burn / sweep_burn / main over every local card
-                      (main --embedded-port serves the exporter meanwhile)
+                      (main --embedded-port serves the exporter meanwhile,
+                      --mode ici runs the ring); make_sharded_train_step
+    loadgen/mesh.py   the ("data", "model") mesh of ranks, run_ranks
+    loadgen/ici_burn.py  the NVLink ring (batch_isend_irecv rotations)
     loadgen/tiled_burn.py  tiled_matmul wrapper + plain version, per-card step
     _build.py         nvcc over csrc/*.cu at first use, loaded with ctypes
     csrc/             CUDA C++ kernels
@@ -38,6 +45,7 @@ Layer map:
     poll.py           PollLoop: per-device sampling with a deadline, tick plans
     registry.py       snapshots, their Prometheus/OpenMetrics render
     schema.py         the metric families (the reference's, unchanged)
+    validate.py       the accelerator_* contract checker and its parsers
     collectors/       the collector trait; tracing, workers, resilience,
                       cardinality, procstats, ici, wal, history, fleetlens,
                       delta, topology, proto: the parts of them the stack uses

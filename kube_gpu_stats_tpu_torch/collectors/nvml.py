@@ -15,12 +15,18 @@ card of the node in PCI order, whatever ``CUDA_VISIBLE_DEVICES`` says.
 Families per sample:
 
 - ``utilization.gpu`` → ``accelerator_duty_cycle``;
-- ``utilization.memory`` → ``accelerator_memory_bandwidth_utilization``.
-  NVML's figure is the share of the last sample period in which device
-  memory was being read or written, not DCGM's DRAM-active share (the
-  fraction of cycles the DRAM interface was busy) that
-  ``docs/UNIFIED_SCHEMA.md`` names for this family;
-- memory ``used``/``total`` → ``accelerator_memory_used_bytes`` /
+- GPM's ``NVML_GPM_METRIC_ANY_TENSOR_UTIL`` →
+  ``accelerator_tensorcore_utilization``: the share of the interval in
+  which any tensor pipe was active, averaged over the SMs (the analog of
+  DCGM's ``PIPE_TENSOR_ACTIVE``). ``docs/UNIFIED_SCHEMA.md`` defines the
+  family as a share of the peak FLOP rate; a pipe kept busy by narrow or
+  low-rate instructions reads as active here while doing fewer FLOPs, so
+  this reading is an upper bound on that share;
+- GPM's ``NVML_GPM_METRIC_DRAM_BW_UTIL`` →
+  ``accelerator_memory_bandwidth_utilization``: DRAM bandwidth used as a
+  share of the card's peak, the schema's meaning;
+- memory ``used``/``total`` (``nvmlMemory_v2_t``: ``used`` leaves out the
+  driver's reservation) → ``accelerator_memory_used_bytes`` /
   ``accelerator_memory_total_bytes``;
 - power (mW / 1000) → ``accelerator_power_watts``;
 - GPU temperature → ``accelerator_temperature_celsius``;
@@ -30,9 +36,19 @@ Families per sample:
   since the driver loaded (a card without active links reads zeros), or
   whose counters are not supported, is omitted.
 
-Not exported: NVML has no tensor-core or uptime reading without DCGM, so
-``accelerator_tensorcore_utilization`` and ``accelerator_uptime_seconds``
-are omitted, as the reference's sysfs backend omits what it cannot read.
+GPM metrics are computed between two samples of the card's counters, so
+the collector keeps the previous tick's sample per card and the first
+tick omits both GPM families. Where ``nvmlGpmQueryDeviceSupport`` says
+no, or taking a sample fails (a container may refuse the card's counters
+while the query says yes), the card has no GPM for the collector's life:
+``accelerator_tensorcore_utilization`` is omitted and
+``accelerator_memory_bandwidth_utilization`` is ``utilization.memory``,
+the share of the last sample period in which device memory was read or
+written (a time share, not a share of the peak bandwidth).
+:attr:`NvmlCollector.gpm_state` says which, per card.
+
+Not exported: NVML has no uptime reading, so ``accelerator_uptime_seconds``
+is omitted, as the reference's sysfs backend omits what it cannot read.
 ``accelerator_energy_joules_total`` stays the poll loop's integration of
 power, as in the reference.
 
@@ -65,7 +81,7 @@ _READS: tuple[tuple[str, Callable[..., Mapping[str, float]]], ...] = (
         schema.DUTY_CYCLE.name: float(r[0]),
         schema.MEMORY_BANDWIDTH_UTIL.name: float(r[1])}),
     ("memory", lambda r: {
-        schema.MEMORY_USED.name: float(r[2]),
+        schema.MEMORY_USED.name: float(r[3]),
         schema.MEMORY_TOTAL.name: float(r[0])}),
     ("power_mw", lambda mw: {schema.POWER.name: mw / 1000.0}),
     ("temperature", lambda c: {schema.TEMPERATURE.name: float(c)}),
@@ -73,6 +89,34 @@ _READS: tuple[tuple[str, Callable[..., Mapping[str, float]]], ...] = (
 
 _LINK_FIELDS = (binding.NVML_FI_DEV_NVLINK_THROUGHPUT_DATA_TX,
                 binding.NVML_FI_DEV_NVLINK_THROUGHPUT_DATA_RX)
+
+# GPM metric id -> family.
+_GPM_FAMILIES = (
+    (binding.NVML_GPM_METRIC_ANY_TENSOR_UTIL, schema.TENSORCORE_UTIL.name),
+    (binding.NVML_GPM_METRIC_DRAM_BW_UTIL, schema.MEMORY_BANDWIDTH_UTIL.name),
+)
+_GPM_IDS = tuple(metric_id for metric_id, _ in _GPM_FAMILIES)
+
+
+class _GpmSamples:
+    """One card's two GPM sample buffers: ``previous`` holds the last
+    tick's counters once ``primed``."""
+
+    def __init__(self, nvml) -> None:
+        self.previous = nvml.gpm_sample_alloc()
+        try:
+            self.current = nvml.gpm_sample_alloc()
+        except NvmlError:
+            nvml.gpm_sample_free(self.previous)
+            raise
+        self.primed = False
+
+    def free(self, nvml) -> None:
+        for sample in (self.previous, self.current):
+            try:
+                nvml.gpm_sample_free(sample)
+            except NvmlError as exc:
+                log.warning("nvmlGpmSampleFree failed: %s", exc)
 
 
 class NvmlCollector(Collector):
@@ -91,6 +135,12 @@ class NvmlCollector(Collector):
         # device_id -> links that have carried traffic: exported from
         # their first non-zero read on.
         self._active_links: dict[str, set[int]] = {}
+        # device_id -> the card's GPM samples, or None once GPM is found
+        # unavailable; absent until the card's first sample.
+        self._gpm: dict[str, _GpmSamples | None] = {}
+        # device_id -> "on", "unsupported" or the NVML error that turned
+        # GPM off for the card.
+        self.gpm_state: dict[str, str] = {}
 
     def discover(self) -> Sequence[Device]:
         nvml = self._nvml
@@ -109,6 +159,7 @@ class NvmlCollector(Collector):
             ))
             handles[device_id] = handle
             links[device_id] = self._link_count(handle)
+        self._free_gpm()
         self._handles = handles
         self._links = links
         return devices
@@ -132,6 +183,11 @@ class NvmlCollector(Collector):
             reading = self._read(device, call, failures, handle)
             if reading is not None:
                 values.update(to_families(reading))
+        gpm = self._gpm_values(device, handle)
+        if gpm is not None:
+            # GPM serves the bandwidth family: not the time share.
+            values.pop(schema.MEMORY_BANDWIDTH_UTIL.name, None)
+            values.update(gpm)
         ici = self._nvlink(device, handle, failures)
         if not values:
             raise CollectorError(
@@ -153,6 +209,67 @@ class NvmlCollector(Collector):
             if not exc.not_supported:
                 failures.append(exc)
             return None
+
+    def _gpm_values(self, device: Device, handle: int
+                    ) -> dict[str, float] | None:
+        """This tick's GPM families; None when the card has no GPM (the
+        time share then stands), empty on the card's first tick."""
+        nvml = self._nvml
+        device_id = device.device_id
+        if device_id not in self._gpm:
+            samples = self._gpm[device_id] = self._gpm_open(device, handle)
+            return None if samples is None else {}
+        samples = self._gpm[device_id]
+        if samples is None:
+            return None
+        try:
+            nvml.gpm_sample_get(handle, samples.current)
+            got = (nvml.gpm_metrics(samples.previous, samples.current,
+                                    _GPM_IDS) if samples.primed else [])
+        except NvmlError as exc:
+            if exc.code == binding.NVML_ERROR_GPU_IS_LOST:
+                raise CollectorError(f"{device.device_path}: {exc}") from exc
+            # A failed read leaves no baseline: the next tick starts anew.
+            samples.primed = False
+            log.debug("%s: GPM reading missing: %s", device.device_path, exc)
+            return {}
+        samples.previous, samples.current = samples.current, samples.previous
+        samples.primed = True
+        return {family: float(value)
+                for (_, family), (code, value) in zip(_GPM_FAMILIES, got)
+                if code == binding.NVML_SUCCESS}
+
+    def _gpm_open(self, device: Device, handle: int) -> _GpmSamples | None:
+        """The card's GPM samples, or None (and why, in ``gpm_state``)
+        when the card or the container does not give GPM."""
+        nvml = self._nvml
+        try:
+            if not nvml.gpm_supported(handle):
+                self.gpm_state[device.device_id] = "unsupported"
+                return None
+            samples = _GpmSamples(nvml)
+        except NvmlError as exc:
+            self.gpm_state[device.device_id] = str(exc)
+            return None
+        try:
+            # One sample now proves the counters can be read at all.
+            nvml.gpm_sample_get(handle, samples.previous)
+        except NvmlError as exc:
+            samples.free(nvml)
+            self.gpm_state[device.device_id] = str(exc)
+            log.info("%s: GPM unavailable (%s); serving NVML's memory "
+                     "time share, no tensor-core utilization",
+                     device.device_path, exc)
+            return None
+        samples.primed = True
+        self.gpm_state[device.device_id] = "on"
+        return samples
+
+    def _free_gpm(self) -> None:
+        gpm, self._gpm = self._gpm, {}
+        for samples in gpm.values():
+            if samples is not None:
+                samples.free(self._nvml)
 
     def _nvlink(self, device: Device, handle: int,
                 failures: list[NvmlError]) -> dict[str, int]:
@@ -182,6 +299,7 @@ class NvmlCollector(Collector):
         if self._closed:
             return
         self._closed = True
+        self._free_gpm()
         try:
             self._nvml.shutdown()
         except NvmlError as exc:

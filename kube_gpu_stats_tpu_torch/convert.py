@@ -1,4 +1,5 @@
-"""Carry the JAX package's burn inputs into the port.
+"""Carry the JAX package's burn inputs and sharded-step weights into the
+port.
 
 The caller hands over numpy arrays (``np.asarray(jax_array)``). A JAX
 bf16 array comes out with dtype ``ml_dtypes.bfloat16``, which
@@ -30,3 +31,18 @@ def from_jax_arrays(x, w, device):
         raise ValueError(f"x rows {x.shape[0]} are not a multiple of "
                          f"w's {size}")
     return list(bf16_tensor(x, device).split(size)), w_t
+
+
+def sharded_train_params_from_jax(w1, w2, x, rank: int, n_devices: int,
+                                  device):
+    """The reference's full f32 (w1, w2, x) of ``make_sharded_train_step``
+    (numpy arrays, ``np.asarray`` of the sharded JAX arrays) as rank
+    ``rank``'s ``(params, x)`` of the port's step over ``n_devices``
+    ranks: the shards ``NamedSharding`` gives that rank's device."""
+    from .loadgen.burn import sharded_train_shards
+
+    def f32(array) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(array, dtype=np.float32).copy())
+
+    return sharded_train_shards(f32(w1), f32(w2), f32(x), rank, n_devices,
+                                resolve_device(device))

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import contextlib
+import os
 
 import torch
 
@@ -20,11 +21,25 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def one_card_per_process() -> bool:
+    """True under a launch of one process per card (torchrun and its
+    kind): a process group is up and ``LOCAL_WORLD_SIZE`` > 1. Each
+    process then owns its current card only, as a JAX process owns
+    ``jax.local_devices()``."""
+    import torch.distributed as dist
+
+    return (dist.is_available() and dist.is_initialized()
+            and int(os.environ.get("LOCAL_WORLD_SIZE", "1")) > 1)
+
+
 def local_devices(device=None) -> list[torch.device]:
-    """Every local card for ``None`` or a bare ``"cuda"``, else the one
-    device named."""
+    """The cards this process owns for ``None`` or a bare ``"cuda"``:
+    every visible card, or only the current one under one process per
+    card (:func:`one_card_per_process`). Else the one device named."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
+        if one_card_per_process():
+            return [torch.device("cuda", torch.cuda.current_device())]
         return [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
     return [dev]
@@ -55,6 +70,18 @@ def synchronize(devices) -> None:
     for dev in devices:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+
+
+def mark(devices) -> list:
+    """An event after the work queued so far on each card's current
+    stream; none on the CPU, where the work is already done."""
+    events = []
+    for dev in devices:
+        if dev.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev))
+            events.append(event)
+    return events
 
 
 def per_device(block_fn):

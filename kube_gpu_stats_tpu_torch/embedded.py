@@ -53,35 +53,72 @@ from .topology import topology_labels
 
 log = logging.getLogger(__name__)
 
-def nvidia_device_path(ordinal: int, visible: str | None) -> str:
-    """The ``device_path`` label of CUDA ordinal ``ordinal`` given the
-    ``CUDA_VISIBLE_DEVICES`` string (None when unset).
+def nvml_minors(nvml=None) -> dict[str, int]:
+    """NVML's ``GPU-…`` UUID -> minor number for every card of the node;
+    empty when NVML cannot be loaded or read (no driver library in the
+    container). ``nvml``: the binding (or ``testing.fake_nvml.FakeNvml``);
+    None loads ``libnvidia-ml.so.1``."""
+    from .native.nvml import Nvml, NvmlError
 
-    Unset: the ordinal is the physical minor number, ``/dev/nvidia<N>``.
-    A list of integers: the ordinal indexes it, ``/dev/nvidia<list[N]>``.
-    A UUID entry (``GPU-…`` or ``MIG-…``): the minor number cannot be
-    known from the environment, so the entry itself is emitted — a stable
-    node-local identity, never a guessed device file."""
-    if visible is None:
-        return f"/dev/nvidia{ordinal}"
-    entries = []
-    # CUDA reads the list up to its first entry that is neither an index
-    # nor a UUID; the cards after it are not visible.
-    for entry in visible.split(","):
-        entry = entry.strip()
-        if not (entry.isdecimal() or entry.startswith(("GPU-", "MIG-"))):
-            break
-        entries.append(entry)
-    if not 0 <= ordinal < len(entries):
-        raise ValueError(f"CUDA ordinal {ordinal} is not in "
-                         f"CUDA_VISIBLE_DEVICES={visible!r}")
-    entry = entries[ordinal]
-    return f"/dev/nvidia{int(entry)}" if entry.isdecimal() else entry
+    if nvml is None:
+        nvml = Nvml()
+    try:
+        nvml.init()
+    except NvmlError as exc:
+        log.info("NVML unavailable, device_path is the card's UUID: %s", exc)
+        return {}
+    try:
+        return {nvml.uuid(handle): nvml.minor_number(handle)
+                for handle in map(nvml.handle, range(nvml.device_count()))}
+    except NvmlError as exc:
+        log.info("NVML could not list the cards, device_path is the "
+                 "card's UUID: %s", exc)
+        return {}
+    finally:
+        nvml.shutdown()
+
+
+def nvidia_device_path(ordinal: int, visible: str | None, uuid: str,
+                       minors: dict[str, int]) -> str:
+    """The ``device_path`` label of CUDA ordinal ``ordinal``, whose card
+    has the ``GPU-…`` UUID ``uuid``, given the ``CUDA_VISIBLE_DEVICES``
+    string (None when unset) and NVML's UUID -> minor map.
+
+    The card is matched by UUID, whatever selected it: the minor number's
+    file, ``/dev/nvidia<minor>``, as the DaemonSet serves it. An integer
+    entry of ``CUDA_VISIBLE_DEVICES`` is neither the minor nor the NVML
+    index (CUDA orders cards its own way). Where NVML does not know the
+    UUID (no NVML in the container), the UUID itself is emitted, and a
+    ``MIG-…`` entry is emitted as itself: a stable node-local identity,
+    never a guessed device file. An ordinal the list does not reach
+    raises ``ValueError``."""
+    if visible is not None:
+        entries = []
+        # CUDA reads the list up to its first entry that is neither an
+        # index nor a UUID; the cards after it are not visible.
+        for entry in visible.split(","):
+            entry = entry.strip()
+            if not (entry.isdecimal() or entry.startswith(("GPU-", "MIG-"))):
+                break
+            entries.append(entry)
+        if not 0 <= ordinal < len(entries):
+            raise ValueError(f"CUDA ordinal {ordinal} is not in "
+                             f"CUDA_VISIBLE_DEVICES={visible!r}")
+        if entries[ordinal].startswith("MIG-"):
+            return entries[ordinal]
+    minor = minors.get(uuid)
+    return uuid if minor is None else f"/dev/nvidia{minor}"
+
+
+def cuda_uuid(device: torch.device) -> str:
+    """The card's UUID as NVML and ``nvidia-smi`` spell it."""
+    return "GPU-" + str(torch.cuda.get_device_properties(device).uuid)
 
 
 def _world_size() -> int:
     """The torch.distributed world size when a process group is up, else 1
-    (the burn's ``_global_scale``: every process burns its own cards)."""
+    (the burn's ``_global_scale``: every process burns the cards it owns,
+    ``device.local_devices``)."""
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():
@@ -93,9 +130,11 @@ class TorchIntrospectCollector(Collector):
     """Collector over in-process PyTorch device introspection. No RPC, no
     NVML — everything comes from the live CUDA runtime of this process.
 
-    ``device=None`` means every local CUDA card (raises without CUDA);
-    ``device="cpu"`` one CPU device, which has no allocator statistics:
-    its samples carry no memory families (partial data, never a guess)."""
+    ``device=None`` means the cards this process owns
+    (``device.local_devices``: every visible card, or the current one
+    under one process per card; raises without CUDA); ``device="cpu"``
+    one CPU device, which has no allocator statistics: its samples carry
+    no memory families (partial data, never a guess)."""
 
     name = "torch-embedded"
 
@@ -124,10 +163,11 @@ class TorchIntrospectCollector(Collector):
         self._mfu_prev: tuple[float, float] | None = None  # (flops, at)
         # FLOPs are reported workload-global; the per-card share divides
         # by the GLOBAL card count: this process's cards times the
-        # process group's world size (every process burns its own cards,
-        # as loadgen's hook FLOPs assume).
+        # process group's world size (every process burns the cards it
+        # owns, as loadgen's hook FLOPs assume). Under one process per
+        # card that is the world size.
         self._global_devices = max(1, len(devices) * _world_size())
-        self._visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+        self._device_paths = self._cuda_device_paths(devices)
 
     # -- workload hook -------------------------------------------------------
 
@@ -195,12 +235,24 @@ class TorchIntrospectCollector(Collector):
             Device(
                 index=index,
                 device_id=str(index),
-                device_path=("torch:cpu:0" if dev.type == "cpu" else
-                             nvidia_device_path(index, self._visible)),
+                device_path=self._device_paths.get(index, "torch:cpu:0"),
                 accel_type=accel_type(kind),
             )
             for index, (dev, kind) in self._devices.items()
         ]
+
+    @staticmethod
+    def _cuda_device_paths(devices) -> dict[int, str]:
+        """CUDA ordinal -> device_path of every card among ``devices``,
+        resolved once through NVML (``nvidia_device_path``)."""
+        cards = [dev for dev in devices if dev.type == "cuda"]
+        if not cards:
+            return {}
+        minors = nvml_minors()
+        visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+        return {dev.index: nvidia_device_path(dev.index, visible,
+                                              cuda_uuid(dev), minors)
+                for dev in cards}
 
     @staticmethod
     def _memory(dev: torch.device) -> dict[str, float]:

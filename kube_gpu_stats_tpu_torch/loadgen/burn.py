@@ -9,17 +9,27 @@ package left to XLA); ``kernel="cuda"`` runs the hand-written tiled GEMM
 of ``tiled_burn`` with its tanh epilogue. ``sweep_burn`` measures
 steady-state TFLOP/s against matmul size.
 
+Multi-card *training*: ``make_sharded_train_step`` is a small MLP step
+sharded over a ("data", "model") mesh of ranks (``mesh.py``): the batch
+data-parallel, the hidden dimension tensor-parallel, with the
+all-reduces written out (NCCL on the card, so NVLink counters move on a
+multi-card node). It is the port's multi-card dry-run surface
+(``entry.dryrun_multichip``).
+
 Everything runs on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import math
 import time
 
 import torch
+import torch.distributed as dist
 
-from ..device import (device_kind, local_devices, per_device, resolve_device,
-                      synchronize)
+from ..device import (device_kind, local_devices, mark, per_device,
+                      resolve_device, synchronize)
+from .mesh import _mesh_shape, mesh_groups, rank_device
 
 
 def _randn(shape, seed: int, device: torch.device) -> torch.Tensor:
@@ -82,12 +92,124 @@ def make_all_device_burn(size: int, depth: int, device=None):
         flops_per_step
 
 
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's ``f``: identity forward, all-reduce over the "model"
+    group backward. It sits where the input enters the model-parallel
+    region, so the input's gradient sums every model shard's share."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's ``g``: all-reduce over the "model" group forward,
+    identity backward (the gradient of the replicated sum is already on
+    every model shard). ``torch.distributed.nn.functional.all_reduce``
+    all-reduces the gradient again, multiplying it by the model width."""
+
+    @staticmethod
+    def forward(ctx, partial, group):
+        out = partial.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def make_sharded_train_step(n_devices: int, *, d_model: int = 256,
+                            d_hidden: int = 512, batch: int = 64,
+                            device=None):
+    """Build (groups, train_step, params, x) for THIS rank of an
+    ``n_devices``-rank process group: the port of the reference's
+    ``make_sharded_train_step``.
+
+    Layout as the reference's NamedShardings: the batch is data-parallel
+    over the "data" axis; the MLP's hidden dimension is tensor-parallel
+    over the "model" axis (w1 column-sharded, w2 row-sharded: the standard
+    Megatron split). Where XLA inserted the collectives, they are written
+    out: the row-sharded product is all-reduced over "model"
+    (``_ReduceFromModel``), and the gradients are summed over "data" (the
+    loss is already divided by the global element count, so a mean would
+    be off by the data width). ``batch`` and ``d_hidden`` round up to
+    their axis (never down), as in the reference. All tensors are f32;
+    the products stay ``torch.matmul`` (XLA's, not a kernel's, in the
+    reference).
+
+    The parameters and batch come from fixed seeds (w1 0, w2 1, x 2) on
+    the CPU generator, whatever the device, so a card and a CPU rank
+    start from the same arrays. ``params`` is {"w1": shard, "w2":
+    shard}; ``train_step(params, x)`` returns (new_params, loss), the
+    loss the global ``mean((y - x) ** 2)``, the same on every rank.
+    ``device=None`` is this rank's current card."""
+    dev = rank_device(device)
+    groups = mesh_groups(n_devices, dev)
+    dp, tp = _mesh_shape(n_devices)
+    batch = -(-batch // dp) * dp
+    d_hidden = -(-d_hidden // tp) * tp
+
+    def full(seed: int, shape, scale: float) -> torch.Tensor:
+        gen = torch.Generator().manual_seed(seed)
+        return torch.randn(shape, generator=gen, dtype=torch.float32) * scale
+
+    params, x = sharded_train_shards(
+        full(0, (d_model, d_hidden), 1 / math.sqrt(d_model)),
+        full(1, (d_hidden, d_model), 1 / math.sqrt(d_hidden)),
+        full(2, (batch, d_model), 1.0), groups.rank, n_devices, dev)
+    elements = batch * d_model
+
+    def train_step(params, x):
+        w1 = params["w1"].detach().requires_grad_(True)
+        w2 = params["w2"].detach().requires_grad_(True)
+        h = torch.tanh(_CopyToModel.apply(x, groups.model_group) @ w1)
+        y = _ReduceFromModel.apply(h @ w2, groups.model_group)
+        local = ((y - x) ** 2).sum() / elements
+        local.backward()
+        loss = local.detach().clone()
+        dist.all_reduce(loss, group=groups.data_group)
+        new_params = {}
+        for name, p in (("w1", w1), ("w2", w2)):
+            grad = p.grad
+            dist.all_reduce(grad, group=groups.data_group)
+            new_params[name] = p.detach() - 0.01 * grad
+        return new_params, loss
+
+    return groups, train_step, params, x
+
+
+def sharded_train_shards(w1, w2, x, rank: int, n_devices: int, device):
+    """Rank ``rank``'s shards of the full (w1, w2, x) of an
+    ``n_devices`` mesh, cut the way the reference's NamedShardings cut
+    them: w1's columns and w2's rows by the rank's model coordinate, x's
+    rows by its data coordinate. Returns ({"w1", "w2"}, x) on
+    ``device``."""
+    dp, tp = _mesh_shape(n_devices)
+    d, m = divmod(rank, tp)
+    hidden = w1.shape[1] // tp
+    rows = x.shape[0] // dp
+
+    def put(t):
+        return t.contiguous().to(device)
+
+    return ({"w1": put(w1[:, m * hidden:(m + 1) * hidden]),
+             "w2": put(w2[m * hidden:(m + 1) * hidden, :])},
+            put(x[d * rows:(d + 1) * rows]))
+
+
 def _global_scale() -> float:
     """The torch.distributed world size when a process group is up, else 1:
-    under the every-host-burns assumption the hook's FLOPs are
-    workload-global."""
-    import torch.distributed as dist
-
+    every process burns the cards it owns (``device.local_devices``: one
+    under one process per card), so the hook's FLOPs are workload-global.
+    """
     if dist.is_available() and dist.is_initialized():
         return float(dist.get_world_size())
     return 1.0
@@ -132,28 +254,39 @@ def run_burn(seconds: float = 10.0, size: int = 2048,
     start = time.monotonic()
     last_report = start
     inflight = 0
-    pending_steps = 0
+    reported = 0
+    # (events, steps queued before them) of the last batch boundary; None
+    # once everything queued has been waited for.
+    boundary: tuple[list, int] | None = None
     last_hook_t = time.perf_counter()
     # Steady-state window: opened after the first materialized batch,
     # closed at the last materialization.
     steady_from: float | None = None
     steady_steps_base = 0
 
-    def report_pending():
+    def report_done(done: int):
         # Steps are queued asynchronously, so per-iteration wall time is
         # enqueue latency, not device time. Report to the hook only at
-        # materialization points: the batch wall time divided over the
-        # batch is the honest per-step duration.
-        nonlocal pending_steps, last_hook_t, steady_from, steady_steps_base
+        # materialization points, the steps known to have run by then:
+        # the batch wall time divided over the batch is the honest
+        # per-step duration.
+        nonlocal reported, last_hook_t, steady_from, steady_steps_base
         now_t = time.perf_counter()
-        if step_hook is not None and pending_steps:
-            step_hook(pending_steps, seconds=now_t - last_hook_t,
-                      flops=hook_flops_per_step * pending_steps)
-        pending_steps = 0
+        if step_hook is not None and done > reported:
+            step_hook(done - reported, seconds=now_t - last_hook_t,
+                      flops=hook_flops_per_step * (done - reported))
+        reported = done
         last_hook_t = now_t
         if steady_from is None:
             steady_from = time.monotonic()
-            steady_steps_base = steps
+            steady_steps_base = done
+
+    def drain():
+        nonlocal inflight, boundary
+        synchronize(devices)
+        inflight = 0
+        boundary = None
+        report_done(steps)
 
     pulse_edge = start + pulse_ms / 1000.0 if pulse_ms > 0 else None
     while time.monotonic() - start < seconds:
@@ -161,27 +294,32 @@ def run_burn(seconds: float = 10.0, size: int = 2048,
             # Close the pulse: let the cards finish what is queued (an
             # async queue would smear the pulse), idle one pulse width,
             # reopen.
-            synchronize(devices)
-            inflight = 0
-            report_pending()
+            drain()
             time.sleep(pulse_ms / 1000.0)
             pulse_edge = time.monotonic() + pulse_ms / 1000.0
         x = step(x, w)
         steps += 1
         inflight += 1
-        pending_steps += 1
         # Bound the queue of launched work and wait for it before trusting
         # any rate: an unbounded launch loop measures enqueue rate, not
-        # FLOPs.
+        # FLOPs. Wait for the batch before the one just queued, not for
+        # everything: the cards keep a batch of work while the host comes
+        # back and queues the next, so a late host does not idle them.
         if inflight >= 32:
-            synchronize(devices)
             inflight = 0
-            report_pending()
+            if boundary is not None:
+                events, done = boundary
+                for event in events:
+                    event.synchronize()
+                report_done(done)
+            events = mark(devices)
+            if events:
+                boundary = (events, steps)
+            else:
+                report_done(steps)
         now = time.monotonic()
         if now - last_report >= report_every:
-            synchronize(devices)
-            inflight = 0
-            report_pending()
+            drain()
             now = time.monotonic()
             rate = steps / (now - start)
             flops = flops_per_step * rate
@@ -189,8 +327,7 @@ def run_burn(seconds: float = 10.0, size: int = 2048,
                   f"~{flops / 1e12:.2f} TFLOP/s over {n_devices} device(s)",
                   flush=True)
             last_report = now
-    synchronize(devices)
-    report_pending()
+    drain()
     if result is not None:
         window = (time.monotonic() - steady_from
                   if steady_from is not None else 0.0)
@@ -254,7 +391,8 @@ def sweep_burn(sizes=(1024, 2048, 4096, 8192), seconds_per_size: float = 6.0,
 
 def main(argv=None, device=None) -> int:
     """The load generator's command line. ``device`` is for Python callers
-    only (``"cpu"`` in the tests); the CLI always burns every card."""
+    only (``"cpu"`` in the tests); the CLI always burns every card
+    (``--mode ici``: one ring rank per card)."""
     import argparse
     import json
 
@@ -276,8 +414,11 @@ def main(argv=None, device=None) -> int:
     parser.add_argument("--pulse-ms", type=float, default=0.0,
                         help="duty-cycle the burn: burn PULSE_MS ms, "
                              "idle PULSE_MS ms, repeat; 0 = sustained burn")
-    parser.add_argument("--mode", choices=("mxu",), default="mxu",
-                        help="mxu: matmul burn")
+    parser.add_argument("--mode", choices=("mxu", "ici"), default="mxu",
+                        help="mxu: matmul burn; ici: ring burn that "
+                             "drives card-to-card (NVLink) traffic")
+    parser.add_argument("--shard-mb", type=float, default=4.0,
+                        help="ici: MiB each card sends per hop")
     parser.add_argument("--embedded-port", type=int, default=None,
                         help="serve the embedded in-process exporter on "
                              "this port while burning (0 = pick a free "
@@ -298,7 +439,11 @@ def main(argv=None, device=None) -> int:
         step_hook = exporter.record_step
         print(f"embedded-exporter-port: {exporter.port}", flush=True)
     try:
-        if args.sweep:
+        if args.mode == "ici":
+            from .ici_burn import run_ici_burn
+
+            run_ici_burn(args.seconds, shard_mb=args.shard_mb, device=device)
+        elif args.sweep:
             sizes = tuple(int(s) for s in args.sweep.split(","))
             for row in sweep_burn(sizes, seconds_per_size=args.seconds,
                                   depth=args.depth, kernel=args.kernel,

@@ -35,6 +35,7 @@ class FakeDevice:
     mem_util: int = 0
     memory_total: int = 81559 * 1024**2
     memory_used: int = 0
+    memory_reserved: int = 480 * 1024**2
     power_mw: int = 70_000
     temperature: int = 30
     energy_mj: int = 0
@@ -43,6 +44,9 @@ class FakeDevice:
     nvlink_kib: dict[int, tuple[int, int] | None] = dataclasses.field(
         default_factory=dict)
     link_count: int | None = None
+    gpm_supported: bool = False
+    tensor_util: float = 0.0
+    dram_bw_util: float = 0.0
     # binding method name -> the nvmlReturn_t it returns instead.
     errors: dict[str, int] = dataclasses.field(default_factory=dict)
     lost: bool = False
@@ -60,6 +64,10 @@ class FakeNvml:
         self.shutdown_calls = 0
         self._refs = 0
         self._lock = threading.Lock()
+        # GPM sample buffer id -> the counters read into it (None until
+        # read); ``gpm_freed`` counts the buffers given back.
+        self.gpm_samples: dict[int, dict[int, float] | None] = {}
+        self.gpm_freed = 0
 
     @staticmethod
     def _raise(code: int) -> None:
@@ -115,9 +123,10 @@ class FakeNvml:
         dev = self._device(handle, "utilization")
         return dev.gpu_util, dev.mem_util
 
-    def memory(self, handle: int) -> tuple[int, int, int]:
+    def memory(self, handle: int) -> tuple[int, int, int, int]:
         dev = self._device(handle, "memory")
-        return (dev.memory_total, dev.memory_total - dev.memory_used,
+        return (dev.memory_total, dev.memory_reserved,
+                dev.memory_total - dev.memory_reserved - dev.memory_used,
                 dev.memory_used)
 
     def power_mw(self, handle: int) -> int:
@@ -150,3 +159,37 @@ class FakeNvml:
                      == binding.NVML_FI_DEV_NVLINK_THROUGHPUT_DATA_TX else rx)
             out.append((binding.NVML_SUCCESS, value))
         return out
+
+    # -- GPM -----------------------------------------------------------------
+
+    def gpm_supported(self, handle: int) -> bool:
+        return self._device(handle, "gpm_supported").gpm_supported
+
+    def gpm_sample_alloc(self) -> int:
+        with self._lock:
+            sample = len(self.gpm_samples) + 1
+            self.gpm_samples[sample] = None
+        return sample
+
+    def gpm_sample_free(self, sample: int) -> None:
+        with self._lock:
+            del self.gpm_samples[sample]
+            self.gpm_freed += 1
+
+    def gpm_sample_get(self, handle: int, sample: int) -> None:
+        dev = self._device(handle, "gpm_sample_get")
+        if not dev.gpm_supported:
+            self._raise(binding.NVML_ERROR_NOT_SUPPORTED)
+        self.gpm_samples[sample] = {
+            binding.NVML_GPM_METRIC_ANY_TENSOR_UTIL: dev.tensor_util,
+            binding.NVML_GPM_METRIC_DRAM_BW_UTIL: dev.dram_bw_util}
+
+    def gpm_metrics(self, sample1: int, sample2: int,
+                    metric_ids: Sequence[int]
+                    ) -> list[tuple[int, float | None]]:
+        first, second = self.gpm_samples[sample1], self.gpm_samples[sample2]
+        if first is None or second is None:
+            self._raise(binding.NVML_ERROR_UNKNOWN)
+        return [(binding.NVML_SUCCESS, second[i]) if i in second
+                else (binding.NVML_ERROR_NOT_SUPPORTED, None)
+                for i in metric_ids]

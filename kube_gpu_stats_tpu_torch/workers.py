@@ -1,5 +1,5 @@
-"""Worker scaffolds: the refresh loop behind the daemon's caches, and the
-daemon-thread sampler pool.
+"""Worker scaffolds: the refresh loop behind the daemon's caches, the
+daemon-thread sampler pool, and the redirect refusal of authed requests.
 
 :class:`PeriodicRefresher` runs ``refresh_once()`` on its own daemon
 thread at a fixed cadence, with capped exponential backoff on persistent
@@ -29,6 +29,7 @@ import concurrent.futures
 import logging
 import queue
 import threading
+import urllib.request
 from typing import Callable
 
 from .resilience import BackoffPolicy
@@ -94,6 +95,17 @@ class PeriodicRefresher:
         self._stop_event.set()
         if self._thread:
             self._thread.join(timeout=5)
+
+
+class NoRedirectHandler(urllib.request.HTTPRedirectHandler):
+    """The one redirect-refusal policy, shared by the push senders and
+    the authed scrape path (validate.fetch_exposition): a 3xx raises
+    instead of being followed — a redirected POST/PUT would degrade into
+    a body-less GET, and a followed redirect would forward Authorization
+    headers to a cross-origin Location."""
+
+    def redirect_request(self, req, fp, code, msg, headers, newurl):
+        return None
 
 
 class DaemonSamplerPool:

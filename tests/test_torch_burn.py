@@ -76,6 +76,49 @@ def test_run_burn_feeds_the_hook_exact_flops(kernel, per_step):
     assert result["depth"] == (16 if kernel == "torch" else None)
 
 
+@pytest.mark.parametrize("n_cards", [1, 2])
+def test_run_burn_waits_for_the_batch_before_the_last(n_cards, monkeypatch):
+    """With events to wait on (the cards' streams), each batch boundary
+    waits for the boundary before it, so one batch stays queued, and the
+    hook hears of a batch once it has run: 32 steps a call, the rest at
+    the end, every step once. The step is a stand-in: the loop is under
+    test, not the product."""
+    marks, waits = [], []
+
+    class Event:
+        def __init__(self, index):
+            self.index = index
+
+        def synchronize(self):
+            waits.append(self.index)
+
+    def mark(devices):
+        assert len(devices) == n_cards
+        marks.append(len(marks))
+        return [Event(marks[-1]) for _ in devices]
+
+    def stand_in(size, depth, device):
+        blocks = [torch.zeros(1) for _ in range(n_cards)]
+        return (lambda x, w: x), blocks, blocks, n_cards, 1.0
+
+    monkeypatch.setattr(burn, "mark", mark)
+    monkeypatch.setattr(burn, "make_all_device_burn", stand_in)
+    hook = Hook()
+    sizes = []
+
+    def record(n, *, seconds, flops):
+        sizes.append(n)
+        hook(n, seconds=seconds, flops=flops)
+
+    steps = burn.run_burn(seconds=0.05, size=128, report_every=1e9,
+                          step_hook=record, device="cpu")
+    assert len(marks) == steps // 32 >= 2
+    assert waits == [index for index in marks[:-1] for _ in range(n_cards)]
+    assert sizes[:-1] == [32] * (len(marks) - 1)
+    assert sizes[-1] == steps - 32 * (len(marks) - 1)
+    assert hook.steps == steps
+
+
 @pytest.mark.parametrize("jax_kernel,kernel", [("xla", "torch"),
                                                ("pallas", "cuda")])
 def test_run_burn_result_keys_match_jax(jax_kernel, kernel):
@@ -158,8 +201,8 @@ def test_inputs_are_seeded():
 
 
 @pytest.mark.parametrize("argv", [["--kernel", "pallas"], ["--kernel", "xla"],
-                                  ["--mode", "ici"],
-                                  ["--shard-mb", "4"]])
+                                  ["--mode", "hbm"],
+                                  ["--shard-mb", "four"]])
 def test_main_offers_only_this_slice(argv):
     with pytest.raises(SystemExit):
         burn.main(argv)

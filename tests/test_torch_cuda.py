@@ -14,6 +14,7 @@ import json
 import os
 import pathlib
 import shutil
+import stat
 import subprocess
 
 import pytest
@@ -126,8 +127,9 @@ def test_embedded_collector_reports_card_memory(card):
     col = embedded.TorchIntrospectCollector("cuda:0")
     (dev,) = col.discover()
     assert dev.accel_type == "gpu-h100"
-    assert dev.device_path.startswith("/dev/nvidia") or dev.device_path[:4] in (
-        "GPU-", "MIG-")
+    # The minor number's file (NVML is there on the card's machine).
+    assert dev.device_path.startswith("/dev/nvidia")
+    assert stat.S_ISCHR(os.stat(dev.device_path).st_mode)
     held = torch.empty(256 << 20, dtype=torch.uint8, device="cuda:0")
     col.begin_tick()
     values = col.sample(dev).values
@@ -170,17 +172,24 @@ _NVML_CONSTANTS = (
     "NVML_FI_DEV_NVLINK_THROUGHPUT_DATA_RX", "NVML_VALUE_TYPE_DOUBLE",
     "NVML_VALUE_TYPE_UNSIGNED_INT", "NVML_VALUE_TYPE_UNSIGNED_LONG",
     "NVML_VALUE_TYPE_UNSIGNED_LONG_LONG", "NVML_VALUE_TYPE_SIGNED_LONG_LONG",
-    "NVML_VALUE_TYPE_SIGNED_INT",
+    "NVML_VALUE_TYPE_SIGNED_INT", "NVML_GPM_SUPPORT_VERSION",
+    "NVML_GPM_METRICS_GET_VERSION", "NVML_GPM_METRIC_ANY_TENSOR_UTIL",
+    "NVML_GPM_METRIC_DRAM_BW_UTIL", "NVML_GPM_METRIC_MAX",
 )
+# Binding constants whose nvml.h spelling is another name or a macro.
+_NVML_EXPRESSIONS = {"NVML_MEMORY_V2_VERSION": "nvmlMemory_v2"}
 
 
 def _nvml_structs():
     from kube_gpu_stats_tpu_torch.native import nvml as binding
 
     return {"nvmlUtilization_t": binding.NvmlUtilization,
-            "nvmlMemory_t": binding.NvmlMemory,
+            "nvmlMemory_v2_t": binding.NvmlMemoryV2,
             "nvmlValue_t": binding.NvmlValue,
-            "nvmlFieldValue_t": binding.NvmlFieldValue}
+            "nvmlFieldValue_t": binding.NvmlFieldValue,
+            "nvmlGpmSupport_t": binding.NvmlGpmSupport,
+            "nvmlGpmMetric_t": binding.NvmlGpmMetric,
+            "nvmlGpmMetricsGet_t": binding.NvmlGpmMetricsGet}
 
 
 def _nvml_header() -> pathlib.Path:
@@ -201,8 +210,10 @@ def test_nvml_binding_matches_the_header(card, tmp_path):
     header = _nvml_header()
     lines = ["#include <stdio.h>", "#include <stddef.h>", "#include <nvml.h>",
              "int main(void) {", 'printf("{");']
-    for name in _NVML_CONSTANTS:
-        lines.append(f'printf("\\"{name}\\": %lld, ", (long long)({name}));')
+    constants = {name: name for name in _NVML_CONSTANTS}
+    constants.update(_NVML_EXPRESSIONS)
+    for name, expr in constants.items():
+        lines.append(f'printf("\\"{name}\\": %lld, ", (long long)({expr}));')
     for ctype, cls in _nvml_structs().items():
         lines.append(f'printf("\\"sizeof {ctype}\\": %zu, ", '
                      f"sizeof({ctype}));")
@@ -221,7 +232,7 @@ def test_nvml_binding_matches_the_header(card, tmp_path):
     got = json.loads(subprocess.run([str(exe)], check=True,
                                     capture_output=True, text=True,
                                     timeout=60).stdout)
-    for name in _NVML_CONSTANTS:
+    for name in constants:
         assert getattr(binding, name) == got[name], name
     for ctype, cls in _nvml_structs().items():
         assert ctypes.sizeof(cls) == got[f"sizeof {ctype}"], ctype
@@ -258,6 +269,8 @@ def test_nvml_discovery_matches_nvidia_smi(card):
 
 
 def test_nvml_sample_within_the_smoke_ranges(card):
+    import time
+
     from kube_gpu_stats_tpu_torch import schema
     from kube_gpu_stats_tpu_torch.collectors.nvml import NvmlCollector
 
@@ -268,16 +281,61 @@ def test_nvml_sample_within_the_smoke_ranges(card):
     collector = NvmlCollector()
     try:
         (dev,) = [d for d in collector.discover() if d.uuid == uuid]
+        collector.sample(dev)
+        # GPM needs two samples over 100 ms apart.
+        time.sleep(0.3)
         values = collector.sample(dev).values
+        smi_used_mib = float({r[0]: r[1] for r in
+                              _smi("uuid,memory.used")}[uuid])
+        state = collector.gpm_state[dev.device_id]
     finally:
         collector.close()
     total_mib, limit_w = limits[uuid]
     assert 0 <= values[schema.DUTY_CYCLE.name] <= 100
     assert 0 <= values[schema.MEMORY_BANDWIDTH_UTIL.name] <= 100
+    assert (schema.TENSORCORE_UTIL.name in values) == (state == "on")
     used = values[schema.MEMORY_USED.name]
     total = values[schema.MEMORY_TOTAL.name]
     assert torch.cuda.memory_reserved(0) <= used <= total
+    # v2's used leaves the driver's reservation out, as nvidia-smi does.
+    assert abs(used - smi_used_mib * 1024**2) <= 32 * 1024**2
     assert abs(total - total_mib * 1024**2) <= 1024**2
     assert 0 < values[schema.POWER.name] <= limit_w
     assert 20 <= values[schema.TEMPERATURE.name] <= 100
     del held
+
+
+def test_embedded_device_path_is_the_daemons(card):
+    from kube_gpu_stats_tpu_torch import embedded
+    from kube_gpu_stats_tpu_torch.collectors.nvml import NvmlCollector
+
+    collector = NvmlCollector()
+    try:
+        daemon = {d.uuid: d.device_path for d in collector.discover()}
+    finally:
+        collector.close()
+    col = embedded.TorchIntrospectCollector()
+    for dev in col.discover():
+        uuid = embedded.cuda_uuid(torch.device("cuda", dev.index))
+        assert dev.device_path == daemon[uuid]
+
+
+def test_one_rank_nccl_step_and_ring_match_the_cpu(card):
+    import numpy as np
+
+    from kube_gpu_stats_tpu_torch.loadgen.mesh import run_ranks
+    from kube_gpu_stats_tpu_torch.testing import ranks
+
+    [on_card] = run_ranks(ranks.train_step, 1, device="cuda",
+                          args=("cuda",), timeout=300)
+    [on_cpu] = run_ranks(ranks.train_step, 1, device="cpu",
+                         args=("cpu",), timeout=300)
+    for key in ("w1", "w2", "x"):
+        np.testing.assert_array_equal(on_card[key], on_cpu[key])
+    for key in ("new_w1", "new_w2"):
+        np.testing.assert_allclose(on_card[key], on_cpu[key], rtol=1e-5,
+                                   atol=1e-6)
+    assert on_card["loss"] == pytest.approx(on_cpu["loss"], rel=1e-5)
+    [(before, after)] = run_ranks(ranks.ring, 1, device="cuda",
+                                  args=("cuda", 1.0, 3), timeout=300)
+    np.testing.assert_array_equal(after, before + 3)

@@ -174,7 +174,7 @@ def test_memory_read_failure_is_a_counted_collector_error():
         pytest.skip("needs a build where CUDA calls fail")
     col = embedded.TorchIntrospectCollector(device="cpu")
     col._devices = {0: (torch.device("cuda", 0), "NVIDIA H100 80GB HBM3")}
-    col._visible = None
+    col._device_paths = {0: "/dev/nvidia0"}
     (dev,) = col.discover()
     assert (dev.accel_type, dev.device_path) == ("gpu-h100", "/dev/nvidia0")
     with pytest.raises(CollectorError, match="memory stats"):
@@ -208,24 +208,49 @@ def test_accel_type_normalizes_product_names(name, want):
     assert embedded.accel_type(name) == want
 
 
-@pytest.mark.parametrize("ordinal,visible,want", [
-    (0, None, "/dev/nvidia0"),
-    (3, None, "/dev/nvidia3"),
-    (0, "2", "/dev/nvidia2"),
-    (1, "5, 3", "/dev/nvidia3"),
-    (0, "GPU-8a1b2c3d-0000-1111-2222-333344445555",
-     "GPU-8a1b2c3d-0000-1111-2222-333344445555"),
-    (1, "4,MIG-abc", "MIG-abc"),
+# NVML's view of the node: minors in another order than NVML's indices
+# (and CUDA's ordinals).
+_NODE = [("GPU-aaa", 2), ("GPU-bbb", 0), ("GPU-ccc", 5)]
+
+
+@pytest.mark.parametrize("ordinal,visible,uuid,nvml_error,want", [
+    # Unset: CUDA ordinal 0 is the card whose minor is 2, not /dev/nvidia0.
+    (0, None, "GPU-aaa", None, "/dev/nvidia2"),
+    (1, None, "GPU-bbb", None, "/dev/nvidia0"),
+    # An integer entry is neither the minor nor the NVML index.
+    (0, "2", "GPU-bbb", None, "/dev/nvidia0"),
+    (1, "5, 3", "GPU-ccc", None, "/dev/nvidia5"),
+    # A UUID entry goes through the same lookup.
+    (0, "GPU-aaa", "GPU-aaa", None, "/dev/nvidia2"),
+    (1, "4,MIG-abc", "GPU-ccc", None, "MIG-abc"),
+    # A card NVML does not list, or no NVML: the UUID, never a guess.
+    (0, None, "GPU-zzz", None, "GPU-zzz"),
+    (0, "0", "GPU-aaa", "init", "GPU-aaa"),
+    (0, None, "GPU-aaa", "minor_number", "GPU-aaa"),
 ])
-def test_device_path_follows_cuda_visible_devices(ordinal, visible, want):
-    assert embedded.nvidia_device_path(ordinal, visible) == want
+def test_device_path_follows_cuda_visible_devices(ordinal, visible, uuid,
+                                                  nvml_error, want):
+    from kube_gpu_stats_tpu_torch.native import nvml as binding
+    from kube_gpu_stats_tpu_torch.testing.fake_nvml import (FakeDevice,
+                                                            FakeNvml)
+
+    devices = [FakeDevice(uuid=u, minor=m) for u, m in _NODE]
+    fake = FakeNvml(devices, init_error=(
+        binding.NVML_ERROR_LIBRARY_NOT_FOUND if nvml_error == "init"
+        else None))
+    if nvml_error == "minor_number":
+        devices[0].errors["minor_number"] = binding.NVML_ERROR_NOT_SUPPORTED
+    minors = embedded.nvml_minors(fake)
+    assert embedded.nvidia_device_path(ordinal, visible, uuid, minors) == want
+    assert fake._refs == 0  # NVML was shut down again
 
 
 @pytest.mark.parametrize("ordinal,visible", [(1, "0"), (0, ""), (2, "1,,3"),
                                              (1, "0,foo,2")])
 def test_device_path_rejects_an_ordinal_outside_the_list(ordinal, visible):
     with pytest.raises(ValueError):
-        embedded.nvidia_device_path(ordinal, visible)
+        embedded.nvidia_device_path(ordinal, visible, "GPU-aaa",
+                                    {"GPU-aaa": 2})
 
 
 def _get(port, path, headers=None):
@@ -352,16 +377,46 @@ def test_loadgen_embedded_port_serves_during_a_cpu_burn(monkeypatch, capsys,
     assert "accelerator_workload_steps_total{" in prom
 
 
-def test_world_size_scales_the_per_device_share(monkeypatch):
+@pytest.mark.parametrize("local_world,world,cards,want_chips,share", [
+    # One CPU device in a group of 4: a quarter of the global FLOPs.
+    (None, 4, 0, [0], 2e12),
+    # One process per host of 2, each owning 8 cards: 8e12 / 16.
+    (None, 2, 8, list(range(8)), 0.5e12),
+    # torchrun, one process per card (8 on the host, world 8): this
+    # process owns its current card, 3, and divides by the world.
+    ("8", 8, 8, [3], 1e12),
+])
+def test_world_size_scales_the_per_device_share(monkeypatch, local_world,
+                                                world, cards, want_chips,
+                                                share):
     fake_dist = types.SimpleNamespace(is_available=lambda: True,
                                       is_initialized=lambda: True,
-                                      get_world_size=lambda: 4)
+                                      get_world_size=lambda: world)
     monkeypatch.setattr(torch, "distributed", fake_dist)
-    col = embedded.TorchIntrospectCollector(device="cpu")
+    if local_world is None:
+        monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", local_world)
+    if cards:
+        # CUDA made to look present: the collector reads no card.
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+        monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+        monkeypatch.setattr(torch.cuda, "get_device_name",
+                            lambda dev=None: "NVIDIA H100 80GB HBM3")
+        monkeypatch.setattr(torch.cuda, "get_device_properties",
+                            lambda dev: types.SimpleNamespace(uuid="u"))
+        monkeypatch.setattr(embedded, "nvml_minors", lambda: {})
+        monkeypatch.setattr(embedded.TorchIntrospectCollector, "_memory",
+                            staticmethod(lambda dev: {}))
+    col = embedded.TorchIntrospectCollector(
+        device="cpu" if not cards else None)
     col.record_step(1, flops=8e12)
     col.begin_tick()
-    assert col.sample(col.discover()[0]).values[
-        schema.WORKLOAD_FLOPS.name] == 2e12
+    devices = col.discover()
+    assert [d.index for d in devices] == want_chips
+    for dev in devices:
+        assert col.sample(dev).values[schema.WORKLOAD_FLOPS.name] == share
 
 
 def test_accept_fence_counts_fd_exhaustion_and_rearms(monkeypatch):

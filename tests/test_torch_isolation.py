@@ -54,7 +54,9 @@ def test_importing_the_port_loads_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert "kube_gpu_stats_tpu_torch.loadgen.tiled_burn" in report["imported"]
+    for module in ("loadgen.tiled_burn", "loadgen.mesh", "loadgen.ici_burn",
+                   "validate", "testing.ranks"):
+        assert f"kube_gpu_stats_tpu_torch.{module}" in report["imported"]
     assert [m for m in report["loaded"] if _forbidden(m)] == []
 
 

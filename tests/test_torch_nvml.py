@@ -91,7 +91,8 @@ def test_family_mapping_and_units():
         schema.POWER.name: 612.345,
         schema.TEMPERATURE.name: 64.0,
     }
-    # NVML has no tensor-core or uptime reading: never exported.
+    # A card without GPM has no tensor-core reading, and NVML has no
+    # uptime: neither is exported.
     assert schema.TENSORCORE_UTIL.name not in sample.values
     assert schema.UPTIME.name not in sample.values
     assert dict(sample.ici_counters) == {}
@@ -325,3 +326,128 @@ def test_per_device_series_render_identically_to_the_reference(seed):
             "accelerator_energy_joules_total",
             "accelerator_ici_link_bandwidth_bytes_per_second",
             "accelerator_memory_bandwidth_utilization"} <= seen
+
+
+# -- memory v2 and GPM ----------------------------------------------------------
+
+
+def test_memory_used_leaves_out_the_drivers_reservation():
+    dev = FakeDevice(uuid="GPU-a", minor=0, memory_used=2425 * 1024**2,
+                     memory_reserved=480 * 1024**2)
+    collector = NvmlCollector(FakeNvml([dev]))
+    (device,) = collector.discover()
+    values = collector.sample(device).values
+    assert values[schema.MEMORY_USED.name] == 2425 * 1024**2
+    assert values[schema.MEMORY_TOTAL.name] == dev.memory_total
+
+
+def test_memory_v2_struct_and_version():
+    assert ctypes.sizeof(binding.NvmlMemoryV2) == 40
+    assert binding.NVML_MEMORY_V2_VERSION == \
+        ctypes.sizeof(binding.NvmlMemoryV2) | (2 << 24)
+    assert [name for name, _ in binding.NvmlMemoryV2._fields_] == \
+        ["version", "total", "reserved", "free", "used"]
+
+
+def _gpm_card(**kw):
+    return FakeDevice(uuid="GPU-a", minor=0, gpu_util=97, mem_util=41,
+                      gpm_supported=True, tensor_util=62.5,
+                      dram_bw_util=35.25, **kw)
+
+
+def test_gpm_families_from_the_second_tick():
+    dev = _gpm_card()
+    fake = FakeNvml([dev])
+    collector = NvmlCollector(fake)
+    (device,) = collector.discover()
+    first = collector.sample(device).values
+    # No interval yet: neither GPM family, and not the time share either.
+    assert schema.TENSORCORE_UTIL.name not in first
+    assert schema.MEMORY_BANDWIDTH_UTIL.name not in first
+    assert first[schema.DUTY_CYCLE.name] == 97.0
+    assert collector.gpm_state == {"0": "on"}
+    second = collector.sample(device).values
+    assert second[schema.TENSORCORE_UTIL.name] == 62.5
+    assert second[schema.MEMORY_BANDWIDTH_UTIL.name] == 35.25
+    dev.tensor_util, dev.dram_bw_util = 90.0, 70.0
+    third = collector.sample(device).values
+    assert (third[schema.TENSORCORE_UTIL.name],
+            third[schema.MEMORY_BANDWIDTH_UTIL.name]) == (90.0, 70.0)
+    collector.close()
+    assert fake.gpm_samples == {} and fake.gpm_freed == 2
+
+
+@pytest.mark.parametrize("refusal", ["unsupported", "sample_get",
+                                     "query"])
+def test_without_gpm_the_time_share_stands(refusal):
+    dev = _gpm_card()
+    if refusal == "unsupported":
+        dev.gpm_supported = False
+    elif refusal == "sample_get":
+        # The card supports GPM but the container refuses its counters.
+        dev.errors["gpm_sample_get"] = binding.NVML_ERROR_UNKNOWN
+    else:
+        dev.errors["gpm_supported"] = binding.NVML_ERROR_NOT_SUPPORTED
+    fake = FakeNvml([dev])
+    collector = NvmlCollector(fake)
+    (device,) = collector.discover()
+    for _ in range(3):
+        values = collector.sample(device).values
+        assert schema.TENSORCORE_UTIL.name not in values
+        assert values[schema.MEMORY_BANDWIDTH_UTIL.name] == 41.0
+    assert collector.gpm_state == {"0": {
+        "unsupported": "unsupported",
+        "sample_get": "NVML error 999: Unknown Error",
+        "query": "NVML error 3: Not Supported"}[refusal]}
+    assert fake.gpm_samples == {}  # nothing held for a card without GPM
+
+
+def test_a_failed_gpm_read_restarts_the_interval():
+    dev = _gpm_card()
+    collector = NvmlCollector(FakeNvml([dev]))
+    (device,) = collector.discover()
+    collector.sample(device)
+    assert schema.TENSORCORE_UTIL.name in collector.sample(device).values
+    dev.errors["gpm_sample_get"] = binding.NVML_ERROR_UNKNOWN
+    values = collector.sample(device).values
+    assert schema.TENSORCORE_UTIL.name not in values
+    assert schema.MEMORY_BANDWIDTH_UTIL.name not in values
+    del dev.errors["gpm_sample_get"]
+    # The next read starts a new interval; the one after serves again.
+    assert schema.TENSORCORE_UTIL.name not in collector.sample(device).values
+    assert collector.sample(device).values[schema.TENSORCORE_UTIL.name] \
+        == 62.5
+    assert collector.gpm_state == {"0": "on"}
+
+
+def test_gpm_on_a_lost_card_raises():
+    dev = _gpm_card()
+    collector = NvmlCollector(FakeNvml([dev]))
+    (device,) = collector.discover()
+    collector.sample(device)
+    dev.lost = True
+    with pytest.raises(CollectorError, match="GPU is lost"):
+        collector.sample(device)
+
+
+def test_rediscovery_frees_and_reopens_gpm():
+    fake = FakeNvml([_gpm_card()])
+    collector = NvmlCollector(fake)
+    (device,) = collector.discover()
+    collector.sample(device)
+    (device,) = collector.discover()
+    assert fake.gpm_freed == 2 and fake.gpm_samples == {}
+    assert schema.TENSORCORE_UTIL.name not in collector.sample(device).values
+    assert schema.TENSORCORE_UTIL.name in collector.sample(device).values
+    collector.close()
+    assert fake.gpm_freed == 4
+
+
+def test_gpm_structs_as_the_header_lays_them_out():
+    # Held against nvml.h itself by the card-only probe.
+    assert ctypes.sizeof(binding.NvmlGpmMetric) == 40
+    assert binding.NvmlGpmMetric.value.offset == 8
+    assert binding.NvmlGpmMetricsGet.metrics.offset == 24
+    assert ctypes.sizeof(binding.NvmlGpmMetricsGet) == \
+        24 + 40 * binding.NVML_GPM_METRIC_MAX
+    assert ctypes.sizeof(binding.NvmlGpmSupport) == 8

@@ -16,8 +16,10 @@ import pytest
 from kube_gpu_stats_tpu import collectors as ref_collectors
 from kube_gpu_stats_tpu import schema as ref_schema
 from kube_gpu_stats_tpu.poll import PollLoop as RefPollLoop
+from kube_gpu_stats_tpu import wal as ref_wal
 from kube_gpu_stats_tpu.registry import Registry as RefRegistry
 from kube_gpu_stats_tpu_torch import collectors as port_collectors
+from kube_gpu_stats_tpu_torch import wal as port_wal
 from kube_gpu_stats_tpu_torch.poll import PollLoop as PortPollLoop
 from kube_gpu_stats_tpu_torch.registry import Registry as PortRegistry
 
@@ -90,6 +92,15 @@ class Clock:
 
     def __call__(self):
         return self.now
+
+
+@pytest.fixture(autouse=True)
+def no_stores_from_other_tests():
+    """The store-health registries are process-global: a server started
+    by an earlier test in this process (its HTTP accept fence is a store)
+    would add the kts_store_* families to one side's self-metrics."""
+    ref_wal.reset_store_stats()
+    port_wal.reset_store_stats()
 
 
 def _loops(seed):
