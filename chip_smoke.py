@@ -55,6 +55,22 @@ prints its result line after one):
    kube_gpu_stats_tpu_torch validate --two-scrapes``, the textfile,
    ``/healthz``, exit 0 on SIGTERM; then the tick, render and scrape
    costs and the median time of each bound NVML call;
+8b. the node doctor: the NVML daemon at 10 Hz under the ``cuda`` burn on
+   card 0 (launch counter set to 0 before, read after); ``python -m
+   kube_gpu_stats_tpu_torch doctor --backend nvml --attribution off
+   --json --url <daemon> --trace`` must exit 0, ready, with its ``nvml``
+   row matching ``nvidia-smi`` (card count, driver version), ``poll`` OK
+   with every card up, ``scrape`` OK with the daemon's series count,
+   ``live-resilience`` not failing and ``trace`` naming a worst phase no
+   slower than the daemon's ``kts_slowest_tick_seconds``; then
+   ``/debug/ticks|trace?last=20|events|threads|profile?seconds=1`` (one
+   ``sample`` span per card per tick, the poll thread's stack), with the
+   daemon's tick p50 while the doctor ran, during the profile and
+   before it; then a second daemon with a self-signed cert from
+   ``openssl`` and basic auth: HTTPS ``/metrics`` with the cert trusted
+   and the credentials conforms, 401 without them, ``/healthz`` 200
+   without them, the doctor's scrape row WARN, and the scrape ms over
+   TLS (a fresh connection each) beside plain HTTP;
 9. time the kernel, its plain version and one library call
    (``torch.mm`` with f32 out) at the main path's and the sweep's sizes,
    each as the median of batches of back-to-back calls;
@@ -66,8 +82,10 @@ Exits non-zero, printing no result, when CUDA is unavailable.
 
 from __future__ import annotations
 
+import base64
 import collections
 import gzip
+import hashlib
 import json
 import math
 import os
@@ -75,6 +93,7 @@ import pathlib
 import queue
 import re
 import signal
+import ssl
 import stat
 import statistics
 import subprocess
@@ -82,12 +101,13 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import torch
 
-from kube_gpu_stats_tpu_torch import (_build, config, daemon, embedded, schema,
-                                      validate)
+from kube_gpu_stats_tpu_torch import (_build, config, daemon, doctor, embedded,
+                                      schema, validate)
 from kube_gpu_stats_tpu_torch.kinds import _kind_lookup, _kind_peak_flops
 from kube_gpu_stats_tpu_torch.entry import dryrun_multichip, entry
 from kube_gpu_stats_tpu_torch.loadgen import tiled_burn
@@ -146,6 +166,8 @@ POWER_TOL = 0.15
 ENERGY_TOL = 0.15
 NVML_CALLS = 200
 TICK_BUDGET_MS = 50.0
+# The daemon's per-tick sampling deadline (its --deadline default).
+TICK_DEADLINE_MS = config.Config.deadline * 1e3
 # Served memory used against nvidia-smi's memory.used, read right after
 # the scrape: nvidia-smi reports whole MiB, and between the tick and the
 # read the burn's caching allocator may map one more segment (2 or 20
@@ -160,6 +182,17 @@ ICI_SECONDS = 3.0
 ICI_SHARD_MB = 4.0
 STEP_CALLS = 20
 SHARDED_RTOL, SHARDED_ATOL = 1e-5, 1e-6
+# The doctor phase: its daemon ticks at 10 Hz (the flight recorder's ring
+# of 128 ticks then spans 12.8 s); the burn runs in chunks until the
+# doctor and the /debug fetches are done, from DOCTOR_BURN_LEAD_S in;
+# the profile's ticks are held against the DOCTOR_WINDOW ticks before it;
+# the TLS leg times DOCTOR_TLS_SCRAPES scrapes of each kind.
+DOCTOR_INTERVAL_S = 0.1
+DOCTOR_BURN_CHUNK_S = 2.0
+DOCTOR_BURN_LEAD_S = 2.0
+DOCTOR_WINDOW = 10
+DOCTOR_TLS_SCRAPES = 20
+DOCTOR_PASSWORD = "chip-smoke"
 MIB = 1024**2
 ROOT = pathlib.Path(__file__).resolve().parent
 KERNEL_NAME = "tiled_gemm_bf16_f32"
@@ -851,13 +884,15 @@ def smi(fields: str) -> list[list[str]]:
             for line in out.strip().splitlines()]
 
 
-def start_daemon(textfile_dir: str) -> tuple[subprocess.Popen, int, list]:
+def start_daemon(textfile_dir: str, extra: tuple = ()
+                 ) -> tuple[subprocess.Popen, int, list]:
     """The DaemonSet entry point on the card; returns it, the port its
-    log names, and its log lines (read on until it exits)."""
+    log names, and its log lines (read on until it exits). ``extra``
+    flags follow the phase's own (a repeated flag's last value wins)."""
     cmd = [sys.executable, "-m", "kube_gpu_stats_tpu_torch", "--backend",
            "nvml", "--listen-port", "0", "--interval",
            str(DAEMON_INTERVAL_S), "--attribution", "off",
-           "--textfile-dir", textfile_dir]
+           "--textfile-dir", textfile_dir, *extra]
     proc = subprocess.Popen(cmd, cwd=ROOT, stderr=subprocess.PIPE,
                             stdout=subprocess.DEVNULL, text=True)
     lines: queue.Queue = queue.Queue()
@@ -1317,6 +1352,348 @@ def phase_daemon(card_line: str, embedded_paths: dict) -> int:
     return launches
 
 
+def stop_daemon(proc: subprocess.Popen) -> int | None:
+    """SIGTERM, then the exit code (None when it had to be killed)."""
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+    try:
+        return proc.wait(timeout=5)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+        return None
+
+
+def fetch(url: str, headers: dict | None = None, context=None
+          ) -> tuple[int, bytes, float]:
+    """(status, body, ms) of one GET on a fresh connection."""
+    request = urllib.request.Request(url, headers=headers or {})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(request, timeout=30,
+                                    context=context) as resp:
+            status, body = resp.status, resp.read()
+    except urllib.error.HTTPError as exc:
+        status, body = exc.code, exc.read()
+    return status, body, (time.perf_counter() - t0) * 1e3
+
+
+def tick_durations_ms(trace: dict) -> dict[int, dict[str, float]]:
+    """seq -> {"tick": whole-tick ms, "env_round": its sampling round's
+    ms} of every tick in a /debug/trace payload (a tick's spans follow
+    its own event)."""
+    ticks: dict[int, dict[str, float]] = {}
+    row: dict[str, float] = {}
+    for event in trace["traceEvents"]:
+        if event["cat"] == "tick":
+            row = ticks[event["args"]["seq"]] = {"tick": event["dur"] / 1e3}
+        elif event["name"] == "env_round":
+            row["env_round"] = event["dur"] / 1e3
+    return ticks
+
+
+def window_p50(ticks: dict[int, dict[str, float]], first: int,
+               last: int) -> dict:
+    """Median and max ms of the whole tick and of its sampling round over
+    the ticks with first <= seq <= last."""
+    rows = [row for seq, row in ticks.items() if first <= seq <= last]
+    require(rows, f"no ticks recorded in seq {first}..{last}")
+    out: dict = {"ticks": len(rows)}
+    for key in ("tick", "env_round"):
+        durations = [row[key] for row in rows if key in row]
+        out[key] = {"p50_ms": statistics.median(durations),
+                    "max_ms": max(durations)}
+    return out
+
+
+def samples_per_tick(trace: dict) -> list[dict]:
+    """Per tick of a /debug/trace payload (its spans follow its own
+    event): whether its sampling round reached the deadline, and device
+    -> count of the ``sample`` spans that started in it. A sample that
+    outlives the deadline is drained into a later tick, where it starts
+    before that tick does."""
+    ticks: list[dict] = []
+    for event in trace["traceEvents"]:
+        if event["cat"] == "tick":
+            ticks.append({"ts": event["ts"], "late": False, "own": {}})
+        elif event["name"] == "env_round":
+            ticks[-1]["late"] = event["dur"] / 1e3 >= TICK_DEADLINE_MS
+        elif event["name"] == "sample" and event["ts"] >= ticks[-1]["ts"]:
+            own = ticks[-1]["own"]
+            device = event["args"]["device"]
+            own[device] = own.get(device, 0) + 1
+    return ticks
+
+
+def check_samples_per_tick(ticks: list[dict], devices: set[str]) -> dict:
+    """One ``sample`` span per card per tick, as the deadline allows: a
+    tick holds at most one of its own per card, and a run of ticks
+    without one for a card starts at a tick whose round reached the
+    deadline (that read was late; while it runs on, the next ticks skip
+    the card) or at the window's start."""
+    for device in devices:
+        missing_from = None
+        for k, tick in enumerate(ticks):
+            own = tick["own"].get(device, 0)
+            require(own <= 1, f"tick {k}: {own} sample spans for {device}")
+            if own:
+                missing_from = None
+            elif missing_from is None:
+                missing_from = k
+                require(k == 0 or tick["late"],
+                        f"tick {k} of {len(ticks)} has no sample for card "
+                        f"{device} and met its deadline: {ticks}")
+    whole = sum(all(t["own"].get(d) == 1 for d in devices) for t in ticks)
+    require(whole >= 3 * len(ticks) // 4,
+            f"only {whole} of {len(ticks)} ticks hold every card's sample")
+    return {"ticks": len(ticks), "with_every_sample": whole,
+            "late": sum(t["late"] for t in ticks)}
+
+
+def self_signed_cert(directory: str) -> tuple[str, str]:
+    """(cert.pem, key.pem) for 127.0.0.1, made by openssl."""
+    cert = os.path.join(directory, "cert.pem")
+    key = os.path.join(directory, "key.pem")
+    subprocess.run(
+        ["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes",
+         "-keyout", key, "-out", cert, "-days", "1", "-subj", "/CN=127.0.0.1",
+         "-addext", "subjectAltName=IP:127.0.0.1"],
+        check=True, capture_output=True, timeout=60)
+    return cert, key
+
+
+def doctor_and_debug(port: int, n_cards: int, out: dict) -> None:
+    """The doctor's run against the daemon and the /debug/* fetches, made
+    from a thread while the burn runs; fills ``out``."""
+    base = f"http://127.0.0.1:{port}"
+    time.sleep(DOCTOR_BURN_LEAD_S)  # past the burn's ramp
+
+    def current_seq() -> int:
+        return json.loads(fetch(base + "/debug/ticks")[1])["current_seq"]
+
+    out["series_before"] = served_series(scrape(port))
+    seq0 = current_seq()
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "kube_gpu_stats_tpu_torch", "doctor",
+         "--backend", "nvml", "--attribution", "off", "--json",
+         "--url", base + "/metrics", "--trace"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    out["doctor_wall_s"] = time.perf_counter() - t0
+    after = scrape(port)
+    out["series_after"] = served_series(after)
+    out["slowest_tick_s"] = one(validate.parse_exposition(after),
+                                schema.SLOWEST_TICK_SECONDS.name)
+    out["doctor_seqs"] = (seq0, current_seq())
+    out["doctor_rc"] = run.returncode
+    out["doctor_stderr"] = run.stderr[-2000:]
+    out["doctor"] = json.loads(run.stdout) if run.stdout.strip() else None
+    fetched = {}
+    for path in ("/debug/ticks", "/debug/trace?last=20", "/debug/events",
+                 "/debug/threads"):
+        status, body, ms = fetch(base + path)
+        require(status == 200, f"{path} answered {status}")
+        fetched[path] = (body, ms)
+    seq_a = current_seq()
+    status, body, ms = fetch(base + "/debug/profile?seconds=1")
+    seq_b = current_seq()
+    require(status == 200, f"/debug/profile answered {status}")
+    fetched["/debug/profile?seconds=1"] = (body, ms)
+    out["profile_seqs"] = (seq_a, seq_b)
+    # Every tick since the doctor started, for the windows' medians.
+    status, body, _ = fetch(f"{base}/debug/trace?last="
+                            f"{min(128, seq_b - seq0 + 2 * DOCTOR_WINDOW)}")
+    require(status == 200, f"/debug/trace answered {status}")
+    out["ticks"] = tick_durations_ms(json.loads(body))
+    out["fetched"] = fetched
+    out["n_cards"] = n_cards
+
+
+def served_series(text: str) -> int:
+    return sum(1 for line in text.splitlines()
+               if line and not line.startswith("#"))
+
+
+def check_doctor_run(out: dict, smi_cards: int, driver: str) -> dict:
+    """What the doctor must say about the node under the burn."""
+    payload = out["doctor"]
+    require(out["doctor_rc"] == 0 and payload and payload["ready"],
+            f"doctor exited {out['doctor_rc']}: {payload} "
+            f"{out['doctor_stderr']}")
+    rows = {row["name"]: row for row in payload["checks"]}
+    nvml = rows["nvml"]
+    require(nvml["status"] == "ok", f"nvml row {nvml}")
+    require(nvml["data"]["device_count"] == smi_cards,
+            f"nvml row counts {nvml['data']['device_count']} cards, "
+            f"nvidia-smi -L {smi_cards}")
+    require(nvml["data"]["driver_version"] == driver,
+            f"nvml driver {nvml['data']['driver_version']} != "
+            f"nvidia-smi's {driver}")
+    poll = rows["poll"]
+    require(poll["status"] == "ok" and poll["data"]["up"] == smi_cards,
+            f"poll row {poll}")
+    scrape_row = rows["scrape"]
+    count = int(re.match(r"(\d+) series conform", scrape_row["detail"])
+                .group(1)) if scrape_row["status"] == "ok" else None
+    require(count in (out["series_before"], out["series_after"]),
+            f"scrape row {scrape_row} against the daemon's "
+            f"{out['series_before']}/{out['series_after']} series")
+    require(rows["live-resilience"]["status"] != "fail",
+            f"live-resilience {rows['live-resilience']}")
+    trace = rows["trace"]
+    slowest = trace["data"].get("slowest", {})
+    require(trace["status"] == "ok" and slowest.get("worst_phase"),
+            f"trace row {trace}")
+    # dur_ms is rounded to the microsecond.
+    require(slowest["dur_ms"] <= out["slowest_tick_s"] * 1e3 + 1e-3,
+            f"the doctor's slowest tick {slowest['dur_ms']} ms > the "
+            f"daemon's kts_slowest_tick_seconds {out['slowest_tick_s']}")
+    return {"elapsed_seconds": payload["elapsed_seconds"],
+            "wall_s": out["doctor_wall_s"],
+            "poll_p50_ms": poll["data"]["p50_ms"],
+            "poll_detail": poll["detail"], "nvml_detail": nvml["detail"],
+            "scrape_series": count, "trace_detail": trace["detail"],
+            "rows": {name: row["status"] for name, row in rows.items()}}
+
+
+def check_debug_surface(out: dict) -> dict:
+    """What each /debug/* fetch must hold; their ms."""
+    fetched = out["fetched"]
+    ticks = json.loads(fetched["/debug/ticks"][0])
+    require({"env_round", "sample"} <= set(ticks["phases"]),
+            f"/debug/ticks phases {sorted(ticks['phases'])}")
+    trace = json.loads(fetched["/debug/trace?last=20"][0])
+    per_tick = samples_per_tick(trace)
+    require(len(per_tick) == 20, f"/debug/trace?last=20: {len(per_tick)} "
+                                 f"ticks")
+    samples = check_samples_per_tick(
+        per_tick, {str(i) for i in range(out["n_cards"])})
+    events = json.loads(fetched["/debug/events"][0])
+    require(events["enabled"] and isinstance(events["events"], list),
+            f"/debug/events {events}")
+    require("--- thread poll-loop\n" in fetched["/debug/threads"][0].decode(),
+            "/debug/threads names no poll-loop thread")
+    profile = fetched["/debug/profile?seconds=1"][0].decode().splitlines()
+    require(any(line.startswith("poll-loop;") for line in profile),
+            "/debug/profile has no poll-loop stack")
+    return {"fetch_ms": {path: ms for path, (_, ms) in fetched.items()},
+            "trace_last_20": samples, "events": len(events["events"]),
+            "event_kinds": sorted({e["kind"] for e in events["events"]}),
+            "profile_stacks": len(profile)}
+
+
+def phase_doctor(card_line: str) -> int:
+    """The node doctor and the /debug/* surface against the NVML daemon
+    while the ``cuda`` burn runs on card 0, then a daemon with TLS and
+    basic auth; returns the kernel launches of the burn."""
+    smi_cards = len(subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                                   text=True, check=True,
+                                   timeout=60).stdout.strip().splitlines())
+    driver = smi("driver_version")[0][0]
+    workdir = tempfile.mkdtemp(prefix="kts-doctor-")
+    procs: list = []
+    try:
+        proc, port, log = start_daemon(
+            workdir, ("--interval", str(DOCTOR_INTERVAL_S)))
+        procs.append((proc, log))
+        fresh_scrape(port, 1.0)
+        out: dict = {}
+        failure: list = []
+
+        def worker() -> None:
+            try:
+                doctor_and_debug(port, smi_cards, out)
+            except Exception as exc:  # noqa: BLE001 - re-raised below
+                failure.append(exc)
+
+        thread = threading.Thread(target=worker, daemon=True)
+        # The burn runs in chunks until the worker is done, so the card is
+        # busy through every fetch; each chunk launches once more than its
+        # steps (its warm-up).
+        tiled_burn.launches = 0
+        thread.start()
+        steps = chunks = 0
+        while True:
+            chunks += 1
+            steps += run_burn(seconds=DOCTOR_BURN_CHUNK_S, size=MAIN_SIZE,
+                              report_every=1e9, kernel="cuda", device="cuda:0")
+            if not thread.is_alive():
+                break
+            require(chunks * DOCTOR_BURN_CHUNK_S < 120,
+                    "the doctor's worker did not finish in 120 s")
+        launches = tiled_burn.launches
+        thread.join(timeout=30)
+        require(not failure, f"the doctor phase failed: {failure}")
+        require(launches == steps + chunks,
+                f"{launches} launches for {steps} steps in {chunks} chunks")
+        doctor_row = check_doctor_run(out, smi_cards, driver)
+        debug = check_debug_surface(out)
+        ticks = out["ticks"]
+        seq_a, seq_b = out["profile_seqs"]
+        tick = {
+            "while_doctor": window_p50(ticks, *out["doctor_seqs"]),
+            "during_profile": window_p50(ticks, seq_a + 1, seq_b),
+            "before_profile": window_p50(ticks, seq_a - DOCTOR_WINDOW + 1,
+                                         seq_a)}
+
+        # TLS and basic auth: a second daemon, its cert made by openssl.
+        cert, key = self_signed_cert(workdir)
+        secure, secure_port, secure_log = start_daemon(
+            workdir, ("--interval", str(DOCTOR_INTERVAL_S),
+                      "--textfile-dir", "", "--tls-cert-file", cert,
+                      "--tls-key-file", key, "--auth-username", "kts",
+                      "--auth-password-sha256",
+                      hashlib.sha256(DOCTOR_PASSWORD.encode()).hexdigest()))
+        procs.append((secure, secure_log))
+        https = f"https://127.0.0.1:{secure_port}"
+        trusted = ssl.create_default_context(cafile=cert)
+        token = base64.b64encode(f"kts:{DOCTOR_PASSWORD}".encode()).decode()
+        auth = {"Authorization": "Basic " + token}
+        deadline = time.monotonic() + 10
+        while fetch(https + "/readyz", context=trusted)[0] != 200:
+            require(time.monotonic() < deadline, "TLS daemon never ready")
+            time.sleep(0.05)
+        text = validate.fetch_exposition(https + "/metrics", headers=auth,
+                                         ca_file=cert)
+        conforms(text, None, "TLS daemon scrape")
+        status, _, _ = fetch(https + "/metrics", context=trusted)
+        require(status == 401, f"/metrics without credentials: {status}")
+        status, body, _ = fetch(https + "/healthz", context=trusted)
+        require(status == 200 and body.startswith(b"ok\n"),
+                f"/healthz without credentials: {status} {body[:80]}")
+        scrape_row, live_row = doctor.check_url(https + "/metrics")
+        require(scrape_row.status == "warn",
+                f"the doctor's scrape row against TLS: {scrape_row}")
+        # A fresh connection each: TLS + auth against plain HTTP, in turns.
+        plain_ms: list = []
+        tls_ms: list = []
+        for k in range(DOCTOR_TLS_SCRAPES):
+            for which in ((0, 1) if k % 2 == 0 else (1, 0)):
+                if which == 0:
+                    status, _, ms = fetch(
+                        f"http://127.0.0.1:{port}/metrics")
+                    plain_ms.append(ms)
+                else:
+                    status, _, ms = fetch(https + "/metrics", auth, trusted)
+                    tls_ms.append(ms)
+                require(status == 200, f"timed scrape answered {status}")
+    finally:
+        rcs = [stop_daemon(p) for p, _ in procs]
+    for (_, log), rc in zip(procs, rcs):
+        require(rc == 0, f"a doctor-phase daemon exited {rc}: {log[-20:]}")
+    emit("doctor", {
+        "card": card_line, "cards": smi_cards, "driver": driver,
+        "interval_s": DOCTOR_INTERVAL_S, **doctor_row,
+        "daemon_tick_ms": tick, **debug,
+        "burn": {"steps": steps, "chunks": chunks, "launches": launches},
+        "tls": {"scrape_row": scrape_row.detail,
+                "live_resilience_row": live_row.status,
+                "scrape_ms_median": {"plain_http": statistics.median(plain_ms),
+                                     "tls_auth": statistics.median(tls_ms)},
+                "scrapes": DOCTOR_TLS_SCRAPES, "series": served_series(text)}})
+    return launches
+
+
 def library_call():
     """The yardstick: one PyTorch call computing the same function. Returns
     (name, fn(a, b))."""
@@ -1383,6 +1760,7 @@ def main() -> int:
     embedded_launches, embedded_paths = phase_embedded(card, cuda_steps_per_s)
     launches += embedded_launches
     launches += phase_daemon(card, embedded_paths)
+    launches += phase_doctor(card)
     t = phase_timing(card)
     emit("kernels", [{
         "name": KERNEL_NAME, "route": "cuda", "source": KERNEL_SOURCE,

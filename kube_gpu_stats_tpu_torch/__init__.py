@@ -15,13 +15,18 @@ they render; the DaemonSet exporter (``python -m kube_gpu_stats_tpu_torch``)
 on its NVML backend, with process holders and pod attribution; the
 multi-card load generator (a sharded train step and an NVLink ring over
 a process group of one rank per card); the exposition-contract validator
-(``validate.py``); and the entry points (``entry.py``). The hub, doctor
-and top come in later slices. The daemon path imports no torch.
+(``validate.py``); the node doctor (``doctor.py``) with the flight
+recorder's read side and event journal (``tracing.py``), the server's
+``/debug/*`` endpoints, TLS/mTLS and basic auth; and the entry points
+(``entry.py``). The hub and top come in later slices. The daemon and
+doctor paths import no torch.
 
 Layer map:
 
     cli.py, __main__.py  the daemon's command line (bare flags); the
-                      loadgen and validate subcommands
+                      loadgen, validate and doctor subcommands
+    doctor.py         node preflight: nvml, attribution, topology, poll,
+                      --url scrape and live breakers, --trace post-mortem
     daemon.py         Daemon: backend choice, watchers, supervisor, server
     config.py         its flags and KTS_* environment
     collectors/nvml.py  NvmlCollector over native/nvml.py (ctypes NVML)
@@ -41,12 +46,16 @@ Layer map:
     csrc/             CUDA C++ kernels
     embedded.py       TorchIntrospectCollector (steps, FLOPs, MFU, allocator
                       memory per card), EmbeddedExporter, start()
-    exposition.py     MetricsServer (/metrics, /healthz, /readyz), textfile
+    exposition.py     MetricsServer (/metrics, /healthz, /readyz, /debug/*;
+                      TLS, mTLS, basic auth), textfile
+    tracing.py        the flight recorder: tick spans, event journal, and
+                      their read side (/debug/ticks|trace|events)
+    profiler.py       stack sampling behind /debug/profile
     poll.py           PollLoop: per-device sampling with a deadline, tick plans
     registry.py       snapshots, their Prometheus/OpenMetrics render
     schema.py         the metric families (the reference's, unchanged)
     validate.py       the accelerator_* contract checker and its parsers
-    collectors/       the collector trait; tracing, workers, resilience,
+    collectors/       the collector trait; workers, resilience,
                       cardinality, procstats, ici, wal, history, fleetlens,
                       delta, topology, proto: the parts of them the stack uses
     kinds.py          accel_type and the per-kind datasheet tables

@@ -4,7 +4,8 @@ The port keeps only :class:`LabelFence` of the reference's cardinality
 module (the hub's series accountant is not ported): at most ``value_cap``
 distinct values per attribution label key, so a kubelet join minting a
 fresh ``pod`` per tick degrades to one ``pod="overflow"`` series per
-device instead of a series explosion.
+device instead of a series explosion. The first overflow of a key
+journals one ``cardinality_fenced`` event in the flight recorder.
 """
 
 from __future__ import annotations
@@ -27,8 +28,9 @@ class LabelFence:
 
     overflow = "overflow"
 
-    def __init__(self, value_cap: int = 0) -> None:
+    def __init__(self, value_cap: int = 0, tracer=None) -> None:
         self.value_cap = max(0, value_cap)
+        self._tracer = tracer
         self._seen: dict[str, set[str]] = {}
         self._fenced: dict[str, int] = {}
 
@@ -56,10 +58,18 @@ class LabelFence:
             if len(seen) < self.value_cap:
                 seen.add(value)
                 continue
+            first = key not in self._fenced
             self._fenced[key] = self._fenced.get(key, 0) + 1
             if replaced is None:
                 replaced = dict(labels)
             replaced[key] = self.overflow
+            if first and self._tracer is not None:
+                self._tracer.event(
+                    "cardinality_fenced",
+                    f"label {key!r}: distinct-value cap "
+                    f"({self.value_cap}) reached; new values degrade to "
+                    f"{key}={self.overflow!r} aggregation",
+                )
         return replaced if replaced is not None else labels
 
     def fenced_totals(self) -> dict[str, int]:

@@ -30,6 +30,11 @@ class Config:
     deadline: float = 0.050  # per-tick budget
     listen_host: str = "0.0.0.0"
     listen_port: int = 9400
+    tls_cert_file: str = ""  # both set = serve HTTPS
+    tls_key_file: str = ""
+    tls_client_ca_file: str = ""  # set = require client certs (mTLS)
+    auth_username: str = ""  # + password hash = basic auth on /metrics
+    auth_password_sha256: str = ""
     textfile_dir: str = ""  # empty = textfile output disabled
     proc_root: str = "/proc"
     device_processes: str = "on"  # accelerator_process_open scan (on|off)
@@ -149,6 +154,21 @@ def build_parser() -> argparse.ArgumentParser:
                    default=_env("LOG_FORMAT", "text"),
                    help="log record format; json emits one Cloud-Logging-"
                         "style object per line")
+    p.add_argument("--tls-cert-file", default=_env("TLS_CERT_FILE", ""),
+                   help="PEM certificate; with --tls-key-file serves HTTPS")
+    p.add_argument("--tls-key-file", default=_env("TLS_KEY_FILE", ""))
+    p.add_argument("--tls-client-ca-file",
+                   default=_env("TLS_CLIENT_CA_FILE", ""),
+                   help="CA bundle; set = require and verify a client "
+                        "certificate on every connection (mTLS). Needs "
+                        "--tls-cert-file/--tls-key-file")
+    p.add_argument("--auth-username", default=_env("AUTH_USERNAME", ""),
+                   help="basic-auth user for all endpoints except "
+                        "/healthz and /readyz (kubelet probes)")
+    p.add_argument("--auth-password-sha256",
+                   default=_env("AUTH_PASSWORD_SHA256", ""),
+                   help="hex sha256 of the basic-auth password (never the "
+                        "plaintext)")
     p.add_argument("--config", default=_env("CONFIG", ""),
                    help="YAML config file (keys = long flag names); "
                         "precedence: flags > KTS_* env > file > defaults")
@@ -252,12 +272,32 @@ def from_args(argv: Sequence[str] | None = None) -> Config:
         parser.error("--interval must be > 0 seconds")
     if args.deadline <= 0:
         parser.error("--deadline must be > 0 seconds")
+    if bool(args.tls_cert_file) != bool(args.tls_key_file):
+        parser.error("--tls-cert-file and --tls-key-file must be set together")
+    if args.tls_client_ca_file and not args.tls_cert_file:
+        parser.error("--tls-client-ca-file requires --tls-cert-file/"
+                     "--tls-key-file")
+    if bool(args.auth_username) != bool(args.auth_password_sha256):
+        parser.error("--auth-username and --auth-password-sha256 must be "
+                     "set together")
+    if args.auth_password_sha256 and not (
+        len(args.auth_password_sha256) == 64
+        and all(c in "0123456789abcdefABCDEF"
+                for c in args.auth_password_sha256)
+    ):
+        parser.error("--auth-password-sha256 must be a 64-char hex digest "
+                     "(e.g. from `sha256sum`)")
     return Config(
         backend=args.backend,
         interval=args.interval,
         deadline=args.deadline,
         listen_host=args.listen_host,
         listen_port=args.listen_port,
+        tls_cert_file=args.tls_cert_file,
+        tls_key_file=args.tls_key_file,
+        tls_client_ca_file=args.tls_client_ca_file,
+        auth_username=args.auth_username,
+        auth_password_sha256=args.auth_password_sha256,
         textfile_dir=args.textfile_dir,
         proc_root=args.proc_root,
         device_processes=args.device_processes,

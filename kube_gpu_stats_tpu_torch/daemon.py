@@ -10,9 +10,14 @@ over its unix socket, and the NVIDIA driver through ``libnvidia-ml.so.1``.
 The daemon path imports no ``torch``: the DaemonSet image carries no CUDA
 userspace beyond the NVML the container runtime injects.
 
+One flight recorder (``tracing.Tracer``) is shared by the poll loop (span
+recording, plan compiles, the label fence), the supervisor (breaker and
+health journal feed) and the HTTP server (``/debug/ticks|trace|events``).
+The server takes the TLS, mTLS and basic-auth flags.
+
 Not wired here (the reference's, left for later): push egress
-(Pushgateway, remote write, delta push, spill queue), TLS, basic auth and
-``/debug/*``, the burst sampler, the energy accountant, host signals and
+(Pushgateway, remote write, delta push, spill queue), the burst sampler,
+the energy accountant, host signals, their ``/debug/*`` endpoints and
 ``reconfigure``.
 """
 
@@ -154,6 +159,9 @@ class Daemon:
         self.cfg = cfg
         self.registry = Registry()
         self.render_stats = RenderStats()
+        # Flight recorder: --no-trace keeps the object (the /debug
+        # endpoints answer "disabled") but makes every recording call a
+        # cheap no-op.
         self.tracer = Tracer(enabled=cfg.trace_enabled)
         self.collector = build_collector(cfg)
         self.attribution = build_attribution(cfg)
@@ -163,7 +171,8 @@ class Daemon:
         # The attribution source's breaker is late-bound (auto mode builds
         # its PodResources client lazily).
         self.supervisor = Supervisor(
-            check_interval=max(0.1, min(1.0, cfg.interval)))
+            check_interval=max(0.1, min(1.0, cfg.interval)),
+            tracer=self.tracer)
         self.supervisor.register_breaker_provider(self._attribution_breakers)
         # Per-process device holders (accelerator_process_open): the lazy
         # paths_fn closes over self.poll, which exists before the watcher's
@@ -208,8 +217,14 @@ class Daemon:
             # A few missed intervals = unhealthy (floor for tiny test
             # intervals where scheduling jitter dominates).
             healthz_max_age=max(5.0, cfg.interval * 5),
+            tls_cert_file=cfg.tls_cert_file,
+            tls_key_file=cfg.tls_key_file,
+            tls_client_ca_file=cfg.tls_client_ca_file,
+            auth_username=cfg.auth_username,
+            auth_password_sha256=cfg.auth_password_sha256,
             render_stats=self.render_stats,
             health_provider=self.supervisor.health_report,
+            trace_provider=self.tracer,
         )
         self.textfile = (
             TextfileWriter(self.registry, cfg.textfile_dir,

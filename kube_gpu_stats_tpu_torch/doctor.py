@@ -1,0 +1,677 @@
+"""Node preflight and diagnosis for H100 nodes:
+``python -m kube_gpu_stats_tpu_torch doctor``.
+
+The port's counterpart of the reference's ``doctor.py``: one bounded pass
+over every dependency the exporter has — the NVIDIA driver through NVML,
+kubelet attribution sources, topology labels — plus a short measured poll
+(5 ticks, p50 against the configured deadline) through the production
+loop. Made for ``kubectl exec <pod> -- python -m kube_gpu_stats_tpu_torch
+doctor`` on a misbehaving node and for initContainer-style preflight.
+
+Accepts the exporter's own flags (the same config surface) plus:
+  --json         machine-readable output
+  --url TARGET   also scrape TARGET (URL or .prom file) and check it
+                 against the accelerator_* exposition contract, and read
+                 the running exporter's breaker state off it
+  --trace        pull the RUNNING daemon's flight recorder (/debug/ticks
+                 + /debug/events) and print a "last slow tick"
+                 post-mortem: worst phase, the responsible device, and
+                 co-occurring journal events. Uses the --url target's
+                 server (default http://127.0.0.1:<--listen-port>)
+
+The reference's --fleet, --efficiency, --at, --energy, --host, --egress,
+--stores, --cardinality and --skew read modules the port has not ported
+yet; each exits 2 and says so.
+
+Exit code: 0 = no failures (warns allowed), 1 = at least one failure,
+2 = usage error. Every probe is time-bounded; the doctor never hangs on a
+wedged driver. Nothing here imports torch: the one row that asks about
+CUDA (``embedded``) asks a bounded subprocess.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import sys
+import time
+from typing import Callable, Sequence
+
+from .config import Config, from_args
+
+OK, WARN, FAIL, SKIP = "ok", "warn", "fail", "skip"
+_ORDER = {FAIL: 0, WARN: 1, OK: 2, SKIP: 3}
+
+# The reference's doctor flags whose rows read modules not ported yet.
+NOT_PORTED_FLAGS = ("--fleet", "--efficiency", "--at", "--energy", "--host",
+                    "--egress", "--stores", "--cardinality", "--skew")
+
+
+@dataclasses.dataclass
+class CheckResult:
+    name: str
+    status: str  # ok | warn | fail | skip
+    detail: str
+    # Structured payload for --json consumers. Absent keys mean "nothing
+    # to report".
+    data: dict = dataclasses.field(default_factory=dict)
+
+
+def _result(name: str, status: str, detail: str,
+            data: dict | None = None) -> CheckResult:
+    return CheckResult(name, status, detail, data or {})
+
+
+# -- individual probes (each bounded, each returns exactly one result) -------
+
+def _nvml_binding():
+    """The NVML binding the ``nvml`` row opens (tests substitute
+    ``testing.fake_nvml.FakeNvml``)."""
+    from .native.nvml import Nvml
+
+    return Nvml()
+
+
+def check_nvml(cfg: Config) -> CheckResult:
+    """The device backend's row: NVML loaded and initialised, the driver
+    and CUDA driver versions, and per card its index, name, UUID and
+    minor number. FAIL when ``--backend nvml`` is named and NVML cannot
+    load or initialise (the daemon would exit 1); WARN under ``auto``
+    (the daemon would serve the null backend).
+
+    The row opens its own NVML reference and closes it: ``nvmlInit`` and
+    ``nvmlShutdown`` count references per process, so a daemon in the
+    same process keeps its own."""
+    from .native.nvml import NVML_ERROR_LIBRARY_NOT_FOUND, NvmlError
+
+    if cfg.backend in ("mock", "null"):
+        return _result("nvml", SKIP, f"backend={cfg.backend}: NVML not used")
+    bad = FAIL if cfg.backend == "nvml" else WARN
+    consequence = ("--backend nvml cannot start" if bad is FAIL
+                   else "--backend auto would serve the null backend")
+    nvml = _nvml_binding()
+    try:
+        nvml.init()
+    except NvmlError as exc:
+        loaded = exc.code != NVML_ERROR_LIBRARY_NOT_FOUND
+        step = "nvmlInit_v2 failed" if loaded else "library not loaded"
+        return _result("nvml", bad, f"{step}: {exc} — {consequence}",
+                       data={"loaded": loaded, "init": False,
+                             "error": str(exc), "code": exc.code})
+    try:
+        driver = nvml.driver_version()
+        cuda = nvml.cuda_driver_version()
+        devices = []
+        for index in range(nvml.device_count()):
+            handle = nvml.handle(index)
+            devices.append({"index": index, "name": nvml.name(handle),
+                            "uuid": nvml.uuid(handle),
+                            "minor": nvml.minor_number(handle)})
+    except NvmlError as exc:
+        return _result("nvml", bad,
+                       f"NVML initialised, but enumeration failed: {exc} "
+                       f"— {consequence}",
+                       data={"loaded": True, "init": True,
+                             "error": str(exc), "code": exc.code})
+    finally:
+        try:
+            nvml.shutdown()
+        except NvmlError:
+            pass
+    data = {"loaded": True, "init": True, "driver_version": driver,
+            "cuda_driver_version": cuda, "device_count": len(devices),
+            "devices": devices}
+    versions = f"driver {driver}, CUDA {cuda // 1000}.{cuda % 1000 // 10}"
+    if not devices:
+        return _result("nvml", WARN,
+                       f"NVML up ({versions}) but 0 cards — the exporter "
+                       f"would serve self-metrics only", data=data)
+    cards = "; ".join(
+        f"{d['index']}: {d['name']} {d['uuid']} /dev/nvidia{d['minor']}"
+        for d in devices)
+    return _result("nvml", OK, f"{versions}; {len(devices)} card(s): {cards}",
+                   data=data)
+
+
+def check_attribution(cfg: Config) -> CheckResult:
+    import os
+
+    if cfg.attribution == "off":
+        return _result("attribution", SKIP, "disabled by --attribution off")
+    details = []
+    status = WARN
+    if cfg.attribution in ("auto", "podresources"):
+        if os.path.exists(cfg.kubelet_socket):
+            try:
+                from .attribution.podresources import PodResourcesSource
+
+                src = PodResourcesSource(cfg.kubelet_socket, rpc_timeout=2.0)
+                try:
+                    allocations = src.fetch()
+                    allocatable = src.fetch_allocatable()
+                finally:
+                    src.close()
+                details.append(
+                    f"PodResources: {len(allocations)} allocated device(s), "
+                    f"allocatable {dict(sorted(allocatable.items())) or '{}'}"
+                )
+                status = OK
+            except Exception as exc:
+                details.append(f"PodResources socket exists but List() "
+                               f"failed: {exc}")
+        else:
+            details.append(f"no kubelet socket at {cfg.kubelet_socket} "
+                           f"(normal outside Kubernetes)")
+    if cfg.attribution in ("auto", "checkpoint") and status is not OK:
+        try:
+            from .attribution.checkpoint import CheckpointSource
+
+            count = len(CheckpointSource(cfg.checkpoint_path).fetch())
+            details.append(f"checkpoint file: {count} device(s)")
+            status = OK
+        except Exception as exc:
+            details.append(f"checkpoint fallback unavailable: {exc}")
+    return _result("attribution", status, "; ".join(details))
+
+
+def check_topology(cfg: Config) -> CheckResult:
+    from . import topology
+
+    labels = topology.topology_labels()
+    if any(labels.values()):
+        return _result(
+            "topology", OK,
+            ", ".join(f"{k}={v or '(unset)'}" for k, v in sorted(labels.items())),
+        )
+    return _result(
+        "topology", WARN,
+        "no slice/worker/topology labels resolved from the environment; "
+        "multi-host aggregation needs them (set KTS_SLICE/KTS_WORKER/"
+        "KTS_TOPOLOGY)",
+    )
+
+
+def resilience_result(collector) -> CheckResult:
+    """Breaker report for a collector after a short measured run: state,
+    trip count, and last error per breaker. FAIL — the doctor exits
+    non-zero — when any breaker is OPEN: collection through that edge is
+    down right now, not blinking."""
+    from . import resilience
+
+    fn = getattr(collector, "breakers", None)
+    breakers = fn() if callable(fn) else {}
+    if not breakers:
+        return _result("resilience", SKIP,
+                       "no circuit breakers on this backend")
+    parts: list[str] = []
+    data: dict[str, dict] = {}
+    worst = OK
+    for name in sorted(breakers):
+        breaker = breakers[name]
+        last = (resilience.flatten_error(breaker.last_error)
+                if breaker.last_error else "")
+        parts.append(
+            f"{name}: {breaker.state}, {breaker.trips_total} trip(s)"
+            + (f", last error: {last}" if last else ""))
+        data[name] = {"state": breaker.state,
+                      "trips": breaker.trips_total,
+                      "last_error": last}
+        if breaker.state == resilience.OPEN:
+            worst = FAIL
+        elif breaker.state != resilience.CLOSED and worst is not FAIL:
+            worst = WARN
+        elif breaker.trips_total and worst is OK:
+            worst = WARN
+    return _result("resilience", worst, "; ".join(parts),
+                   data={"breakers": data})
+
+
+def check_poll(cfg: Config, ticks: int = 5) -> list[CheckResult]:
+    """A short real collection run (``ticks`` ticks) through the
+    production loop; reports the p50 tick duration against the configured
+    deadline, plus a ``resilience`` row describing each circuit breaker's
+    state after the run (exit non-zero when one is open)."""
+    from .daemon import build_collector
+    from .poll import PollLoop
+    from .registry import Registry
+
+    try:
+        collector = build_collector(cfg)
+    except Exception as exc:
+        return [_result("poll", FAIL,
+                        f"collector construction failed: {exc}")]
+    loop = None
+    try:
+        registry = Registry()
+        loop = PollLoop(collector, registry, deadline=cfg.deadline)
+        if not loop.devices:
+            return [
+                _result(
+                    "poll", WARN,
+                    f"backend={collector.name}: 0 devices — exporter "
+                    f"would serve self-metrics only",
+                ),
+                resilience_result(collector),
+            ]
+        durations = sorted(loop.tick() for _ in range(ticks))
+        p50 = durations[len(durations) // 2] * 1000.0
+        series = registry.snapshot().series
+        accelerator = sum(
+            1 for s in series if s.spec.name.startswith("accelerator_"))
+        ups = sum(s.value for s in series if s.spec.name == "accelerator_up")
+        status = OK if p50 <= cfg.deadline * 1000.0 else WARN
+        return [
+            _result(
+                "poll", status,
+                f"backend={collector.name}: {len(loop.devices)} device(s), "
+                f"{int(ups)} up, {accelerator} accelerator series, tick p50 "
+                f"{p50:.1f} ms (deadline {cfg.deadline * 1000.0:.0f} ms)",
+                data={"devices": len(loop.devices), "up": int(ups),
+                      "accelerator_series": accelerator, "p50_ms": p50},
+            ),
+            resilience_result(collector),
+        ]
+    except Exception as exc:
+        return [_result("poll", FAIL, f"tick crashed: {exc}")]
+    finally:
+        if loop is not None:
+            loop.stop()
+        try:
+            collector.close()
+        except Exception:
+            pass
+
+
+def check_live_resilience(target: str,
+                          text: str | None = None) -> CheckResult:
+    """Read the RUNNING daemon's breaker state off its own exposition
+    (kts_breaker_state). The ``resilience`` row probes a fresh collector,
+    whose breakers start closed; the daemon that has been failing for
+    hours carries its state here. FAIL (exit non-zero) when any live
+    breaker is open."""
+    from . import validate
+
+    try:
+        if text is None:
+            text = validate.fetch_exposition(target)
+        series = validate.parse_exposition(text)
+    except Exception as exc:  # noqa: BLE001 - scrape row diagnoses this
+        return _result("live-resilience", SKIP,
+                       f"{target}: not scrapeable here ({exc}); see the "
+                       f"scrape row")
+    states = {
+        labels.get("component", ""): value
+        for name, labels, value in series if name == "kts_breaker_state"
+    }
+    if not states:
+        return _result(
+            "live-resilience", SKIP,
+            f"{target}: no kts_breaker_state series (exporter predates "
+            f"the resilience layer, or serves no breakers)")
+    names = {0.0: "closed", 1.0: "half_open", 2.0: "open"}
+    detail = "; ".join(
+        f"{component}: {names.get(value, value)}"
+        for component, value in sorted(states.items()))
+    if any(value == 2.0 for value in states.values()):
+        return _result(
+            "live-resilience", FAIL,
+            detail + " — the running exporter's breaker is open: "
+                     "collection through that edge is down right now",
+            data={"breakers": {c: names.get(v, str(v))
+                               for c, v in states.items()}})
+    worst = WARN if any(v == 1.0 for v in states.values()) else OK
+    return _result("live-resilience", worst, detail,
+                   data={"breakers": {c: names.get(v, str(v))
+                                      for c, v in states.items()}})
+
+
+def trace_base(url: str) -> str:
+    """The server base for /debug/* from a --url scrape target."""
+    base = url.rstrip("/")
+    if base.endswith("/metrics"):
+        base = base[: -len("/metrics")]
+    return base
+
+
+def _fetch_json(url: str, timeout: float = 5.0):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return json.loads(resp.read().decode("utf-8"))
+
+
+def trace_post_mortem(ticks: dict, events: list) -> tuple[str, dict]:
+    """(detail line, data payload) for the slowest recorded tick: worst
+    phase, the responsible device (the slowest attributed span the
+    recorder pre-joined as ``blame``), and journal events that fired
+    within ±2 ticks of it. Pure, so tests drive it on canned JSON;
+    check_trace wraps it with the fetch and auth classification."""
+    slowest = ticks.get("slowest") or []
+    row = slowest[0]
+    seq = row.get("seq")
+    parts = [
+        f"last slow tick: {row.get('kind', 'tick')} seq {seq} took "
+        f"{row.get('dur_ms', 0.0):.1f} ms",
+        f"worst phase {row.get('worst_phase')} "
+        f"({row.get('worst_phase_ms', 0.0):.1f} ms)",
+    ]
+    blame = row.get("blame")
+    if blame:
+        attrs = ",".join(
+            f"{key}={value}"
+            for key, value in sorted((blame.get("attrs") or {}).items()))
+        parts.append(f"responsible: {blame.get('span')}[{attrs}] "
+                     f"{blame.get('dur_ms', 0.0):.1f} ms")
+    nearby = [
+        event for event in events
+        if isinstance(seq, int) and isinstance(event.get("tick_seq"), int)
+        and abs(event["tick_seq"] - seq) <= 2
+    ]
+    if nearby:
+        parts.append("co-occurring events: " + "; ".join(
+            f"[seq {event['tick_seq']}] {event.get('kind')}: "
+            f"{event.get('detail')}" for event in nearby[:3]))
+    dropped = ticks.get("dropped_spans_total", 0)
+    if dropped:
+        parts.append(f"{dropped} span(s) dropped — trace truncated")
+    return "; ".join(parts), {"slowest": row, "events": nearby[:10]}
+
+
+def check_trace(base: str) -> CheckResult:
+    """--trace: read the RUNNING daemon's flight recorder and print the
+    post-mortem. The short measured ``poll`` row probes a FRESH loop whose
+    recorder starts empty; the daemon that had one slow tick an hour ago
+    carries the evidence here."""
+    import urllib.error
+
+    try:
+        ticks = _fetch_json(base + "/debug/ticks")
+        events = _fetch_json(base + "/debug/events").get("events", [])
+    except urllib.error.HTTPError as exc:
+        if exc.code in (401, 403):
+            return _result(
+                "trace", WARN,
+                f"{base}/debug/ticks requires authentication "
+                f"(HTTP {exc.code}); the flight recorder sits behind the "
+                f"exporter's basic-auth gate by design")
+        if exc.code == 404:
+            return _result(
+                "trace", WARN,
+                f"{base}: no /debug/ticks (exporter predates the flight "
+                f"recorder, or this server has no tracer wired)")
+        return _result("trace", FAIL, f"{base}/debug/ticks: HTTP {exc.code}")
+    except Exception as exc:  # noqa: BLE001 - unreachable daemon, bad JSON
+        return _result("trace", FAIL,
+                       f"{base}: flight recorder unreadable ({exc})")
+    if not ticks.get("enabled", True):
+        return _result(
+            "trace", WARN,
+            "tracing disabled on the daemon (--no-trace); no flight "
+            "record to post-mortem")
+    if not ticks.get("slowest"):
+        return _result(
+            "trace", WARN,
+            f"no ticks recorded yet (current seq "
+            f"{ticks.get('current_seq', 0)}); is the poll loop running?")
+    detail, data = trace_post_mortem(ticks, events)
+    return _result("trace", OK, detail, data=data)
+
+
+def check_url(target: str) -> list[CheckResult]:
+    """Both --url rows — scrape contract + live breaker state — off ONE
+    fetch: a node diagnosed because it is degraded must not render its
+    exposition twice per doctor run."""
+    text, fetch_row = _scrape_fetch(target)
+    if text is None:
+        return [fetch_row,
+                _result("live-resilience", SKIP,
+                        f"{target}: not scrapeable here; see the scrape "
+                        f"row")]
+    return [check_scrape(target, text=text),
+            check_live_resilience(target, text=text)]
+
+
+def check_scrape(target: str, text: str | None = None) -> CheckResult:
+    """Validate a live scrape (or saved .prom) against the exposition
+    contract — the doctor's hook into the validate tool."""
+    from . import validate
+
+    if text is None:
+        text, fetch_row = _scrape_fetch(target)
+        if text is None:
+            return fetch_row
+    problems = validate.check(text)
+    if problems:
+        head = "; ".join(problems[:3])
+        more = f" (+{len(problems) - 3} more)" if len(problems) > 3 else ""
+        return _result("scrape", FAIL,
+                       f"{len(problems)} contract violation(s): {head}{more}")
+    series = sum(1 for line in text.splitlines()
+                 if line and not line.startswith("#"))
+    return _result("scrape", OK, f"{series} series conform "
+                                 f"to the accelerator_* contract")
+
+
+def _scrape_fetch(target: str) -> tuple[str | None, CheckResult | None]:
+    """Fetch the --url target once: (text, None) on success, else
+    (None, scrape row classifying the failure)."""
+    from . import validate
+
+    import http.client
+    import ssl
+    import urllib.error
+
+    try:
+        return validate.fetch_exposition(target), None
+    except urllib.error.HTTPError as exc:
+        if exc.code in (401, 403):
+            # The exporter's own hardening (--auth-username): the endpoint
+            # is up and enforcing auth. The doctor holds only the
+            # password's sha256 (by design), so it cannot authenticate —
+            # a hardened-healthy state, not a collection failure.
+            return None, _result(
+                "scrape", WARN,
+                f"{target}: endpoint is up but requires authentication "
+                f"(HTTP {exc.code}); contract not checked",
+            )
+        return None, _result("scrape", FAIL, f"{target}: HTTP {exc.code}")
+    except (OSError, ValueError, http.client.HTTPException) as exc:
+        # urlopen wraps certificate failures as URLError(reason=SSLError):
+        # with the exporter's own --tls-cert-file self-signed that is a
+        # hardened-healthy state, not a dead endpoint.
+        reason = getattr(exc, "reason", None)
+        if isinstance(exc, ssl.SSLError) or isinstance(reason, ssl.SSLError):
+            return None, _result(
+                "scrape", WARN,
+                f"{target}: TLS handshake failed ({reason or exc}) — "
+                f"self-signed --tls-cert-file? scrape it with the cert's "
+                f"CA trusted; the endpoint itself is answering TLS",
+            )
+        # ValueError covers UnicodeDecodeError (binary body); HTTPException
+        # covers BadStatusLine — both happen when --url points at
+        # something that is not a metrics endpoint. ascii() keeps raw
+        # response bytes in the message terminal-safe.
+        return None, _result("scrape", FAIL,
+                             f"{target}: fetch failed: {ascii(str(exc))}")
+
+
+# -- orchestration -----------------------------------------------------------
+
+PROBE_TIMEOUT = 15.0  # generous: every probe's own calls are already bounded
+
+
+def _bounded(name: str, probe: Callable[[], object],
+             timeout: float = PROBE_TIMEOUT) -> list[CheckResult]:
+    """Run one probe on a daemon thread with a hard timeout. This is the
+    "doctor never hangs" guarantee for the unbounded dependencies (a
+    wedged driver blocks ``nvmlInit_v2`` with no EINTR to offer): the
+    probe thread is abandoned, marked FAIL, and — being daemonic — never
+    blocks process exit."""
+    import concurrent.futures
+
+    from .workers import DaemonSamplerPool
+
+    pool = DaemonSamplerPool(1, thread_name_prefix=f"doctor-{name}")
+    try:
+        future = pool.submit(probe)
+        try:
+            result = future.result(timeout=timeout)
+        except concurrent.futures.TimeoutError:
+            return [_result(
+                name, FAIL,
+                f"probe hung for {timeout:.0f}s (wedged driver?)",
+            )]
+        except Exception as exc:  # a probe bug must not abort the pass
+            return [_result(name, FAIL, f"probe crashed: {exc}")]
+        return result if isinstance(result, list) else [result]
+    finally:
+        pool.shutdown()
+
+
+EMBEDDED_PROBE_TIMEOUT = 60.0
+
+
+def _probe_torch_cuda(timeout: float = EMBEDDED_PROBE_TIMEOUT) -> str | None:
+    """Ask a SUBPROCESS whether torch sees a CUDA card: "gpu", "cpu", or
+    None when the answer is unknown (no torch here, or its import or CUDA
+    init crashed or hung past ``timeout``). A subprocess, not an import:
+    the doctor runs in the DaemonSet image, which carries no CUDA
+    userspace, and a wedged CUDA init must not wedge the doctor."""
+    import subprocess
+
+    try:
+        out = subprocess.run(
+            [sys.executable, "-c",
+             "import torch\n"
+             "print('gpu' if torch.cuda.is_available() else 'cpu')"],
+            capture_output=True, text=True, timeout=timeout,
+        )
+    except (OSError, subprocess.SubprocessError):
+        return None
+    lines = out.stdout.strip().splitlines()
+    answer = lines[-1] if out.returncode == 0 and lines else ""
+    return answer if answer in ("gpu", "cpu") else None
+
+
+def check_embedded_viability(cfg: Config) -> CheckResult:
+    """Reached only under ``--backend auto`` when the ``nvml`` row is not
+    OK: ask a bounded subprocess whether in-process torch sees a CUDA card
+    anyway — the node where the embedded workload-side exporter is the one
+    viable telemetry path (``embedded.py``)."""
+    platform = _probe_torch_cuda()
+    if platform == "gpu":
+        return _result(
+            "embedded", WARN,
+            "no NVML surface, but in-process torch sees a CUDA card — run "
+            "the embedded exporter inside the workload "
+            "(kube_gpu_stats_tpu_torch.embedded.start(); same schema and "
+            "scrape surface)")
+    if platform is None:
+        # The probe swallows every failure into None: torch not installed
+        # here, an import crash, or a CUDA init hanging past the timeout.
+        # That is INCONCLUSIVE, not "no card" — a false all-clear would
+        # steer the operator away from the one viable path this row
+        # exists to surface.
+        return _result(
+            "embedded", SKIP,
+            "torch probe inconclusive (torch unavailable in this "
+            "environment, or its CUDA init hung/crashed); embedded-mode "
+            "viability unknown")
+    return _result(
+        "embedded", SKIP,
+        "no CUDA card visible to torch either; nothing to export on this "
+        "node")
+
+
+def run_checks(cfg: Config, url: str = "",
+               trace: bool = False) -> list[CheckResult]:
+    probes: list[tuple[str, Callable[[], object]]] = [
+        ("nvml", lambda: check_nvml(cfg)),
+        ("attribution", lambda: check_attribution(cfg)),
+        ("topology", lambda: check_topology(cfg)),
+        ("poll", lambda: check_poll(cfg)),
+    ]
+    if url:
+        # One probe, one fetch, two rows (scrape + live-resilience).
+        probes.append(("scrape", lambda: check_url(url)))
+    if trace:
+        # Only an http(s) --url names a live daemon; a .prom file target
+        # has no flight recorder — fall back to the local daemon on the
+        # configured listen port.
+        base = (trace_base(url) if url.startswith(("http://", "https://"))
+                else f"http://127.0.0.1:{cfg.listen_port}")
+        probes.append(("trace", lambda: check_trace(base)))
+    results: list[CheckResult] = []
+    for name, probe in probes:
+        results.extend(_bounded(name, probe))
+    # Advisory: with no NVML surface under auto, check (bounded) whether
+    # the embedded workload-side path would work — only then, so healthy
+    # nodes never pay a torch import.
+    if cfg.backend == "auto" and not any(
+            r.name == "nvml" and r.status == OK for r in results):
+        results.extend(_bounded(
+            "embedded", lambda: check_embedded_viability(cfg),
+            timeout=EMBEDDED_PROBE_TIMEOUT + 30.0))
+    return results
+
+
+def render_text(results: Sequence[CheckResult],
+                out: Callable[[str], None] = print) -> None:
+    width = max(len(r.name) for r in results)
+    for r in results:
+        out(f"[{r.status:>4}] {r.name:<{width}}  {r.detail}")
+    counts = {s: sum(1 for r in results if r.status == s)
+              for s in (OK, WARN, FAIL, SKIP)}
+    verdict = "NOT READY" if counts[FAIL] else "READY"
+    out(f"{verdict}: {counts[OK]} ok, {counts[WARN]} warn, "
+        f"{counts[FAIL]} fail, {counts[SKIP]} skipped")
+
+
+def main(argv: Sequence[str] | None = None) -> int:
+    raw = list(sys.argv[1:] if argv is None else argv)
+    as_json = False
+    trace = False
+    url = ""
+    args: list[str] = []
+    it = iter(raw)
+    for token in it:
+        flag = token.partition("=")[0]
+        if token == "--json":
+            as_json = True
+        elif token == "--trace":
+            trace = True
+        elif token == "--url":
+            url = next(it, "")
+            if not url or url.startswith("--"):
+                print("--url requires a target (URL or .prom file)",
+                      file=sys.stderr)
+                return 2
+        elif token.startswith("--url="):
+            url = token[len("--url="):]
+            if not url:
+                print("--url requires a target (URL or .prom file)",
+                      file=sys.stderr)
+                return 2
+        elif flag in NOT_PORTED_FLAGS:
+            print(f"doctor {flag}: not ported yet (its row reads a module "
+                  f"the port does not have yet)", file=sys.stderr)
+            return 2
+        else:
+            args.append(token)
+    cfg = from_args(args)
+    started = time.monotonic()
+    results = run_checks(cfg, url=url, trace=trace)
+    results.sort(key=lambda r: _ORDER[r.status])
+    if as_json:
+        print(json.dumps({
+            "ready": not any(r.status == FAIL for r in results),
+            "elapsed_seconds": round(time.monotonic() - started, 3),
+            "checks": [dataclasses.asdict(r) for r in results],
+        }, indent=2))
+    else:
+        render_text(results)
+    return 1 if any(r.status == FAIL for r in results) else 0
+
+
+if __name__ == "__main__":  # pragma: no cover
+    sys.exit(main())

@@ -6,20 +6,31 @@
   a scrape storm cannot perturb the poll budget. ``/healthz`` fails when
   no snapshot was published for ``healthz_max_age`` seconds; ``/readyz``
   passes once one was.
+- HTTP ``GET /debug/ticks|trace|events`` — the flight recorder's read
+  side (``tracing.Tracer``), when one is wired; ``/debug/threads`` (a
+  stack dump of every thread) and ``/debug/profile?seconds=N`` (folded
+  stacks sampled over N seconds, ``profiler.py``) always.
+- TLS (``tls_cert_file``/``tls_key_file``), mTLS (``tls_client_ca_file``)
+  and basic auth (``auth_username`` + ``auth_password_sha256``) on every
+  path but the kubelet probes ``/healthz`` and ``/readyz``.
 - node_exporter textfile — ``<dir>/accelerator.prom`` rewritten atomically
   (tmp + rename) after each poll tick.
 
-The port's copy of the reference's exposition layer without TLS, basic
-auth, the ``/debug/*`` endpoints, delta ingest, ``/query`` and the
-Pushgateway sender.
+The port's copy of the reference's exposition layer without delta
+ingest, ``/query``, the Pushgateway sender and the ``/debug/*`` endpoints
+of modules not ported yet (burst, energy, host, egress, skew, stores,
+cardinality, fleet, efficiency).
 """
 
 from __future__ import annotations
 
 import errno
 import http.server
+import json
 import logging
 import os
+import ssl
+import sys
 import threading
 import time
 from pathlib import Path
@@ -223,14 +234,35 @@ class _FencedHTTPServer(http.server.ThreadingHTTPServer):
             fence.accepted()
         return request
 
+    def handle_error(self, request, client_address) -> None:
+        """A client that fails the TLS handshake (a plain-HTTP prober, a
+        missing client cert), resets, or times out costs only its own
+        connection: logged at debug, as requests are, instead of a
+        traceback on stderr per such client. Anything else keeps
+        socketserver's report."""
+        exc = sys.exc_info()[1]
+        if isinstance(exc, (ssl.SSLError, ConnectionError, TimeoutError)):
+            log.debug("http: connection from %s dropped: %s",
+                      client_address, exc)
+            return
+        super().handle_error(request, client_address)
+
 
 class MetricsServer:
-    """Threaded HTTP server for /metrics, /healthz, /readyz and /.
+    """Threaded HTTP server for /metrics, /healthz, /readyz, /debug/* and /.
 
     ``healthz_max_age`` (seconds) makes /healthz return 503 when no snapshot
     has been published for that long — so a dead poll loop fails the
     liveness probe instead of serving stale data forever. 0 disables the
     staleness check (bare-registry uses in tests/tools).
+
+    Web hardening:
+
+    - ``tls_cert_file``/``tls_key_file`` serve HTTPS; ``tls_client_ca_file``
+      also requires a client certificate signed by that CA (mTLS).
+    - ``auth_username`` + ``auth_password_sha256`` (hex digest) require
+      HTTP basic auth on every path except /healthz and /readyz, which
+      kubelet probes hit unauthenticated.
 
     /metrics responses are gzip-compressed when the scraper advertises
     ``Accept-Encoding: gzip`` (Prometheus always does).
@@ -243,9 +275,24 @@ class MetricsServer:
 
     def __init__(self, registry: Registry, host: str = "0.0.0.0",
                  port: int = 9400, healthz_max_age: float = 0.0,
+                 tls_cert_file: str = "", tls_key_file: str = "",
+                 tls_client_ca_file: str = "",
+                 auth_username: str = "", auth_password_sha256: str = "",
                  render_stats: RenderStats | None = None,
-                 health_provider=None):
+                 health_provider=None, trace_provider=None):
         self._registry = registry
+        # Flight recorder (tracing.Tracer): serves /debug/ticks,
+        # /debug/trace and /debug/events behind the same auth gate as
+        # /metrics. None = those paths 404.
+        self._trace = trace_provider
+        # (user, lower-case sha256 hex of the password), or None = open.
+        self._auth = (
+            (auth_username, auth_password_sha256.lower())
+            if auth_username else None
+        )
+        # /debug/profile is single-flight: two requests must not double
+        # the sampling overhead.
+        self._profile_lock = threading.Lock()
         self._healthz_max_age = healthz_max_age
         self._render_stats = render_stats
         # Optional () -> [(component, state, reason)] rows (the
@@ -297,6 +344,40 @@ class MetricsServer:
             def log_message(self, fmt: str, *args) -> None:
                 log.debug("http: " + fmt, *args)
 
+            def _authorized(self) -> bool:
+                import base64
+                import hashlib
+                import hmac
+
+                expected_user, expected_hash = outer._auth
+                header = self.headers.get("Authorization", "")
+                if not header.startswith("Basic "):
+                    return False
+                try:
+                    decoded = base64.b64decode(header[6:]).decode("utf-8")
+                    user, _, password = decoded.partition(":")
+                except (ValueError, UnicodeDecodeError):
+                    return False
+                digest = hashlib.sha256(password.encode()).hexdigest()
+                # Compare as bytes (compare_digest raises TypeError on a
+                # non-ASCII str — a crafted user name must get 401, not
+                # crash the connection). Both comparisons constant-time;
+                # & (not `and`) so the user check cannot short-circuit
+                # into a timing oracle.
+                return hmac.compare_digest(
+                    user.encode(), expected_user.encode()
+                ) & hmac.compare_digest(
+                    digest.encode(), expected_hash.encode()
+                )
+
+            def _query(self) -> dict:
+                """name -> raw value from the request's query string."""
+                params: dict = {}
+                for part in self.path.partition("?")[2].split("&"):
+                    key, _, value = part.partition("=")
+                    params[key] = value
+                return params
+
             def _send_plain(self, code: int, body: bytes,
                             headers: dict | None = None) -> None:
                 self.send_response(code)
@@ -314,6 +395,13 @@ class MetricsServer:
             def do_GET(self) -> None:
                 path = self.path.split("?", 1)[0]
                 encoding = ""
+                if (outer._auth is not None
+                        and path not in ("/healthz", "/readyz")
+                        and not self._authorized()):
+                    self._send_plain(
+                        401, b"unauthorized\n",
+                        {"WWW-Authenticate": 'Basic realm="kube-tpu-stats"'})
+                    return
                 if path == "/metrics":
                     # Content negotiation: Prometheus asks for
                     # OpenMetrics with an explicit Accept; default
@@ -436,10 +524,91 @@ class MetricsServer:
                         body = f"{reason}\n".encode()
                         self.send_response(503)
                     self.send_header("Content-Type", "text/plain")
+                elif path == "/debug/profile":
+                    # Statistical profile over a bounded window, as
+                    # folded stacks (profiler.py).
+                    from . import profiler
+
+                    seconds = 5.0
+                    try:
+                        seconds = float(self._query().get("seconds", ""))
+                    except ValueError:
+                        pass
+                    # Comparison-based clamp: min/max pass NaN through,
+                    # and a NaN deadline would return an empty profile.
+                    if not seconds >= 0.1:
+                        seconds = 0.1
+                    if seconds > 30.0:
+                        seconds = 30.0
+                    if not outer._profile_lock.acquire(blocking=False):
+                        self._send_plain(409,
+                                         b"a profile is already running\n")
+                        return
+                    try:
+                        body = profiler.render_folded(
+                            profiler.sample_stacks(seconds)).encode()
+                    finally:
+                        outer._profile_lock.release()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "text/plain")
+                elif path in ("/debug/ticks", "/debug/trace",
+                              "/debug/events") and outer._trace is not None:
+                    # Flight recorder: per-phase summaries + slowest-tick
+                    # table, Chrome trace-event JSON of the recorded
+                    # ticks, and the event journal. The read side takes
+                    # snapshots of the ring and journal under the
+                    # cold-path lock; it never blocks a tick's spans.
+                    params = self._query()
+                    if path == "/debug/ticks":
+                        payload = outer._trace.ticks_summary()
+                        # The render pre-warmer's cumulative wait on the
+                        # publish lock, beside the slow-tick table.
+                        payload.setdefault("meta", {})[
+                            "render_prewarm_wait_seconds_total"] = round(
+                            getattr(outer._registry,
+                                    "render_wait_seconds", 0.0), 6)
+                    elif path == "/debug/trace":
+                        try:
+                            last = int(params.get("last", "0") or 0)
+                        except ValueError:
+                            last = 0
+                        payload = outer._trace.chrome_trace(last or None)
+                    else:
+                        try:
+                            since = int(params.get("since", "0") or 0)
+                        except ValueError:
+                            since = 0
+                        payload = outer._trace.events(since)
+                    body = (json.dumps(payload, sort_keys=True)
+                            + "\n").encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "application/json")
+                elif path == "/debug/threads":
+                    # Live stack dump of every thread: enough to diagnose
+                    # a wedged sampler or a stuck attribution refresh from
+                    # outside the pod.
+                    import traceback
+
+                    frames = sys._current_frames()
+                    names = {t.ident: t.name for t in threading.enumerate()}
+                    parts = []
+                    for ident, frame in frames.items():
+                        parts.append(f"--- thread {names.get(ident, ident)}\n")
+                        parts.extend(traceback.format_stack(frame))
+                    body = "".join(parts).encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "text/plain")
                 elif path == "/":
-                    links = ["/metrics", "/healthz", "/readyz"]
+                    # Every endpoint this server serves: the landing page
+                    # is the endpoint inventory (the recorder's appear
+                    # only when one is wired).
+                    links = ["/metrics", "/healthz", "/readyz",
+                             "/debug/threads", "/debug/profile?seconds=5"]
+                    if outer._trace is not None:
+                        links += ["/debug/ticks", "/debug/trace?last=20",
+                                  "/debug/events"]
                     body = ("<html><body>kube-tpu-stats " + " ".join(
-                        f'<a href="{link}">{link}</a>'
+                        f'<a href="{link}">{link.partition("?")[0]}</a>'
                         for link in links) + "</body></html>").encode()
                     self.send_response(200)
                     self.send_header("Content-Type", "text/html")
@@ -451,12 +620,51 @@ class MetricsServer:
                 self.end_headers()
                 self.wfile.write(body)
 
+        # Validate the TLS config BEFORE binding: raising after the
+        # server is built would leak the bound listener socket.
+        if tls_client_ca_file and not tls_cert_file:
+            raise ValueError(
+                "tls_client_ca_file (mTLS) requires tls_cert_file/"
+                "tls_key_file — client certs only exist inside TLS"
+            )
+        if (tls_cert_file or tls_key_file) and not (
+                tls_cert_file and tls_key_file):
+            raise ValueError("TLS needs both tls_cert_file and tls_key_file")
         # Fenced accept loop: fd exhaustion sheds with backoff + journal
         # instead of spinning the accept thread hot.
         self._server = _FencedHTTPServer((host, port), Handler)
         self._server.daemon_threads = True
         self._fence = _AcceptFence()
         self._server.fence = self._fence
+        if tls_cert_file:
+            import ssl
+
+            try:
+                # Hardened stdlib defaults: TLS >= 1.2, vetted ciphers.
+                context = ssl.create_default_context(ssl.Purpose.CLIENT_AUTH)
+                context.load_cert_chain(tls_cert_file, tls_key_file)
+                if tls_client_ca_file:
+                    # mTLS: every connection must present a cert chaining
+                    # to this CA; the handshake itself rejects strangers.
+                    context.verify_mode = ssl.CERT_REQUIRED
+                    context.load_verify_locations(cafile=tls_client_ca_file)
+                # Defer the handshake to the per-connection handler
+                # thread (its first read performs it): with the handshake
+                # on accept, one client that opens a TCP connection and
+                # sends nothing would wedge the single accept loop, and
+                # /healthz with it. A failed handshake then ends that
+                # handler's connection only. The wrapped listener keeps
+                # _FencedHTTPServer.get_request, so the accept fence
+                # still sees every accept.
+                self._server.socket = context.wrap_socket(
+                    self._server.socket, server_side=True,
+                    do_handshake_on_connect=False,
+                )
+            except Exception:
+                # An unreadable cert/key/CA must not leak the listener
+                # already bound above.
+                self._server.server_close()
+                raise
         self._thread: threading.Thread | None = None
 
     @property

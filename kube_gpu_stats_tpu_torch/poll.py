@@ -313,7 +313,7 @@ class PollLoop:
         # key at the plan compiler, so a kubelet join minting a fresh pod
         # per tick degrades to pod="overflow" aggregation instead of a
         # per-tick series (and plan) explosion. 0 = unfenced.
-        self._label_fence = LabelFence(label_value_cap)
+        self._label_fence = LabelFence(label_value_cap, tracer=self.tracer)
         self._tick_seq = 0
 
         self._devices: list[Device] = list(collector.discover())
@@ -686,6 +686,10 @@ class PollLoop:
             return plan
         reason = "device" if plan is None else "attribution"
         self._plan_compiles[reason] = self._plan_compiles.get(reason, 0) + 1
+        self.tracer.event(
+            "plan_compile",
+            f"device {dev.device_id}: tick plan compiled ({reason})",
+            device=dev.device_id, reason=reason)
         plan = _DevicePlan(dev, key, attribution, self._topology,
                            self._drop_labels, self._disabled_metrics,
                            self._built_cell)

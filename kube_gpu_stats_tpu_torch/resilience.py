@@ -116,6 +116,13 @@ class CircuitBreaker:
     call. ``clock`` is injectable so tests drive recovery without
     sleeping. ``trips_total``, ``last_error`` and ``state`` feed the
     kts_breaker_state and /healthz surfaces.
+
+    ``on_transition`` (optional, assigned after construction) is called
+    as ``hook(breaker, old_state, new_state)`` on every state change — the
+    flight recorder's journal feed (``Tracer.breaker_listener``, which the
+    supervisor attaches to every breaker it can see). It fires after the
+    lock is released, so a hook may read breaker state; a hook's exception
+    is swallowed (an observer must never break the guarded edge).
     """
 
     def __init__(self, name: str = "", *, failure_threshold: int = 3,
@@ -135,6 +142,9 @@ class CircuitBreaker:
         self.consecutive_failures = 0
         self.trips_total = 0
         self.last_error: BaseException | str | None = None
+        # Transition observer (flight recorder). None = no journaling.
+        self.on_transition: Callable[["CircuitBreaker", str, str],
+                                     None] | None = None
 
     # -- state ---------------------------------------------------------------
 
@@ -169,22 +179,23 @@ class CircuitBreaker:
             if self._state == CLOSED:
                 return True
             now = self._clock()
-            if self._state == OPEN:
-                if now - self._opened_at >= self._recovery_time:
-                    self._state = HALF_OPEN
-                    self._probe_inflight = True
-                    self._probe_started_at = now
-                    return True
-                return False
-            # HALF_OPEN: one probe at a time — but a probe whose outcome
-            # was never recorded must not wedge the breaker here forever:
-            # reclaim the slot after a recovery window.
-            if (not self._probe_inflight
-                    or now - self._probe_started_at >= self._recovery_time):
+            if self._state == HALF_OPEN:
+                # One probe at a time — but a probe whose outcome was
+                # never recorded must not wedge the breaker here forever:
+                # reclaim the slot after a recovery window.
+                if (self._probe_inflight and now - self._probe_started_at
+                        < self._recovery_time):
+                    return False
                 self._probe_inflight = True
                 self._probe_started_at = now
                 return True
-            return False
+            if now - self._opened_at < self._recovery_time:
+                return False
+            self._state = HALF_OPEN
+            self._probe_inflight = True
+            self._probe_started_at = now
+        self._fire(OPEN, HALF_OPEN)
+        return True
 
     def guard(self) -> None:
         """``allow()`` or raise :class:`BreakerOpenError` naming the
@@ -198,27 +209,43 @@ class CircuitBreaker:
 
     def record_success(self) -> None:
         with self._lock:
+            old = self._state
             self.consecutive_failures = 0
             self._state = CLOSED
             self._probe_inflight = False
             self.last_error = None
+        if old != CLOSED:
+            self._fire(old, CLOSED)
 
     def record_failure(self, error: BaseException | str | None = None) -> None:
         with self._lock:
+            old = self._state
             self.consecutive_failures += 1
             self.last_error = error if error is not None else self.last_error
-            if self._state == HALF_OPEN:
-                # The probe failed: back to OPEN, recovery clock restarts.
+            # HALF_OPEN: the probe failed, back to OPEN (the recovery clock
+            # restarts). CLOSED: trip at the threshold.
+            tripped = old == HALF_OPEN or (
+                old == CLOSED
+                and self.consecutive_failures >= self._failure_threshold)
+            if tripped:
                 self._trip()
-            elif (self._state == CLOSED and self.consecutive_failures
-                  >= self._failure_threshold):
-                self._trip()
+        if tripped:
+            self._fire(old, OPEN)
 
     def _trip(self) -> None:
         self._state = OPEN
         self._opened_at = self._clock()
         self._probe_inflight = False
         self.trips_total += 1
+
+    def _fire(self, old: str, new: str) -> None:
+        hook = self.on_transition
+        if hook is None:
+            return
+        try:
+            hook(self, old, new)
+        except Exception:  # noqa: BLE001 - observer must not break the edge
+            pass
 
 
 class DeadlineBudget:

@@ -24,9 +24,11 @@ every registered breaker's state in ``kts_breaker_state`` /
 ``kts_breaker_trips_total``. The same report feeds /healthz's
 per-component reasons.
 
-Left behind with the reference's flight-recorder journal (not ported):
-the journal feed of health flips and breaker transitions, and the
-restart report behind ``/debug/stores``.
+With a flight recorder (``tracer``), each watchdog pass journals a
+``component`` event when a component's health state flips and attaches
+the recorder's ``breaker_listener`` to every breaker it can see (a
+``breaker`` event per transition); a latched restart storm journals a
+``thread_restart_storm`` event.
 """
 
 from __future__ import annotations
@@ -120,9 +122,17 @@ class Supervisor:
     STORM_HOLD = 300.0
 
     def __init__(self, *, check_interval: float = 1.0,
-                 clock: Callable[[], float] = time.monotonic) -> None:
+                 clock: Callable[[], float] = time.monotonic,
+                 tracer=None) -> None:
         self._check_interval = check_interval
         self._clock = clock
+        # Flight recorder (tracing.Tracer): the watchdog pass journals
+        # health flips and attaches the breaker-transition listener to
+        # every breaker it can see — late-bound providers included, so a
+        # lazily created client's breaker journals within one check
+        # interval of existing. None = no journaling.
+        self._tracer = tracer
+        self._last_health: dict[str, str] = {}
         self._components: dict[str, _Component] = {}
         self._breaker_providers: list[
             Callable[[], Mapping[str, CircuitBreaker]]] = []
@@ -272,6 +282,7 @@ class Supervisor:
                 component.probe_next = False
                 component.probing = True
             self._meter_storm(component, now)
+        self._observe_transitions()
         self._state_gen += 1  # a watchdog pass revalidates contribute()
         return restarted
 
@@ -298,6 +309,35 @@ class Supervisor:
             "(storm #%d; last reason: %s)",
             component.name, self.STORM_HOLD, component.storms,
             component.last_reason)
+        if self._tracer is not None and self._tracer.enabled:
+            self._tracer.event(
+                "thread_restart_storm",
+                f"{component.name}: restart storm #{component.storms}; "
+                f"restarts paused {self.STORM_HOLD:.0f}s, then one "
+                f"probe respawn ({component.last_reason})",
+                component=component.name)
+
+    def _observe_transitions(self) -> None:
+        """Journal feed, once per watchdog pass: attach the breaker
+        listener to newly seen breakers, and emit a ``component`` event
+        whenever a component's health state changed since the last
+        pass."""
+        tracer = self._tracer
+        if tracer is None or not tracer.enabled:
+            return
+        breakers = self.breakers()
+        for breaker in breakers.values():
+            if getattr(breaker, "on_transition", None) is None:
+                breaker.on_transition = tracer.breaker_listener
+        for row in self.health(breakers):
+            previous = self._last_health.get(row.name)
+            if previous is not None and previous != row.state:
+                detail = f"{row.name}: {previous} -> {row.state}"
+                if row.reason:
+                    detail += f" ({row.reason})"
+                tracer.event("component", detail, component=row.name,
+                             state=row.state)
+            self._last_health[row.name] = row.state
 
     def _run(self) -> None:
         while not self._stop.is_set():

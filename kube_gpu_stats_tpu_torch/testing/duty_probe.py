@@ -55,12 +55,15 @@ def smi(fields: str) -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
-def start_daemon() -> tuple[subprocess.Popen, int]:
-    """The DaemonSet exporter over NVML, ticking at 2 Hz."""
+def start_daemon(interval: float = 0.5, extra: tuple = ()
+                 ) -> tuple[subprocess.Popen, int]:
+    """The DaemonSet exporter over NVML, ticking every ``interval`` s
+    (2 Hz unless told), with ``extra`` flags."""
     proc = subprocess.Popen(
         [sys.executable, "-m", "kube_gpu_stats_tpu_torch", "--backend",
-         "nvml", "--listen-port", "0", "--interval", "0.5", "--attribution",
-         "off", "--textfile-dir", tempfile.mkdtemp(prefix="kts-probe-")],
+         "nvml", "--listen-port", "0", "--interval", str(interval),
+         "--attribution", "off", "--textfile-dir",
+         tempfile.mkdtemp(prefix="kts-probe-"), *extra],
         stderr=subprocess.PIPE, stdout=subprocess.DEVNULL, text=True)
     for line in proc.stderr:
         match = re.search(r"listening on \S+:(\d+)", line)

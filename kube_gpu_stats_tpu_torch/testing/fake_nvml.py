@@ -57,9 +57,13 @@ class FakeNvml:
     ``NVML_ERROR_DRIVER_NOT_LOADED`` for a node without the driver)."""
 
     def __init__(self, devices: Sequence[FakeDevice] = (),
-                 init_error: int | None = None) -> None:
+                 init_error: int | None = None,
+                 driver_version: str = "580.159.03",
+                 cuda_driver_version: int = 13000) -> None:
         self.devices = list(devices)
         self.init_error = init_error
+        self._driver_version = driver_version
+        self._cuda_driver_version = cuda_driver_version
         self.init_calls = 0
         self.shutdown_calls = 0
         self._refs = 0
@@ -89,6 +93,16 @@ class FakeNvml:
             if self._refs == 0:
                 self._raise(binding.NVML_ERROR_UNINITIALIZED)
             self._refs -= 1
+
+    def driver_version(self) -> str:
+        if self._refs == 0:
+            self._raise(binding.NVML_ERROR_UNINITIALIZED)
+        return self._driver_version
+
+    def cuda_driver_version(self) -> int:
+        if self._refs == 0:
+            self._raise(binding.NVML_ERROR_UNINITIALIZED)
+        return self._cuda_driver_version
 
     def _device(self, handle: int, call: str) -> FakeDevice:
         if self._refs == 0:

@@ -1,12 +1,32 @@
-"""Flight recorder: per-tick span tracing.
+"""Flight recorder: per-tick span tracing and an event journal.
 
-The port's copy of the reference's recorder, cut to what the poll loop
-uses: ``begin``/``end`` bracket one tick into a ring of recent traces,
-``mark``/``add_span`` record its phases and ``aux_span`` the per-device
-reads from the sampler threads. The snapshot tail exports the cumulative phase digest
-(``phase_quantiles``, ``slowest_tick``) as ``kts_tick_phase_seconds`` and
-``kts_slowest_tick_seconds``, and the dropped-span count as
-``kts_trace_dropped_spans_total``.
+The port's copy of the reference's recorder. Three pieces:
+
+- **Spans** — ``with tracer.span(name, **attrs)``, or the non-indenting
+  ``mark()``/``add_span()`` pair the poll loop uses, and ``aux_span()``
+  for the per-device reads on the sampler threads. Per-trace span count
+  is capped; overflow counts in ``dropped_spans_total``
+  (``kts_trace_dropped_spans_total``) instead of growing memory.
+- **Trace ring** — ``begin(kind, seq)`` … ``end(**meta)`` brackets one
+  poll tick into an immutable :class:`TickTrace`, kept in a ring of the
+  last ``capacity``. Read as per-phase p50/p99 plus a slowest-tick table
+  (:meth:`ticks_summary`, served as ``/debug/ticks``), as Chrome
+  trace-event JSON (:meth:`chrome_trace`, ``/debug/trace?last=N``), and
+  as the cumulative digest the snapshot tail exports
+  (:meth:`phase_quantiles`, :meth:`slowest_tick`:
+  ``kts_tick_phase_seconds`` and ``kts_slowest_tick_seconds``).
+- **Event journal** — :meth:`event` records state transitions (breaker
+  trips, supervisor health flips, restart storms, plan compiles, the
+  label fence's first overflow), each stamped with the tick seq current
+  when it fired. Served as ``/debug/events?since=<id>``; ``doctor
+  --trace`` joins it with the slowest-tick table into a post-mortem.
+
+Concurrency: the in-progress span list is thread-local, so an abandoned
+wedged loop thread can never interleave its spans into the fresh
+thread's trace. Sampler threads record completed observations through
+``aux_span`` into a small locked buffer that ``end()`` drains into the
+finishing trace. The ring and journal are deques; the read side and the
+journal take the cold-path lock, never the span path.
 
 ``log_every(key, interval)`` also lives here: the shared rate limiter for
 warning sites that can emit one line per tick during a sustained outage.
@@ -48,29 +68,95 @@ class TickTrace(NamedTuple):
     meta: Mapping
 
 
+class Event(NamedTuple):
+    """One journal entry. ``tick_seq`` is the trace seq current when the
+    event fired — the join key the doctor uses against the slowest-tick
+    table."""
+
+    id: int
+    tick_seq: int
+    at: float
+    kind: str
+    detail: str
+    attrs: Mapping
+
+
+class _Span:
+    """Context-manager shape of the span API. One short-lived object per
+    span; everything hot is __slots__ attribute access."""
+
+    __slots__ = ("_tracer", "_spans", "_name", "_attrs", "_start")
+
+    def __init__(self, tracer: "Tracer", spans: list, name: str,
+                 attrs: dict | None) -> None:
+        self._tracer = tracer
+        self._spans = spans
+        self._name = name
+        self._attrs = attrs
+
+    def __enter__(self) -> "_Span":
+        self._start = self._tracer.clock_ns()
+        return self
+
+    def __exit__(self, *_exc) -> None:
+        tracer = self._tracer
+        spans = self._spans
+        if len(spans) < tracer._max_spans:
+            spans.append((self._name, self._start,
+                          tracer.clock_ns() - self._start, self._attrs))
+        else:
+            # Cold branch (past the cap): take the lock so the unlocked
+            # += can't race a pool thread's locked increment.
+            with tracer._lock:
+                tracer.dropped_spans_total += 1
+
+
+class _NoopSpan:
+    __slots__ = ()
+
+    def __enter__(self) -> "_NoopSpan":
+        return self
+
+    def __exit__(self, *_exc) -> None:
+        pass
+
+
+_NOOP = _NoopSpan()
+
+
 class Tracer:
-    """The flight recorder. One instance per poll loop."""
+    """The flight recorder. One instance per daemon: the poll loop records
+    into it, the supervisor and the label fence journal into it, and the
+    MetricsServer serves its read side on ``/debug/*``. ``clock_ns`` and
+    ``wall`` are injectable so tests drive it on fake clocks."""
 
-    # Traces kept in the ring, and spans per trace (past the cap spans are
-    # counted as dropped instead of growing memory).
-    CAPACITY = 128
-    MAX_SPANS = 256
-
-    def __init__(self, *, enabled: bool = True) -> None:
+    def __init__(self, *, enabled: bool = True, capacity: int = 128,
+                 max_spans: int = 256, journal_capacity: int = 512,
+                 clock_ns: Callable[[], int] = time.perf_counter_ns,
+                 wall: Callable[[], float] = time.time) -> None:
         # False (the daemon's --no-trace) turns every recording call into
-        # a cheap no-op and keeps the digest families absent.
+        # a cheap no-op and keeps the digest families absent; the /debug
+        # endpoints stay up and say so.
         self.enabled = enabled
-        self.clock_ns = time.perf_counter_ns
-        self._max_spans = self.MAX_SPANS
+        self.clock_ns = clock_ns
+        self._wall = wall
+        self._max_spans = max_spans
         self._ring: "collections.deque[TickTrace]" = collections.deque(
-            maxlen=self.CAPACITY)
-        # Cold-path lock: aux buffer, phase fold. Never taken by
-        # add_span() — the loop-thread hot path.
+            maxlen=capacity)
+        self._events: "collections.deque[Event]" = collections.deque(
+            maxlen=journal_capacity)
+        # Cold-path lock: aux buffer, journal ids, phase fold. Never
+        # taken by span()/add_span() — the loop-thread hot path.
         self._lock = threading.Lock()
         self._aux: list = []
+        self._event_id = 0
         # phase name -> [bucket counts (len+1), total, sum_ns, max_ns]
         self._phases: dict[str, list] = {}
         self._tls = threading.local()
+        # Trace seq of the most recent begin(): the journal's tick stamp.
+        # Plain int, GIL-atomic — written by the loop thread, read by
+        # whatever thread fires an event.
+        self.current_seq = 0
         self.dropped_spans_total = 0
 
     # -- recording (hot path) ------------------------------------------------
@@ -84,9 +170,19 @@ class Tracer:
         tls = self._tls
         tls.kind = kind
         tls.seq = seq
-        tls.at = time.time()
+        tls.at = self._wall()
         tls.start = self.clock_ns()
         tls.spans = []
+        self.current_seq = seq
+
+    def span(self, name: str, **attrs) -> _Span | _NoopSpan:
+        """``with tracer.span("fold"):`` — records one span into the
+        calling thread's open trace; a no-op (shared singleton, zero
+        allocation) when disabled or no trace is open."""
+        spans = getattr(self._tls, "spans", None)
+        if spans is None:
+            return _NOOP
+        return _Span(self, spans, name, attrs or None)
 
     def mark(self) -> int:
         """Start stamp for the ``mark()``/``add_span()`` pair — the
@@ -177,7 +273,64 @@ class Tracer:
         if dur_ns > state[3]:
             state[3] = dur_ns
 
+    # -- journal -------------------------------------------------------------
+
+    def event(self, kind: str, detail: str = "", **attrs) -> None:
+        """Append one journal entry, stamped with the current tick seq.
+        Callers own flood control (emit on a transition, never per tick):
+        the journal is a bounded ring, and a per-tick repeat would evict
+        the rare events a post-mortem wants."""
+        if not self.enabled:
+            return
+        with self._lock:
+            self._event_id += 1
+            self._events.append(Event(
+                self._event_id, self.current_seq, self._wall(), kind,
+                str(detail), attrs or {}))
+
+    def breaker_listener(self, breaker, old: str, new: str) -> None:
+        """``CircuitBreaker.on_transition``-shaped hook: journals every
+        breaker state change with the breaker's name and, for trips, its
+        flattened last error. The supervisor attaches it to every breaker
+        it can see."""
+        name = getattr(breaker, "name", "") or "breaker"
+        detail = f"{name}: {old} -> {new}"
+        if new == "open":
+            last = getattr(breaker, "last_error", None)
+            if last is not None:
+                text = " ".join(str(last).split())
+                detail += f" ({text[:200]})"
+        self.event("breaker", detail, component=name, state=new)
+
     # -- read side (cold) ----------------------------------------------------
+
+    def traces(self, last: int | None = None) -> list[TickTrace]:
+        out = list(self._ring)
+        if last is not None and last > 0:
+            out = out[-last:]
+        return out
+
+    def spans_per_trace(self) -> float:
+        """Mean spans per recorded trace."""
+        traces = list(self._ring)
+        if not traces:
+            return 0.0
+        return sum(len(t.spans) for t in traces) / len(traces)
+
+    def events(self, since: int = 0) -> dict:
+        """Journal entries with id > ``since`` (the /debug/events
+        payload; pass the previous response's ``last_id`` to tail)."""
+        rows = [e for e in list(self._events) if e.id > since]
+        return {
+            "enabled": self.enabled,
+            "events": [
+                {"id": e.id, "tick_seq": e.tick_seq, "at": e.at,
+                 "kind": e.kind, "detail": e.detail,
+                 "attrs": dict(e.attrs)}
+                for e in rows
+            ],
+            "last_id": self._event_id,
+        }
 
     @staticmethod
     def _quantile_ms(counts: Sequence[int], total: int, q: float,
@@ -213,6 +366,56 @@ class Tracer:
                 if blame is None or span[2] > blame[2]:
                     blame = span
         return worst, blame
+
+    def ticks_summary(self) -> dict:
+        """The /debug/ticks payload: cumulative per-phase p50/p99 (from
+        the fixed-bucket fold — the whole process lifetime, not just the
+        ring window) plus a slowest-tick table from the ring, each row
+        pre-joined with its worst phase and blame span so a post-mortem
+        needs no client-side trace parsing."""
+        with self._lock:
+            phases = {
+                name: {
+                    "count": state[1],
+                    "p50_ms": round(self._quantile_ms(state[0], state[1],
+                                                      0.50, state[3]), 3),
+                    "p99_ms": round(self._quantile_ms(state[0], state[1],
+                                                      0.99, state[3]), 3),
+                    "max_ms": round(state[3] / 1e6, 3),
+                    "mean_ms": round(state[2] / state[1] / 1e6, 3)
+                    if state[1] else 0.0,
+                }
+                for name, state in sorted(self._phases.items())
+            }
+        traces = list(self._ring)
+        slowest = []
+        for trace in sorted(traces, key=lambda t: t.dur_ns,
+                            reverse=True)[:5]:
+            worst, blame = self._worst_span(trace)
+            row = {
+                "kind": trace.kind,
+                "seq": trace.seq,
+                "at": trace.at,
+                "dur_ms": round(trace.dur_ns / 1e6, 3),
+                "spans": len(trace.spans),
+                "meta": dict(trace.meta),
+                "worst_phase": worst[0] if worst else None,
+                "worst_phase_ms": round(worst[2] / 1e6, 3) if worst
+                else None,
+            }
+            if blame is not None:
+                row["blame"] = {"span": blame[0],
+                                "dur_ms": round(blame[2] / 1e6, 3),
+                                "attrs": dict(blame[3])}
+            slowest.append(row)
+        return {
+            "enabled": self.enabled,
+            "current_seq": self.current_seq,
+            "ticks_recorded": len(traces),
+            "dropped_spans_total": self.dropped_spans_total,
+            "phases": phases,
+            "slowest": slowest,
+        }
 
     def phase_quantiles(self) -> dict[str, tuple[float, float, float]]:
         """{phase: (p50_s, p99_s, max_s)} from the cumulative fold — the
@@ -258,6 +461,41 @@ class Tracer:
             "phase_seconds": worst[2] / 1e9 if worst is not None else 0.0,
             "blame": blame_text,
         }
+
+    def chrome_trace(self, last: int | None = None) -> dict:
+        """Chrome trace-event JSON (``chrome://tracing`` / Perfetto "load
+        trace"): one complete ("X") event per trace and per span, ts/dur
+        in microseconds relative to the earliest recorded start so the
+        viewer opens at t=0."""
+        traces = self.traces(last)
+        starts = [t.start_ns for t in traces]
+        starts.extend(s[1] for t in traces for s in t.spans)
+        base = min(starts) if starts else 0
+        events: list[dict] = []
+        for trace in traces:
+            args = {"seq": trace.seq}
+            args.update(trace.meta)
+            events.append({
+                "name": trace.kind, "cat": trace.kind, "ph": "X",
+                "pid": 1, "tid": 1,
+                "ts": (trace.start_ns - base) / 1000.0,
+                "dur": trace.dur_ns / 1000.0,
+                "args": args,
+            })
+            for name, start_ns, dur_ns, attrs in trace.spans:
+                events.append({
+                    "name": name, "cat": "span", "ph": "X",
+                    "pid": 1, "tid": 1,
+                    "ts": (start_ns - base) / 1000.0,
+                    "dur": dur_ns / 1000.0,
+                    "args": dict(attrs) if attrs else {},
+                })
+        # "enabled" rides every /debug payload (--no-trace keeps the
+        # endpoints up and says so): an empty traceEvents must be told
+        # apart from tracing disabled. The viewers ignore unknown keys.
+        return {"traceEvents": events, "displayTimeUnit": "ms",
+                "enabled": self.enabled}
+
 
 # -- rate-limited logging ----------------------------------------------------
 

@@ -168,6 +168,7 @@ _NVML_CONSTANTS = (
     "NVML_ERROR_FUNCTION_NOT_FOUND", "NVML_ERROR_GPU_IS_LOST",
     "NVML_ERROR_UNKNOWN", "NVML_TEMPERATURE_GPU",
     "NVML_DEVICE_UUID_V2_BUFFER_SIZE", "NVML_DEVICE_NAME_V2_BUFFER_SIZE",
+    "NVML_SYSTEM_DRIVER_VERSION_BUFFER_SIZE",
     "NVML_FI_DEV_NVLINK_LINK_COUNT", "NVML_FI_DEV_NVLINK_THROUGHPUT_DATA_TX",
     "NVML_FI_DEV_NVLINK_THROUGHPUT_DATA_RX", "NVML_VALUE_TYPE_DOUBLE",
     "NVML_VALUE_TYPE_UNSIGNED_INT", "NVML_VALUE_TYPE_UNSIGNED_LONG",
@@ -178,6 +179,12 @@ _NVML_CONSTANTS = (
 )
 # Binding constants whose nvml.h spelling is another name or a macro.
 _NVML_EXPRESSIONS = {"NVML_MEMORY_V2_VERSION": "nvmlMemory_v2"}
+# Bound calls, by the C function-pointer type the binding's argtypes and
+# restype spell; the probe fails to compile where nvml.h declares another.
+_NVML_PROTOTYPES = {
+    "nvmlSystemGetDriverVersion": "nvmlReturn_t (*)(char *, unsigned int)",
+    "nvmlSystemGetCudaDriverVersion_v2": "nvmlReturn_t (*)(int *)",
+}
 
 
 def _nvml_structs():
@@ -204,12 +211,17 @@ def _nvml_header() -> pathlib.Path:
 
 def test_nvml_binding_matches_the_header(card, tmp_path):
     """Compiles a probe against the toolkit's nvml.h and holds every
-    constant, struct size and member offset of the binding against it."""
+    constant, struct size and member offset of the binding against it,
+    and the prototypes of the calls in _NVML_PROTOTYPES."""
     from kube_gpu_stats_tpu_torch.native import nvml as binding
 
     header = _nvml_header()
-    lines = ["#include <stdio.h>", "#include <stddef.h>", "#include <nvml.h>",
-             "int main(void) {", 'printf("{");']
+    lines = ["#include <stdio.h>", "#include <stddef.h>", "#include <nvml.h>"]
+    for fn, pointer in _NVML_PROTOTYPES.items():
+        # __typeof__ does not evaluate: no link against libnvidia-ml.
+        lines.append(f"_Static_assert(__builtin_types_compatible_p("
+                     f'__typeof__(&{fn}), {pointer}), "{fn}");')
+    lines += ["int main(void) {", 'printf("{");']
     constants = {name: name for name in _NVML_CONSTANTS}
     constants.update(_NVML_EXPRESSIONS)
     for name, expr in constants.items():

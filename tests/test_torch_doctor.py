@@ -1,0 +1,491 @@
+"""The port's node doctor against the JAX package's.
+
+- Pure rows on the same inputs give the reference's row, field for
+  field: ``trace_post_mortem`` on canned /debug payloads, ``check_scrape``
+  on the same saved ``.prom`` text, ``check_live_resilience`` on the same
+  exposition, ``resilience_result`` on breakers in the same states, and
+  ``check_attribution`` against the reference's fake kubelet and a
+  checkpoint file.
+- ``check_poll`` on ``--backend mock``: the same device, up and
+  ``accelerator_*`` series counts as the reference's.
+- The ``nvml`` row on ``testing.fake_nvml``: FAIL under ``--backend nvml``
+  when the library is absent or init fails, WARN under ``auto``, OK with
+  the versions and per-card UUID/minor; its NVML reference is its own.
+- ``_bounded``, ``check_embedded_viability`` and ``main``'s flags, exit
+  codes and ``--json`` shape.
+"""
+
+import dataclasses
+import json
+import pathlib
+import subprocess
+import sys
+import threading
+
+import numpy as np
+import pytest
+
+from kube_gpu_stats_tpu import config as ref_config
+from kube_gpu_stats_tpu import doctor as ref_doctor
+from kube_gpu_stats_tpu import resilience as ref_resilience
+from kube_gpu_stats_tpu.proto import podresources as ref_pb
+from kube_gpu_stats_tpu.testing.kubelet_server import (FakeKubeletServer,
+                                                       tpu_pod)
+from kube_gpu_stats_tpu_torch import config as port_config
+from kube_gpu_stats_tpu_torch import daemon
+from kube_gpu_stats_tpu_torch import doctor
+from kube_gpu_stats_tpu_torch import resilience as port_resilience
+from kube_gpu_stats_tpu_torch.collectors.mock import MockCollector
+from kube_gpu_stats_tpu_torch.collectors.nvml import NvmlCollector
+from kube_gpu_stats_tpu_torch.native import nvml as binding
+from kube_gpu_stats_tpu_torch.native.nvml import NvmlError
+from kube_gpu_stats_tpu_torch.poll import PollLoop
+from kube_gpu_stats_tpu_torch.registry import Registry
+from kube_gpu_stats_tpu_torch.testing.fake_nvml import FakeDevice, FakeNvml
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+GPU = "nvidia.com/gpu"
+UUIDS = [f"GPU-{i:08x}-aaaa-bbbb-cccc-{i:012x}" for i in range(4)]
+
+
+def _row(result) -> dict:
+    return dataclasses.asdict(result)
+
+
+# -- trace_post_mortem ---------------------------------------------------------
+
+def _ticks_payload(seed: int, blame: bool, dropped: int) -> dict:
+    rng = np.random.default_rng(seed)
+    seq = int(rng.integers(10, 100))
+    row = {"kind": "tick", "seq": seq, "at": 1_700_000_000.5,
+           "dur_ms": float(rng.uniform(1, 80)), "spans": 6,
+           "meta": {"devices": 4}, "worst_phase": "env_round",
+           "worst_phase_ms": float(rng.uniform(1, 40))}
+    if blame:
+        row["blame"] = {"span": "sample", "dur_ms": float(rng.uniform(1, 30)),
+                        "attrs": {"device": "2", "port": 8431}}
+    return {"enabled": True, "current_seq": seq + 5, "ticks_recorded": 16,
+            "dropped_spans_total": dropped, "phases": {},
+            "slowest": [row, dict(row, seq=seq - 7)]}
+
+
+def _events(seq: int) -> list:
+    # Within ±2 ticks of the slow one, and outside; one without a seq.
+    return [{"id": i + 1, "tick_seq": seq + offset, "at": 0.0,
+             "kind": kind, "detail": f"{kind} detail {i}", "attrs": {}}
+            for i, (offset, kind) in enumerate(
+                [(-3, "plan_compile"), (-2, "breaker"), (0, "component"),
+                 (1, "cardinality_fenced"), (2, "breaker"), (3, "component")])
+            ] + [{"id": 99, "tick_seq": None, "kind": "x", "detail": ""}]
+
+
+@pytest.mark.parametrize("seed,blame,dropped,with_events", [
+    (0, True, 0, True), (1, False, 0, True), (2, True, 7, False),
+    (3, False, 3, True)])
+def test_trace_post_mortem_equals_the_reference(seed, blame, dropped,
+                                                with_events):
+    ticks = _ticks_payload(seed, blame, dropped)
+    events = _events(ticks["slowest"][0]["seq"]) if with_events else []
+    got = doctor.trace_post_mortem(ticks, events)
+    assert got == ref_doctor.trace_post_mortem(ticks, events)
+    detail, data = got
+    assert ("responsible: sample[device=2,port=8431]" in detail) == blame
+    assert len(data["events"]) == (4 if with_events else 0)
+
+
+# -- check_scrape / check_live_resilience --------------------------------------
+
+def _exposition(devices: int = 2) -> str:
+    registry = Registry()
+    loop = PollLoop(MockCollector(num_devices=devices), registry)
+    try:
+        loop.tick()
+    finally:
+        loop.stop()
+    return registry.snapshot().render()
+
+
+def _violating(text: str) -> str:
+    lines = text.splitlines()
+    out = []
+    for line in lines:
+        if line.startswith("accelerator_duty_cycle{"):
+            line = line.rsplit(" ", 1)[0] + " 150"
+        if line.startswith("accelerator_memory_used_bytes{"):
+            line = line.rsplit(" ", 1)[0] + " -1"
+        out.append(line)
+        if line.startswith("accelerator_up{"):
+            out.append(line)  # a duplicate series
+    return "\n".join(out) + "\n"
+
+
+@pytest.mark.parametrize("kind", ["clean", "violations", "empty"])
+def test_check_scrape_equals_the_reference_on_saved_text(tmp_path, kind):
+    text = _exposition()
+    text = {"clean": text, "violations": _violating(text), "empty": ""}[kind]
+    path = tmp_path / "saved.prom"
+    path.write_text(text)
+    got = doctor.check_scrape(str(path))
+    assert _row(got) == _row(ref_doctor.check_scrape(str(path)))
+    assert got.status == ("fail" if kind == "violations" else "ok")
+    # The --url pair, off one fetch.
+    rows = [_row(r) for r in doctor.check_url(str(path))]
+    assert rows == [_row(r) for r in ref_doctor.check_url(str(path))]
+
+
+def test_check_scrape_of_a_missing_file_equals_the_reference(tmp_path):
+    target = str(tmp_path / "absent.prom")
+    assert _row(doctor.check_scrape(target)) == \
+        _row(ref_doctor.check_scrape(target))
+    assert [_row(r) for r in doctor.check_url(target)] == \
+        [_row(r) for r in ref_doctor.check_url(target)]
+
+
+_BREAKER_TEXTS = {
+    "closed": 'kts_breaker_state{component="kubelet"} 0\n',
+    "half_open": ('kts_breaker_state{component="kubelet"} 0\n'
+                  'kts_breaker_state{component="nvml"} 1\n'),
+    "open": ('kts_breaker_state{component="kubelet"} 2\n'
+             'kts_breaker_state{component="nvml"} 1\n'),
+    "none": "accelerator_up 1\n",
+}
+
+
+@pytest.mark.parametrize("state", sorted(_BREAKER_TEXTS))
+def test_check_live_resilience_equals_the_reference(tmp_path, state):
+    text = _BREAKER_TEXTS[state]
+    got = doctor.check_live_resilience("t", text=text)
+    assert _row(got) == _row(ref_doctor.check_live_resilience("t", text=text))
+    assert got.status == {"closed": "ok", "half_open": "warn",
+                          "open": "fail", "none": "skip"}[state]
+    path = tmp_path / "live.prom"
+    path.write_text(text)
+    assert _row(doctor.check_live_resilience(str(path))) == \
+        _row(ref_doctor.check_live_resilience(str(path)))
+
+
+# -- resilience_result ---------------------------------------------------------
+
+def _breakers(resilience, states: tuple) -> dict:
+    now = [0.0]
+    out = {}
+    for i, state in enumerate(states):
+        b = resilience.CircuitBreaker(f"edge{i}", failure_threshold=2,
+                                      recovery_time=5.0,
+                                      clock=lambda: now[0])
+        if state in ("tripped", "half_open", "open"):
+            b.record_failure("first")
+            b.record_failure(OSError("connect refused\n  retry later"))
+        if state in ("tripped", "half_open"):
+            now[0] += 10.0
+            assert b.allow()
+        if state == "tripped":
+            b.record_success()
+        out[b.name] = b
+    return out
+
+
+class _Collector:
+    def __init__(self, breakers: dict) -> None:
+        self._breakers = breakers
+
+    def breakers(self) -> dict:
+        return self._breakers
+
+
+@pytest.mark.parametrize("states", [
+    (), ("closed",), ("closed", "tripped"), ("half_open", "closed"),
+    ("open", "half_open"), ("tripped", "open", "closed")])
+def test_resilience_result_equals_the_reference(states):
+    got = doctor.resilience_result(
+        _Collector(_breakers(port_resilience, states)))
+    want = ref_doctor.resilience_result(
+        _Collector(_breakers(ref_resilience, states)))
+    assert _row(got) == _row(want)
+    assert doctor.resilience_result(object()).status == "skip"
+
+
+# -- check_attribution ---------------------------------------------------------
+
+def _configs(**fields):
+    return port_config.Config(**fields), ref_config.Config(**fields)
+
+
+def test_check_attribution_against_the_fake_kubelet(tmp_path):
+    socket = str(tmp_path / "kubelet.sock")
+    server = FakeKubeletServer(socket, allocatable=[
+        ref_pb.ContainerDevices(GPU, tuple(UUIDS))])
+    server.pods = [
+        tpu_pod("train-0", "ml", "trainer", UUIDS[:2], resource=GPU),
+        tpu_pod("infer-0", "serve", "server", [UUIDS[2]], resource=GPU)]
+    with server:
+        for mode in ("podresources", "auto"):
+            port_cfg, ref_cfg = _configs(attribution=mode,
+                                         kubelet_socket=socket)
+            got = doctor.check_attribution(port_cfg)
+            assert _row(got) == _row(ref_doctor.check_attribution(ref_cfg))
+            assert got.status == "ok"
+            assert "3 allocated device(s)" in got.detail
+
+
+@pytest.mark.parametrize("mode", ["auto", "checkpoint", "podresources",
+                                  "off"])
+@pytest.mark.parametrize("with_file", [True, False])
+def test_check_attribution_checkpoint_equals_the_reference(tmp_path, mode,
+                                                            with_file):
+    path = tmp_path / "kubelet_internal_checkpoint"
+    if with_file:
+        path.write_text(json.dumps({"Data": {"PodDeviceEntries": [
+            {"PodUID": "uid-a", "ContainerName": "trainer",
+             "ResourceName": GPU, "DeviceIDs": {"-1": UUIDS[:2]}},
+        ], "RegisteredDevices": {GPU: UUIDS}}, "Checksum": 1}))
+    port_cfg, ref_cfg = _configs(
+        attribution=mode, kubelet_socket=str(tmp_path / "absent.sock"),
+        checkpoint_path=str(path))
+    assert _row(doctor.check_attribution(port_cfg)) == \
+        _row(ref_doctor.check_attribution(ref_cfg))
+
+
+def test_check_topology_reads_only_the_kts_environment(monkeypatch):
+    for key in ("KTS_SLICE", "KTS_WORKER", "KTS_TOPOLOGY"):
+        monkeypatch.delenv(key, raising=False)
+    row = doctor.check_topology(port_config.Config())
+    assert row.status == "warn"
+    assert "KTS_SLICE/KTS_WORKER/KTS_TOPOLOGY)" in row.detail
+    monkeypatch.setenv("KTS_SLICE", "h100-pool")
+    monkeypatch.setenv("KTS_WORKER", "3")
+    row = doctor.check_topology(port_config.Config())
+    assert (row.status, row.detail) == \
+        ("ok", "slice=h100-pool, topology=(unset), worker=3")
+
+
+# -- check_poll ----------------------------------------------------------------
+
+def _poll_counts(detail: str) -> str:
+    """The row's detail up to its timing: backend, devices, up, series."""
+    return detail.split(", tick p50")[0]
+
+
+@pytest.mark.parametrize("devices", [1, 4, 0])
+def test_check_poll_on_mock_counts_like_the_reference(devices):
+    # A generous deadline: no wall-clock threshold decides the row here.
+    argv = ["--backend", "mock", "--mock-devices", str(devices),
+            "--deadline", "30"]
+    got = doctor.check_poll(port_config.from_args(argv))
+    want = ref_doctor.check_poll(ref_config.from_args(argv))
+    assert [r.name for r in got] == [r.name for r in want] == \
+        ["poll", "resilience"]
+    assert _poll_counts(got[0].detail) == _poll_counts(want[0].detail)
+    assert got[0].status == want[0].status
+    assert _row(got[1]) == _row(want[1])
+    if devices:
+        assert got[0].data["up"] == devices
+        assert got[0].data["accelerator_series"] == 27 * devices
+
+
+def test_check_poll_fails_when_the_backend_cannot_start(monkeypatch):
+    def failing():
+        raise NvmlError(binding.NVML_ERROR_DRIVER_NOT_LOADED,
+                        "Driver Not Loaded")
+
+    monkeypatch.setattr(daemon, "_nvml_collector", failing)
+    [row] = doctor.check_poll(port_config.Config(backend="nvml"))
+    assert row.status == "fail"
+    assert "Driver Not Loaded" in row.detail
+
+
+# -- the nvml row --------------------------------------------------------------
+
+def _fake(**kwargs) -> FakeNvml:
+    return FakeNvml([FakeDevice(UUIDS[0], minor=2),
+                     FakeDevice(UUIDS[1], minor=0, name="NVIDIA H100 PCIe")],
+                    **kwargs)
+
+
+@pytest.mark.parametrize("backend,status", [("nvml", "fail"),
+                                            ("auto", "warn")])
+@pytest.mark.parametrize("code", [binding.NVML_ERROR_LIBRARY_NOT_FOUND,
+                                  binding.NVML_ERROR_DRIVER_NOT_LOADED])
+def test_nvml_row_without_a_driver(monkeypatch, backend, status, code):
+    monkeypatch.setattr(doctor, "_nvml_binding",
+                        lambda: _fake(init_error=code))
+    row = doctor.check_nvml(port_config.Config(backend=backend))
+    assert (row.name, row.status) == ("nvml", status)
+    assert row.data["init"] is False
+    assert row.data["loaded"] is (code != binding.NVML_ERROR_LIBRARY_NOT_FOUND)
+    assert row.data["code"] == code
+
+
+def test_nvml_row_on_an_answering_driver(monkeypatch):
+    fake = _fake(driver_version="580.159.03", cuda_driver_version=13000)
+    monkeypatch.setattr(doctor, "_nvml_binding", lambda: fake)
+    row = doctor.check_nvml(port_config.Config(backend="nvml"))
+    assert row.status == "ok"
+    assert row.data == {
+        "loaded": True, "init": True, "driver_version": "580.159.03",
+        "cuda_driver_version": 13000, "device_count": 2,
+        "devices": [
+            {"index": 0, "name": "NVIDIA H100 80GB HBM3", "uuid": UUIDS[0],
+             "minor": 2},
+            {"index": 1, "name": "NVIDIA H100 PCIe", "uuid": UUIDS[1],
+             "minor": 0}]}
+    assert row.detail.startswith("driver 580.159.03, CUDA 13.0; 2 card(s): ")
+    assert f"0: NVIDIA H100 80GB HBM3 {UUIDS[0]} /dev/nvidia2" in row.detail
+    assert (fake.init_calls, fake.shutdown_calls) == (1, 1)
+
+
+def test_nvml_row_with_no_cards_and_a_failing_card(monkeypatch):
+    monkeypatch.setattr(doctor, "_nvml_binding", lambda: FakeNvml([]))
+    assert doctor.check_nvml(port_config.Config(backend="nvml")).status == \
+        "warn"
+    lost = _fake()
+    lost.devices[1].lost = True
+    monkeypatch.setattr(doctor, "_nvml_binding", lambda: lost)
+    row = doctor.check_nvml(port_config.Config(backend="auto"))
+    assert row.status == "warn"
+    assert "GPU is lost" in row.detail
+    assert lost.shutdown_calls == 1
+
+
+@pytest.mark.parametrize("backend", ["mock", "null"])
+def test_nvml_row_skips_on_the_card_less_backends(backend):
+    assert doctor.check_nvml(port_config.Config(backend=backend)).status == \
+        "skip"
+
+
+def test_the_doctor_keeps_nvml_up_under_a_daemon_in_this_process(monkeypatch):
+    fake = _fake()
+    collector = NvmlCollector(fake)
+    try:
+        [dev, _] = collector.discover()
+        monkeypatch.setattr(doctor, "_nvml_binding", lambda: fake)
+        assert doctor.check_nvml(port_config.Config(backend="nvml")).status \
+            == "ok"
+        # The doctor paired its init with its shutdown: the collector's
+        # reference is still there, and it goes on sampling.
+        collector.begin_tick()
+        assert collector.sample(dev).values
+    finally:
+        collector.close()
+    assert (fake.init_calls, fake.shutdown_calls) == (2, 2)
+
+
+# -- _bounded, embedded, run_checks --------------------------------------------
+
+def test_bounded_turns_a_hung_probe_into_one_fail_row():
+    release = threading.Event()
+    try:
+        rows = doctor._bounded("nvml", release.wait, timeout=0.2)
+    finally:
+        release.set()
+    assert [(r.name, r.status) for r in rows] == [("nvml", "fail")]
+    assert "probe hung" in rows[0].detail
+
+
+def test_bounded_turns_a_crashing_probe_into_a_fail_row():
+    rows = doctor._bounded("poll", lambda: 1 / 0, timeout=5)
+    assert [(r.name, r.status) for r in rows] == [("poll", "fail")]
+    assert rows[0].detail == "probe crashed: division by zero"
+
+
+@pytest.mark.parametrize("answer,status", [("gpu", "warn"), ("cpu", "skip"),
+                                           (None, "skip")])
+def test_embedded_viability(monkeypatch, answer, status):
+    monkeypatch.setattr(doctor, "_probe_torch_cuda", lambda: answer)
+    row = doctor.check_embedded_viability(port_config.Config())
+    assert (row.name, row.status) == ("embedded", status)
+    if answer is None:
+        assert "inconclusive" in row.detail
+
+
+def test_the_torch_probe_is_inconclusive_when_python_fails(monkeypatch):
+    monkeypatch.setattr(sys, "executable", "/bin/false")
+    assert doctor._probe_torch_cuda(timeout=10) is None
+
+
+@pytest.mark.parametrize("backend,nvml_ok,reached", [
+    ("auto", False, True), ("auto", True, False), ("nvml", False, False),
+    ("mock", False, False)])
+def test_run_checks_reaches_embedded_only_on_auto_without_nvml(
+        monkeypatch, backend, nvml_ok, reached):
+    monkeypatch.setattr(doctor, "check_nvml", lambda cfg: doctor._result(
+        "nvml", "ok" if nvml_ok else "warn", ""))
+    monkeypatch.setattr(doctor, "check_poll", lambda cfg: [])
+    monkeypatch.setattr(doctor, "_probe_torch_cuda", lambda: "cpu")
+    names = [r.name for r in doctor.run_checks(
+        port_config.Config(backend=backend, attribution="off"))]
+    assert names[:3] == ["nvml", "attribution", "topology"]
+    assert ("embedded" in names) == reached
+
+
+# -- main ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("argv", [["--url"], ["--url="], ["--url", "--json"]])
+def test_url_without_a_target_exits_2(argv, capsys):
+    assert doctor.main(argv) == 2
+    assert ref_doctor.main(argv) == 2
+    assert "--url requires a target" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", list(doctor.NOT_PORTED_FLAGS)
+                         + ["--at=10m", "--fleet=x"])
+def test_later_item_flags_exit_2(flag, capsys):
+    assert doctor.main(["--backend", "mock", flag]) == 2
+    err = capsys.readouterr().err
+    assert f"doctor {flag.partition('=')[0]}: not ported yet" in err
+
+
+def _json_shape(payload: dict) -> tuple:
+    return (sorted(payload), type(payload["ready"]),
+            type(payload["elapsed_seconds"]),
+            {tuple(sorted(c)) for c in payload["checks"]},
+            {type(c["data"]) for c in payload["checks"]})
+
+
+def test_json_shape_equals_the_reference(capsys, tmp_path):
+    prom = tmp_path / "saved.prom"
+    prom.write_text(_exposition())
+    argv = ["--backend", "mock", "--attribution", "off", "--json",
+            "--url", str(prom)]
+    assert doctor.main(argv) == 0
+    got = json.loads(capsys.readouterr().out)
+    assert ref_doctor.main(argv) == 0
+    want = json.loads(capsys.readouterr().out)
+    assert _json_shape(got) == _json_shape(want)
+    assert got["ready"] is True
+    statuses = [c["status"] for c in got["checks"]]
+    # Sorted fail, warn, ok, skip — as the reference sorts.
+    order = {"fail": 0, "warn": 1, "ok": 2, "skip": 3}
+    assert statuses == sorted(statuses, key=order.get)
+    assert {c["name"] for c in got["checks"]} == {
+        "nvml", "attribution", "topology", "poll", "resilience", "scrape",
+        "live-resilience"}
+
+
+def test_a_fail_row_exits_1(monkeypatch, capsys):
+    def failing():
+        raise NvmlError(binding.NVML_ERROR_DRIVER_NOT_LOADED,
+                        "Driver Not Loaded")
+
+    monkeypatch.setattr(daemon, "_nvml_collector", failing)
+    monkeypatch.setattr(doctor, "_nvml_binding", lambda: _fake(
+        init_error=binding.NVML_ERROR_DRIVER_NOT_LOADED))
+    assert doctor.main(["--backend", "nvml", "--attribution", "off",
+                        "--json"]) == 1
+    payload = json.loads(capsys.readouterr().out)
+    assert payload["ready"] is False
+    assert [c["name"] for c in payload["checks"][:2]] == ["nvml", "poll"]
+    assert doctor.main(["--backend", "nvml", "--attribution", "off"]) == 1
+    assert capsys.readouterr().out.splitlines()[-1].startswith("NOT READY: ")
+
+
+def test_python_m_doctor_on_mock_exits_0():
+    proc = subprocess.run(
+        [sys.executable, "-m", "kube_gpu_stats_tpu_torch", "doctor",
+         "--backend", "mock", "--json"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    payload = json.loads(proc.stdout)
+    assert payload["ready"] is True
+    poll = next(c for c in payload["checks"] if c["name"] == "poll")
+    assert poll["status"] == "ok" and poll["data"]["up"] == 4

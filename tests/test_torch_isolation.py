@@ -55,7 +55,7 @@ def test_importing_the_port_loads_no_jax():
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     for module in ("loadgen.tiled_burn", "loadgen.mesh", "loadgen.ici_burn",
-                   "validate", "testing.ranks"):
+                   "validate", "testing.ranks", "doctor", "profiler"):
         assert f"kube_gpu_stats_tpu_torch.{module}" in report["imported"]
     assert [m for m in report["loaded"] if _forbidden(m)] == []
 
@@ -81,19 +81,53 @@ import json, sys
 import kube_gpu_stats_tpu_torch.cli
 import kube_gpu_stats_tpu_torch.collectors.nvml
 import kube_gpu_stats_tpu_torch.daemon
+import kube_gpu_stats_tpu_torch.doctor
+import kube_gpu_stats_tpu_torch.profiler
 import kube_gpu_stats_tpu_torch.testing.fake_nvml
 print(json.dumps(sorted(sys.modules)))
 """
 
+# A whole doctor pass on the mock backend, every row that runs without a
+# card included (a saved exposition stands in for the live --url).
+_RUN_DOCTOR = """
+import json, sys
+from kube_gpu_stats_tpu_torch import doctor
+from kube_gpu_stats_tpu_torch.exposition import MetricsServer
+from kube_gpu_stats_tpu_torch.registry import Registry
+from kube_gpu_stats_tpu_torch.tracing import Tracer
+server = MetricsServer(Registry(), host="127.0.0.1", port=0,
+                       trace_provider=Tracer())
+server.start()
+try:
+    rc = doctor.main(["--backend", "mock", "--json", "--trace", "--url",
+                      f"http://127.0.0.1:{server.port}/metrics"])
+finally:
+    server.stop()
+print(json.dumps({"rc": rc, "loaded": sorted(sys.modules)}))
+"""
+
+
+def _no_torch(loaded: list[str]) -> list[str]:
+    return [m for m in loaded
+            if m == "torch" or m.startswith("torch.") or _forbidden(m)]
+
 
 def test_the_daemon_path_imports_no_torch():
     """The DaemonSet image carries no CUDA userspace beyond NVML: the
-    daemon, its CLI and its NVML backend must not pull torch in (nor,
-    as everywhere, JAX or the reference)."""
+    daemon, its CLI, its NVML backend, the doctor and the profiler must
+    not pull torch in (nor, as everywhere, JAX or the reference)."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_DAEMON_PATH],
                           cwd=ROOT, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert [m for m in loaded
-            if m == "torch" or m.startswith("torch.") or _forbidden(m)] == []
+    assert _no_torch(loaded) == []
+
+
+def test_a_doctor_pass_imports_no_torch():
+    proc = subprocess.run([sys.executable, "-c", _RUN_DOCTOR], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["rc"] == 0
+    assert _no_torch(report["loaded"]) == []
