@@ -58,19 +58,36 @@ prints its result line after one):
 8b. the node doctor: the NVML daemon at 10 Hz under the ``cuda`` burn on
    card 0 (launch counter set to 0 before, read after); ``python -m
    kube_gpu_stats_tpu_torch doctor --backend nvml --attribution off
-   --json --url <daemon> --trace`` must exit 0, ready, with its ``nvml``
-   row matching ``nvidia-smi`` (card count, driver version), ``poll`` OK
-   with every card up, ``scrape`` OK with the daemon's series count,
-   ``live-resilience`` not failing and ``trace`` naming a worst phase no
-   slower than the daemon's ``kts_slowest_tick_seconds``; then
-   ``/debug/ticks|trace?last=20|events|threads|profile?seconds=1`` (one
-   ``sample`` span per card per tick, the poll thread's stack), with the
-   daemon's tick p50 while the doctor ran, during the profile and
-   before it; then a second daemon with a self-signed cert from
+   --json --url <daemon> --trace --host`` must exit 0, ready, with its
+   ``nvml`` row matching ``nvidia-smi`` (card count, driver version),
+   ``poll`` OK with every card up, ``scrape`` OK with the daemon's series
+   count, ``live-resilience`` not failing, ``trace`` naming a worst phase
+   no slower than the daemon's ``kts_slowest_tick_seconds`` and ``host``
+   ok or warn on an enabled collector; then ``/debug/ticks|trace?last=20|
+   events|threads|host|profile?seconds=1`` (the pipelined tick's contract
+   on the recorded ticks: every card served up on every tick outside a
+   journaled fence window, each card's reads completing once per fence
+   window; the poll thread's stack; PSI present or its absence named),
+   with the daemon's tick p50 while the doctor ran, during the profile
+   and before it; then a second daemon with a self-signed cert from
    ``openssl`` and basic auth: HTTPS ``/metrics`` with the cert trusted
    and the credentials conforms, 401 without them, ``/healthz`` 200
    without them, the doctor's scrape row WARN, and the scrape ms over
    TLS (a fresh connection each) beside plain HTTP;
+8c. ``c5``: the NVML daemon at 10 Hz under the ``cuda`` burn for 60 s,
+   pipelined and then with ``--no-pipeline-fetch``, each published tick's
+   ``accelerator_up`` read off ``/metrics``, its ticks off ``/debug/trace``
+   and its journal; the pipelined run must serve the card down on no
+   tick outside a ``pipeline_fence`` window;
+8d. ``burst``: NVML's answer for the instantaneous power field on its
+   own line; the daemon at ``--burst-mode auto``, armed through
+   ``/debug/burst?arm=N`` idle and then for 6 s under a ``cuda`` burn
+   pulsed 100 ms on and off, ``nvidia-smi``'s instantaneous and average
+   draw sampled beside it and ``read_burst`` timed in this process: the
+   samples at 80% of ``--burst-hz`` or more, the pulses in max - min,
+   the mean within 15% of ``nvidia-smi``'s instantaneous draw, disarmed
+   after the hold (where the card refuses the field: no samples, and the
+   reason in the status);
 9. time the kernel, its plain version and one library call
    (``torch.mm`` with f32 out) at the main path's and the sweep's sizes,
    each as the median of batches of back-to-back calls;
@@ -168,6 +185,8 @@ NVML_CALLS = 200
 TICK_BUDGET_MS = 50.0
 # The daemon's per-tick sampling deadline (its --deadline default).
 TICK_DEADLINE_MS = config.Config.deadline * 1e3
+# The pipelined tick's freshness fence, in ticks (2x the interval).
+FENCE_TICKS = 2
 # Served memory used against nvidia-smi's memory.used, read right after
 # the scrape: nvidia-smi reports whole MiB, and between the tick and the
 # read the burn's caching allocator may map one more segment (2 or 20
@@ -193,6 +212,30 @@ DOCTOR_BURN_LEAD_S = 2.0
 DOCTOR_WINDOW = 10
 DOCTOR_TLS_SCRAPES = 20
 DOCTOR_PASSWORD = "chip-smoke"
+# The c5 phase: the NVML daemon at 10 Hz under the cuda burn for 60 s
+# (600 ticks), pipelined and with --no-pipeline-fetch; the burn runs in
+# chunks of C5_BURN_CHUNK_S.
+C5_INTERVAL_S = 0.1
+C5_SECONDS = 60.0
+C5_BURN_CHUNK_S = 5.0
+# The burst phase: the sampler at BURST_HZ, armed for BURST_IDLE_ARM_S
+# idle, then for BURST_ARM_S from BURST_LEAD_S into a burn pulsed
+# BURST_PULSE_MS on and off; nvidia-smi beside it every BURST_SMI_MS. Its
+# checks: samples at BURST_RATE_MIN of the rate or more; the pulsed
+# max - min at least BURST_SPREAD_X_IDLE times the idle one and
+# BURST_SPREAD_MIN_W; the burst mean within BURST_MEAN_TOL of
+# nvidia-smi's instantaneous draw over the same window.
+BURST_HZ = 100.0
+BURST_IDLE_ARM_S = 2.0
+BURST_ARM_S = 6.0
+BURST_LEAD_S = 3.0
+BURST_CHUNK_S = 2.0
+BURST_PULSE_MS = 100.0
+BURST_SMI_MS = 50
+BURST_RATE_MIN = 0.8
+BURST_SPREAD_X_IDLE = 3.0
+BURST_SPREAD_MIN_W = 100.0
+BURST_MEAN_TOL = 0.15
 MIB = 1024**2
 ROOT = pathlib.Path(__file__).resolve().parent
 KERNEL_NAME = "tiled_gemm_bf16_f32"
@@ -889,7 +932,9 @@ def start_daemon(textfile_dir: str, extra: tuple = ()
     """The DaemonSet entry point on the card; returns it, the port its
     log names, and its log lines (read on until it exits). ``extra``
     flags follow the phase's own (a repeated flag's last value wins)."""
-    cmd = [sys.executable, "-m", "kube_gpu_stats_tpu_torch", "--backend",
+    # faulthandler: a native abort leaves its Python stacks in the log.
+    cmd = [sys.executable, "-X", "faulthandler", "-m",
+           "kube_gpu_stats_tpu_torch", "--backend",
            "nvml", "--listen-port", "0", "--interval",
            str(DAEMON_INTERVAL_S), "--attribution", "off",
            "--textfile-dir", textfile_dir, *extra]
@@ -1181,9 +1226,10 @@ def phase_daemon(card_line: str, embedded_paths: dict) -> int:
         memory_v2 = dict(zip(("total", "reserved", "free", "used"),
                              nvml.memory(handle)))
         proc, port, log = start_daemon(textfile_dir)
-        # Idle, two ticks in (GPM serves from the second): every card up,
-        # with nvidia-smi's UUIDs.
-        idle_text, idle = fresh_scrape(port, 1.0)
+        # Idle, three ticks in (GPM serves from the second read round,
+        # and the pipelined tick serves the round before its own): every
+        # card up, with nvidia-smi's UUIDs.
+        idle_text, idle = fresh_scrape(port, 2.0)
         conforms(idle_text, None, "daemon scrape")
         ups = {labels["uuid"]: value for family, labels, value in idle
                if family == schema.DEVICE_UP.name}
@@ -1378,22 +1424,28 @@ def fetch(url: str, headers: dict | None = None, context=None
     return status, body, (time.perf_counter() - t0) * 1e3
 
 
-def tick_durations_ms(trace: dict) -> dict[int, dict[str, float]]:
+def trace_ticks(trace: dict) -> dict[int, dict]:
     """seq -> {"tick": whole-tick ms, "env_round": its sampling round's
-    ms} of every tick in a /debug/trace payload (a tick's spans follow
-    its own event)."""
-    ticks: dict[int, dict[str, float]] = {}
-    row: dict[str, float] = {}
+    ms, "pipelined": whether it served the last completed round,
+    "reads": device -> ``env_read`` spans that completed in it} of every
+    tick in a /debug/trace payload (a tick's spans follow its own
+    event; a read that runs on past its tick lands in the tick after)."""
+    ticks: dict[int, dict] = {}
+    row: dict = {}
     for event in trace["traceEvents"]:
         if event["cat"] == "tick":
-            row = ticks[event["args"]["seq"]] = {"tick": event["dur"] / 1e3}
+            row = ticks[event["args"]["seq"]] = {
+                "tick": event["dur"] / 1e3, "pipelined": False, "reads": {}}
         elif event["name"] == "env_round":
             row["env_round"] = event["dur"] / 1e3
+            row["pipelined"] = bool(event["args"].get("pipelined"))
+        elif event["name"] == "env_read":
+            device = event["args"]["device"]
+            row["reads"][device] = row["reads"].get(device, 0) + 1
     return ticks
 
 
-def window_p50(ticks: dict[int, dict[str, float]], first: int,
-               last: int) -> dict:
+def window_p50(ticks: dict[int, dict], first: int, last: int) -> dict:
     """Median and max ms of the whole tick and of its sampling round over
     the ticks with first <= seq <= last."""
     rows = [row for seq, row in ticks.items() if first <= seq <= last]
@@ -1406,48 +1458,139 @@ def window_p50(ticks: dict[int, dict[str, float]], first: int,
     return out
 
 
-def samples_per_tick(trace: dict) -> list[dict]:
-    """Per tick of a /debug/trace payload (its spans follow its own
-    event): whether its sampling round reached the deadline, and device
-    -> count of the ``sample`` spans that started in it. A sample that
-    outlives the deadline is drained into a later tick, where it starts
-    before that tick does."""
-    ticks: list[dict] = []
-    for event in trace["traceEvents"]:
-        if event["cat"] == "tick":
-            ticks.append({"ts": event["ts"], "late": False, "own": {}})
-        elif event["name"] == "env_round":
-            ticks[-1]["late"] = event["dur"] / 1e3 >= TICK_DEADLINE_MS
-        elif event["name"] == "sample" and event["ts"] >= ticks[-1]["ts"]:
-            own = ticks[-1]["own"]
-            device = event["args"]["device"]
-            own[device] = own.get(device, 0) + 1
-    return ticks
+def fence_windows(events: list) -> list[tuple[int, float]]:
+    """[first, end) tick seqs of each journaled pipeline_fence window: from
+    the fence event's tick to its pipeline_resume's (open-ended while the
+    blocking fan-out is still engaged)."""
+    windows: list[tuple[int, float]] = []
+    opened = None
+    for event in events:
+        if event["kind"] == "pipeline_fence" and opened is None:
+            opened = event["tick_seq"]
+        elif event["kind"] == "pipeline_resume" and opened is not None:
+            windows.append((opened, event["tick_seq"]))
+            opened = None
+    if opened is not None:
+        windows.append((opened, math.inf))
+    return windows
 
 
-def check_samples_per_tick(ticks: list[dict], devices: set[str]) -> dict:
-    """One ``sample`` span per card per tick, as the deadline allows: a
-    tick holds at most one of its own per card, and a run of ticks
-    without one for a card starts at a tick whose round reached the
-    deadline (that read was late; while it runs on, the next ticks skip
-    the card) or at the window's start."""
+def check_samples_per_tick(ticks: dict[int, dict], ups: dict[int, dict],
+                           events: list, devices: set[str]) -> dict:
+    """The pipelined tick's contract, tick by tick. Each tick serves every
+    card up; the only exception is a tick at or after a journaled
+    ``pipeline_fence`` and before its ``pipeline_resume``. Each card's
+    reads complete at least once per fence window: a run of recorded
+    ticks with no ``env_read`` of a card lasts at most FENCE_TICKS + 1
+    ticks (a read that started with the run and took all of the fence
+    lands in the tick after it) unless a fence fired within it.
+    ``ticks`` from ``trace_ticks``, ``ups`` seq -> card -> up."""
+    windows = fence_windows(events)
+    fences = [event["tick_seq"] for event in events
+              if event["kind"] == "pipeline_fence"]
+
+    def fenced(seq: int) -> bool:
+        return any(first <= seq < end for first, end in windows)
+
+    down = sorted(seq for seq, row in ups.items()
+                  if any(value != 1.0 for value in row.values()))
+    require(not [seq for seq in down if not fenced(seq)],
+            f"ticks {down} served a card down; fence windows {windows}")
+    seqs = sorted(ticks)
     for device in devices:
-        missing_from = None
-        for k, tick in enumerate(ticks):
-            own = tick["own"].get(device, 0)
-            require(own <= 1, f"tick {k}: {own} sample spans for {device}")
-            if own:
-                missing_from = None
-            elif missing_from is None:
-                missing_from = k
-                require(k == 0 or tick["late"],
-                        f"tick {k} of {len(ticks)} has no sample for card "
-                        f"{device} and met its deadline: {ticks}")
-    whole = sum(all(t["own"].get(d) == 1 for d in devices) for t in ticks)
-    require(whole >= 3 * len(ticks) // 4,
-            f"only {whole} of {len(ticks)} ticks hold every card's sample")
-    return {"ticks": len(ticks), "with_every_sample": whole,
-            "late": sum(t["late"] for t in ticks)}
+        run: list[int] = []
+        for seq in seqs + [None]:
+            if seq is not None and not ticks[seq]["reads"].get(device):
+                run.append(seq)
+                continue
+            if len(run) > FENCE_TICKS + 1:
+                require(any(run[0] <= f <= run[-1] + 1 for f in fences),
+                        f"card {device}: no read completed in ticks "
+                        f"{run[0]}..{run[-1]} and no fence fired")
+            run = []
+    return {"ticks": len(seqs), "observed_ups": len(ups),
+            "down": down, "fence_windows": windows,
+            "pipelined": sum(ticks[seq]["pipelined"] for seq in seqs)}
+
+
+class DaemonWatcher:
+    """Reads a daemon's /metrics in a loop on a thread while the with-block
+    runs: per published tick (its poll count), each card's
+    ``accelerator_up`` by UUID, card 0's ``kts_power_burst_*`` (samples,
+    min/mean/max of the tick's fold, armed) and when it was first seen;
+    every TRACE_EVERY_S and at the end, the recorder's last 128 ticks
+    (``trace_ticks``, merged by seq). A daemon that exits meanwhile fails
+    the block, its whole log printed first."""
+
+    TRACE_EVERY_S = 6.0
+    GAP_S = 0.03
+
+    def __init__(self, proc: subprocess.Popen, port: int, log: list
+                 ) -> None:
+        self.proc, self.port, self.log = proc, port, log
+        self.ups: dict[int, dict[str, float]] = {}
+        self.burst: dict[int, dict] = {}
+        self.seen_at: dict[int, float] = {}
+        self.traced: dict[int, dict] = {}
+        self.failure: list = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def __enter__(self) -> "DaemonWatcher":
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join(timeout=30)
+        rc = self.proc.poll()
+        if rc is not None:
+            print("\n".join(self.log), file=sys.stderr, flush=True)
+        require(rc is None, f"the daemon exited {rc} while watched (its "
+                            f"log above)")
+        self.trace()
+        require(not self.failure, f"watching the daemon failed: "
+                                  f"{self.failure}")
+
+    def trace(self) -> None:
+        status, body, _ = fetch(f"http://127.0.0.1:{self.port}"
+                                f"/debug/trace?last=128")
+        require(status == 200, f"/debug/trace answered {status}")
+        self.traced.update(trace_ticks(json.loads(body)))
+
+    def _observe(self, text: str) -> None:
+        at = time.monotonic()
+        series = validate.parse_exposition(text)
+        tick = int(poll_count(series))
+        if tick in self.ups:
+            return
+        self.seen_at[tick] = at
+        self.ups[tick] = {labels["uuid"]: value
+                          for family, labels, value in series
+                          if family == schema.DEVICE_UP.name}
+        burst: dict = {}
+        for family, labels, value in series:
+            if labels.get("chip", "0") != "0":
+                continue
+            if family == schema.BURST_WATTS.name:
+                burst[labels["stat"]] = value
+            elif family == schema.BURST_SAMPLES.name:
+                burst["samples"] = value
+            elif family == schema.BURST_ARMED.name:
+                burst["armed"] = value
+        self.burst[tick] = burst
+
+    def _run(self) -> None:
+        next_trace = time.monotonic() + self.TRACE_EVERY_S
+        try:
+            while not self._stop.is_set():
+                self._observe(scrape(self.port))
+                if time.monotonic() >= next_trace:
+                    self.trace()
+                    next_trace += self.TRACE_EVERY_S
+                self._stop.wait(self.GAP_S)
+        except Exception as exc:  # noqa: BLE001 - re-raised on exit
+            self.failure.append(exc)
 
 
 def self_signed_cert(directory: str) -> tuple[str, str]:
@@ -1477,7 +1620,7 @@ def doctor_and_debug(port: int, n_cards: int, out: dict) -> None:
     run = subprocess.run(
         [sys.executable, "-m", "kube_gpu_stats_tpu_torch", "doctor",
          "--backend", "nvml", "--attribution", "off", "--json",
-         "--url", base + "/metrics", "--trace"],
+         "--url", base + "/metrics", "--trace", "--host"],
         cwd=ROOT, capture_output=True, text=True, timeout=120)
     out["doctor_wall_s"] = time.perf_counter() - t0
     after = scrape(port)
@@ -1490,7 +1633,7 @@ def doctor_and_debug(port: int, n_cards: int, out: dict) -> None:
     out["doctor"] = json.loads(run.stdout) if run.stdout.strip() else None
     fetched = {}
     for path in ("/debug/ticks", "/debug/trace?last=20", "/debug/events",
-                 "/debug/threads"):
+                 "/debug/threads", "/debug/host"):
         status, body, ms = fetch(base + path)
         require(status == 200, f"{path} answered {status}")
         fetched[path] = (body, ms)
@@ -1504,7 +1647,7 @@ def doctor_and_debug(port: int, n_cards: int, out: dict) -> None:
     status, body, _ = fetch(f"{base}/debug/trace?last="
                             f"{min(128, seq_b - seq0 + 2 * DOCTOR_WINDOW)}")
     require(status == 200, f"/debug/trace answered {status}")
-    out["ticks"] = tick_durations_ms(json.loads(body))
+    out["ticks"] = trace_ticks(json.loads(body))
     out["fetched"] = fetched
     out["n_cards"] = n_cards
 
@@ -1548,38 +1691,57 @@ def check_doctor_run(out: dict, smi_cards: int, driver: str) -> dict:
     require(slowest["dur_ms"] <= out["slowest_tick_s"] * 1e3 + 1e-3,
             f"the doctor's slowest tick {slowest['dur_ms']} ms > the "
             f"daemon's kts_slowest_tick_seconds {out['slowest_tick_s']}")
+    # --host: the daemon's host snapshot, summarized; never a crash.
+    host = rows["host"]
+    require(host["status"] in ("ok", "warn")
+            and host["data"]["host"]["enabled"] is True,
+            f"host row {host}")
     return {"elapsed_seconds": payload["elapsed_seconds"],
             "wall_s": out["doctor_wall_s"],
+            "host_detail": host["detail"],
             "poll_p50_ms": poll["data"]["p50_ms"],
             "poll_detail": poll["detail"], "nvml_detail": nvml["detail"],
             "scrape_series": count, "trace_detail": trace["detail"],
             "rows": {name: row["status"] for name, row in rows.items()}}
 
 
-def check_debug_surface(out: dict) -> dict:
-    """What each /debug/* fetch must hold; their ms."""
+def check_debug_surface(out: dict, ups: dict[int, dict]) -> dict:
+    """What each /debug/* fetch must hold; their ms. ``ups``: the
+    daemon's served accelerator_up per tick (DaemonWatcher)."""
     fetched = out["fetched"]
     ticks = json.loads(fetched["/debug/ticks"][0])
-    require({"env_round", "sample"} <= set(ticks["phases"]),
+    # The NVML backend samples on the split path: each card's reads are
+    # env_read spans on the pool, the round env_round on the loop.
+    require({"env_round", "env_read"} <= set(ticks["phases"]),
             f"/debug/ticks phases {sorted(ticks['phases'])}")
-    trace = json.loads(fetched["/debug/trace?last=20"][0])
-    per_tick = samples_per_tick(trace)
+    per_tick = trace_ticks(json.loads(fetched["/debug/trace?last=20"][0]))
     require(len(per_tick) == 20, f"/debug/trace?last=20: {len(per_tick)} "
                                  f"ticks")
-    samples = check_samples_per_tick(
-        per_tick, {str(i) for i in range(out["n_cards"])})
     events = json.loads(fetched["/debug/events"][0])
     require(events["enabled"] and isinstance(events["events"], list),
             f"/debug/events {events}")
+    samples = check_samples_per_tick(
+        per_tick, {seq: ups[seq] for seq in per_tick if seq in ups},
+        events["events"], {str(i) for i in range(out["n_cards"])})
     require("--- thread poll-loop\n" in fetched["/debug/threads"][0].decode(),
             "/debug/threads names no poll-loop thread")
+    host = json.loads(fetched["/debug/host"][0])
+    require(host["enabled"] is True and host["read_at"] > 0,
+            f"/debug/host {host}")
+    # PSI present on this kernel, or its absence named.
+    psi = (f"{len(host['pressure'])} PSI shares" if host["pressure"]
+           else "no /proc/pressure on this kernel")
     profile = fetched["/debug/profile?seconds=1"][0].decode().splitlines()
     require(any(line.startswith("poll-loop;") for line in profile),
             "/debug/profile has no poll-loop stack")
     return {"fetch_ms": {path: ms for path, (_, ms) in fetched.items()},
             "trace_last_20": samples, "events": len(events["events"]),
             "event_kinds": sorted({e["kind"] for e in events["events"]}),
-            "profile_stacks": len(profile)}
+            "profile_stacks": len(profile),
+            "debug_host": {"psi": psi, "ebpf": host["ebpf"],
+                           "pods": len(host["pods"]),
+                           "thermal_zones": len(host["thermal_celsius"]),
+                           "errors": host["errors"]}}
 
 
 def phase_doctor(card_line: str) -> int:
@@ -1609,25 +1771,27 @@ def phase_doctor(card_line: str) -> int:
         thread = threading.Thread(target=worker, daemon=True)
         # The burn runs in chunks until the worker is done, so the card is
         # busy through every fetch; each chunk launches once more than its
-        # steps (its warm-up).
-        tiled_burn.launches = 0
-        thread.start()
-        steps = chunks = 0
-        while True:
-            chunks += 1
-            steps += run_burn(seconds=DOCTOR_BURN_CHUNK_S, size=MAIN_SIZE,
-                              report_every=1e9, kernel="cuda", device="cuda:0")
-            if not thread.is_alive():
-                break
-            require(chunks * DOCTOR_BURN_CHUNK_S < 120,
-                    "the doctor's worker did not finish in 120 s")
-        launches = tiled_burn.launches
-        thread.join(timeout=30)
+        # steps (its warm-up). The watcher reads each tick's served up.
+        with DaemonWatcher(proc, port, log) as watch:
+            tiled_burn.launches = 0
+            thread.start()
+            steps = chunks = 0
+            while True:
+                chunks += 1
+                steps += run_burn(seconds=DOCTOR_BURN_CHUNK_S,
+                                  size=MAIN_SIZE, report_every=1e9,
+                                  kernel="cuda", device="cuda:0")
+                if not thread.is_alive():
+                    break
+                require(chunks * DOCTOR_BURN_CHUNK_S < 120,
+                        "the doctor's worker did not finish in 120 s")
+            launches = tiled_burn.launches
+            thread.join(timeout=30)
         require(not failure, f"the doctor phase failed: {failure}")
         require(launches == steps + chunks,
                 f"{launches} launches for {steps} steps in {chunks} chunks")
         doctor_row = check_doctor_run(out, smi_cards, driver)
-        debug = check_debug_surface(out)
+        debug = check_debug_surface(out, watch.ups)
         ticks = out["ticks"]
         seq_a, seq_b = out["profile_seqs"]
         tick = {
@@ -1691,6 +1855,325 @@ def phase_doctor(card_line: str) -> int:
                 "scrape_ms_median": {"plain_http": statistics.median(plain_ms),
                                      "tls_auth": statistics.median(tls_ms)},
                 "scrapes": DOCTOR_TLS_SCRAPES, "series": served_series(text)}})
+    return launches
+
+
+def c5_run(pipelined: bool, uuid: str) -> tuple[tuple, dict]:
+    """One C5 run: the NVML daemon at C5_INTERVAL_S under the ``cuda`` burn
+    on card 0 for C5_SECONDS (in chunks), each published tick's served
+    ``accelerator_up`` read off /metrics from the daemon's first tick on,
+    its recorded ticks off /debug/trace and its journal at the end.
+    Returns ``check_samples_per_tick``'s inputs from the first tick that
+    served every card up, and the run's row."""
+    workdir = tempfile.mkdtemp(prefix="kts-c5-")
+    extra = ("--interval", str(C5_INTERVAL_S), "--textfile-dir", "")
+    if not pipelined:
+        extra += ("--no-pipeline-fetch",)
+    proc, port, log = start_daemon(workdir, extra)
+    try:
+        with DaemonWatcher(proc, port, log) as watch:
+            tiled_burn.launches = 0
+            steps = chunks = 0
+            end = time.monotonic() + C5_SECONDS
+            while time.monotonic() < end:
+                chunks += 1
+                steps += run_burn(seconds=min(C5_BURN_CHUNK_S,
+                                              end - time.monotonic()),
+                                  size=MAIN_SIZE, report_every=1e9,
+                                  kernel="cuda", device="cuda:0")
+            launches = tiled_burn.launches
+        events = json.loads(fetch(f"http://127.0.0.1:{port}/debug/events")
+                            [1])["events"]
+        last = validate.parse_exposition(scrape(port))
+    finally:
+        rc = stop_daemon(proc)
+    require(rc == 0, f"the c5 daemon exited {rc}: {log[-20:]}")
+    require(launches == steps + chunks,
+            f"{launches} launches for {steps} steps in {chunks} chunks")
+    ups = {seq: row for seq, row in watch.ups.items() if row}
+    # From the first tick that served every card: the cold first read
+    # (no completed round to serve yet) is counted apart.
+    warm = min(seq for seq, row in ups.items()
+               if all(value == 1.0 for value in row.values()))
+    served = {seq: row for seq, row in ups.items() if seq >= warm}
+    down = sorted(seq for seq, row in served.items() if row[uuid] != 1.0)
+    windows = fence_windows(events)
+    unfenced = [seq for seq in down
+                if not any(first <= seq < end for first, end in windows)]
+    errors = {labels["reason"]: value for family, labels, value in last
+              if family == schema.SELF_POLL_ERRORS.name}
+    traced = {seq: row for seq, row in watch.traced.items() if seq >= warm}
+    inputs = (traced, served, events,
+              {str(i) for i in range(len(served[warm]))})
+    return inputs, {
+        "pipelined": pipelined, "interval_s": C5_INTERVAL_S,
+        "seconds": C5_SECONDS, "ticks": int(poll_count(last)),
+        "observed_ticks": len(served), "first_up_tick": warm,
+        "served_down": len(down), "served_down_unfenced": len(unfenced),
+        "down_ticks": down[:50],
+        "deadline": errors.get("deadline", 0.0),
+        "stuck": errors.get("stuck", 0.0),
+        "fetch_deadline": errors.get("fetch_deadline", 0.0),
+        "pipeline_events": [(e["kind"], e["tick_seq"]) for e in events
+                            if e["kind"].startswith("pipeline_")],
+        "fence_windows": windows,
+        "recorded_ticks": len(traced),
+        "late_rounds": sum(row.get("env_round", 0) >= TICK_DEADLINE_MS
+                           for row in traced.values()),
+        "tick_ms": window_p50(traced, warm, max(traced))["tick"],
+        "env_round_ms": window_p50(traced, warm, max(traced))["env_round"],
+        "burn": {"steps": steps, "chunks": chunks, "launches": launches},
+        "unfenced": unfenced}
+
+
+def phase_c5(card_line: str) -> int:
+    """C5, the repair: a stalled NVML read must not serve a healthy card
+    as down when the daemon pipelines; the same run with
+    ``--no-pipeline-fetch`` beside it. Returns the kernel launches."""
+    uuid = "GPU-" + str(torch.cuda.get_device_properties(0).uuid)
+    (inputs, pipelined), (_, blocking) = (c5_run(True, uuid),
+                                          c5_run(False, uuid))
+    runs = [pipelined, blocking]
+    emit("c5", {"card": card_line, "runs": runs})
+    require(pipelined["served_down_unfenced"] == 0,
+            f"the pipelined daemon served card 0 down outside a fence "
+            f"window on ticks {pipelined['unfenced']}")
+    # The pipelined tick's whole contract over the run: reads completing
+    # once per fence window, besides the served ups.
+    emit("c5_contract", check_samples_per_tick(*inputs))
+    for run in runs:
+        require(run["observed_ticks"] >= 0.9 * run["ticks"]
+                and run["ticks"] >= 0.9 * C5_SECONDS / C5_INTERVAL_S,
+                f"{run['observed_ticks']} of {run['ticks']} ticks observed")
+    return sum(run["burn"]["launches"] for run in runs)
+
+
+class PowerSampler:
+    """``nvidia-smi``'s instantaneous and one-second-average board power
+    for card 0, every BURST_SMI_MS while the with-block runs; ``rows``
+    holds (instant W, average W) afterwards, or ``error`` what
+    ``nvidia-smi`` said when it has no such fields."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "-i", "0",
+             "--query-gpu=power.draw.instant,power.draw.average",
+             "--format=csv,noheader,nounits", "-lms", str(BURST_SMI_MS)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.proc.terminate()
+        out, err = self.proc.communicate(timeout=30)
+        self.rows = []
+        for line in out.splitlines():
+            try:
+                instant, average = map(float, line.split(","))
+            except ValueError:  # "[N/A]" or a cut line
+                continue
+            self.rows.append((instant, average))
+        self.error = None if self.rows else (out + err).strip()[-500:]
+
+
+def burst_window(watch: DaemonWatcher, first: int, last: int) -> dict:
+    """Card 0's burst folds over published ticks first..last: the achieved
+    sample rate, and min/mean/max over every sample folded."""
+    ticks = sorted(seq for seq in watch.burst
+                   if first <= seq <= last and "samples" in watch.burst[seq])
+    require(len(ticks) >= 2, f"no burst folds in ticks {first}..{last}")
+    samples = [watch.burst[seq]["samples"] for seq in ticks]
+    folds = [(watch.burst[seq], now - before) for seq, now, before
+             in zip(ticks[1:], samples[1:], samples)
+             if now > before]
+    require(folds, f"no burst sample in ticks {first}..{last}")
+    n = sum(taken for _, taken in folds)
+    return {
+        "ticks": len(ticks), "samples": n,
+        "rate_hz": n / (watch.seen_at[ticks[-1]] - watch.seen_at[ticks[0]]),
+        "min_w": min(fold["min"] for fold, _ in folds),
+        "max_w": max(fold["max"] for fold, _ in folds),
+        "mean_w": sum(fold["mean"] * taken for fold, taken in folds) / n}
+
+
+def read_burst_us(seconds: float) -> dict:
+    """``NvmlCollector.read_burst`` on card 0 in this process, one call
+    every 1/BURST_HZ s for ``seconds``, each timed."""
+    from kube_gpu_stats_tpu_torch.collectors.nvml import NvmlCollector
+
+    uuid = "GPU-" + str(torch.cuda.get_device_properties(0).uuid)
+    collector = NvmlCollector()
+    try:
+        (dev,) = [d for d in collector.discover() if d.uuid == uuid]
+        times = []
+        end = time.monotonic() + seconds
+        while time.monotonic() < end:
+            t0 = time.perf_counter()
+            collector.read_burst(dev)
+            times.append((time.perf_counter() - t0) * 1e6)
+            time.sleep(1.0 / BURST_HZ)
+    finally:
+        collector.close()
+    times.sort()
+    return {"calls": len(times), "median_us": statistics.median(times),
+            "p99_us": times[int(0.99 * (len(times) - 1))],
+            "max_us": times[-1],
+            "at_least_20ms": sum(t >= 20e3 for t in times)}
+
+
+def phase_burst(card_line: str) -> int:
+    """The sub-tick power burst sampler on card 0: the daemon at
+    ``--burst-mode auto``, armed by /debug/burst?arm for an idle window,
+    then for BURST_ARM_S while the ``cuda`` burn pulses 100 ms on,
+    100 ms off; held against ``nvidia-smi``'s instantaneous draw.
+    Returns the kernel launches."""
+    uuid = "GPU-" + str(torch.cuda.get_device_properties(0).uuid)
+    nvml = nvml_binding.Nvml()
+    nvml.init()
+    try:
+        handle = next(h for h in (nvml.handle(i)
+                                  for i in range(nvml.device_count()))
+                      if nvml.uuid(h) == uuid)
+        [(code, value)] = nvml.field_values(
+            handle, [(nvml_binding.NVML_FI_DEV_POWER_INSTANT, 0)])
+        answer = {"field": "NVML_FI_DEV_POWER_INSTANT",
+                  "id": nvml_binding.NVML_FI_DEV_POWER_INSTANT,
+                  "rc": code, "text": nvml.error_string(code),
+                  "value": value}
+    finally:
+        nvml.shutdown()
+    emit("burst_field", answer)
+    supported = code == nvml_binding.NVML_SUCCESS
+    workdir = tempfile.mkdtemp(prefix="kts-burst-")
+    proc, port, log = start_daemon(workdir, (
+        "--interval", str(C5_INTERVAL_S), "--textfile-dir", "",
+        "--burst-mode", "auto", "--burst-hz", str(BURST_HZ)))
+    base = f"http://127.0.0.1:{port}"
+
+    def burst_status(query: str = "") -> dict:
+        status, body, _ = fetch(base + "/debug/burst" + query)
+        require(status == 200, f"/debug/burst{query} answered {status}")
+        return json.loads(body)
+
+    def current_seq() -> int:
+        return json.loads(fetch(base + "/debug/ticks")[1])["current_seq"]
+
+    out: dict = {}
+    failure: list = []
+    try:
+        fresh_scrape(port, 2.0)
+        before = burst_status()
+        require(before["mode"] == "auto" and not before["armed"],
+                f"/debug/burst before arming: {before}")
+        with DaemonWatcher(proc, port, log) as watch:
+            first = current_seq()
+            burst_status(f"?arm={BURST_IDLE_ARM_S}")
+            time.sleep(BURST_IDLE_ARM_S - 0.3)
+            idle_seqs = (first + 1, current_seq())
+            time.sleep(0.8)  # past the hold
+
+            def armer() -> None:
+                try:
+                    time.sleep(BURST_LEAD_S)
+                    out["disarmed_seqs"] = (current_seq() - int(
+                        BURST_LEAD_S / C5_INTERVAL_S) + 5, current_seq())
+                    with PowerSampler() as smi_power:
+                        out["armed"] = burst_status(f"?arm={BURST_ARM_S}")
+                        armed_at = time.monotonic()
+                        seq0 = current_seq()
+                        out["read_burst"] = read_burst_us(BURST_ARM_S - 1.0)
+                        time.sleep(max(0.0, armed_at + BURST_ARM_S - 0.3
+                                       - time.monotonic()))
+                        out["armed_seqs"] = (seq0 + 1, current_seq())
+                    out["smi"] = smi_power
+                    # Past the hold: the sampler disarms itself.
+                    time.sleep(max(0.0, armed_at + BURST_ARM_S + 1.0
+                                   - time.monotonic()))
+                    out["after"] = burst_status()
+                except Exception as exc:  # noqa: BLE001 - re-raised below
+                    failure.append(exc)
+
+            thread = threading.Thread(target=armer, daemon=True)
+            tiled_burn.launches = 0
+            thread.start()
+            steps = chunks = 0
+            while thread.is_alive():
+                chunks += 1
+                steps += run_burn(seconds=BURST_CHUNK_S, size=MAIN_SIZE,
+                                  report_every=1e9, kernel="cuda",
+                                  pulse_ms=BURST_PULSE_MS, device="cuda:0")
+                require(chunks * BURST_CHUNK_S < 120,
+                        "the burst phase's armer did not finish in 120 s")
+            launches = tiled_burn.launches
+            thread.join(timeout=30)
+        events = json.loads(fetch(base + "/debug/events")[1])["events"]
+    finally:
+        rc = stop_daemon(proc)
+    require(not failure, f"the burst phase failed: {failure}")
+    require(rc == 0, f"the burst daemon exited {rc}: {log[-20:]}")
+    require(launches == steps + chunks,
+            f"{launches} launches for {steps} steps in {chunks} chunks")
+    after = out["after"]
+    require(not after["armed"],
+            f"/debug/burst still armed after the hold: {after}")
+    kinds = [(e["kind"], e["attrs"].get("reason")) for e in events
+             if e["kind"].startswith("burst_")]
+    require(("burst_disarm", "expired") in kinds, f"burst events {kinds}")
+    ticks = watch.traced
+    armed_ticks = [ticks[s]["tick"] for s in range(*out["armed_seqs"])
+                   if s in ticks]
+    quiet_ticks = [ticks[s]["tick"] for s in range(*out["disarmed_seqs"])
+                   if s in ticks]
+    row = {"card": card_line, "supported": supported, "nvml": answer,
+           "hz": BURST_HZ, "hold_s": BURST_ARM_S,
+           "pulse_ms": BURST_PULSE_MS, "read_burst": out["read_burst"],
+           "tick_p50_ms": {
+               "armed": statistics.median(armed_ticks),
+               "disarmed": statistics.median(quiet_ticks),
+               "armed_ticks": len(armed_ticks),
+               "disarmed_ticks": len(quiet_ticks)},
+           "after_hold": {"armed": after["armed"], "read": after["read"]},
+           "events": kinds,
+           "burn": {"steps": steps, "chunks": chunks,
+                    "launches": launches}}
+    smi_power = out["smi"]
+    if smi_power.rows:
+        row["nvidia_smi"] = {
+            "samples": len(smi_power.rows),
+            "instant_mean_w": statistics.fmean(r[0] for r in smi_power.rows),
+            "instant_min_w": min(r[0] for r in smi_power.rows),
+            "instant_max_w": max(r[0] for r in smi_power.rows),
+            "average_mean_w": statistics.fmean(r[1] for r in smi_power.rows)}
+    else:
+        row["nvidia_smi"] = {"error": smi_power.error}
+    if not supported:
+        # The card's limit: no samples, the reason named, and never the
+        # averaged reading in their place.
+        served = [b for b in watch.burst.values() if "samples" in b]
+        row["families_with_samples"] = len(served)
+        emit("burst", row)
+        require(not served, f"burst samples served without the field: "
+                            f"{served[:3]}")
+        require(after["read"], f"/debug/burst names no reason: {after}")
+        return launches
+    idle = burst_window(watch, *idle_seqs)
+    armed = burst_window(watch, *out["armed_seqs"])
+    row.update(idle=idle, pulsed=armed)
+    emit("burst", row)
+    require(armed["rate_hz"] >= BURST_RATE_MIN * BURST_HZ,
+            f"burst samples at {armed['rate_hz']:.1f} Hz, under "
+            f"{BURST_RATE_MIN:.0%} of {BURST_HZ} Hz")
+    idle_spread = idle["max_w"] - idle["min_w"]
+    spread = armed["max_w"] - armed["min_w"]
+    require(spread >= max(BURST_SPREAD_X_IDLE * idle_spread,
+                          BURST_SPREAD_MIN_W),
+            f"the pulses do not show: max - min {spread:.1f} W against "
+            f"{idle_spread:.1f} W idle")
+    smi_mean = row["nvidia_smi"].get("instant_mean_w")
+    require(smi_mean is not None,
+            f"nvidia-smi read no instantaneous draw: {row['nvidia_smi']}")
+    require(abs(armed["mean_w"] - smi_mean) <= BURST_MEAN_TOL * smi_mean,
+            f"burst mean {armed['mean_w']:.1f} W vs nvidia-smi's "
+            f"instantaneous {smi_mean:.1f} W")
     return launches
 
 
@@ -1761,6 +2244,8 @@ def main() -> int:
     launches += embedded_launches
     launches += phase_daemon(card, embedded_paths)
     launches += phase_doctor(card)
+    launches += phase_c5(card)
+    launches += phase_burst(card)
     t = phase_timing(card)
     emit("kernels", [{
         "name": KERNEL_NAME, "route": "cuda", "source": KERNEL_SOURCE,

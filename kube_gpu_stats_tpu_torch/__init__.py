@@ -17,8 +17,10 @@ multi-card load generator (a sharded train step and an NVLink ring over
 a process group of one rank per card); the exposition-contract validator
 (``validate.py``); the node doctor (``doctor.py``) with the flight
 recorder's read side and event journal (``tracing.py``), the server's
-``/debug/*`` endpoints, TLS/mTLS and basic auth; and the entry points
-(``entry.py``). The hub and top come in later slices. The daemon and
+``/debug/*`` endpoints, TLS/mTLS and basic auth; the daemon's pipelined
+sampling, host signals (``hoststats.py``) and sub-tick power burst
+sampler (``burstsampler.py``); and the entry points (``entry.py``). The
+energy accountant, the hub and top come in later slices. The daemon and
 doctor paths import no torch.
 
 Layer map:
@@ -26,7 +28,8 @@ Layer map:
     cli.py, __main__.py  the daemon's command line (bare flags); the
                       loadgen, validate and doctor subcommands
     doctor.py         node preflight: nvml, attribution, topology, poll,
-                      --url scrape and live breakers, --trace post-mortem
+                      --url scrape and live breakers, --trace post-mortem,
+                      --host summary
     daemon.py         Daemon: backend choice, watchers, supervisor, server
     config.py         its flags and KTS_* environment
     collectors/nvml.py  NvmlCollector over native/nvml.py (ctypes NVML)
@@ -51,7 +54,10 @@ Layer map:
     tracing.py        the flight recorder: tick spans, event journal, and
                       their read side (/debug/ticks|trace|events)
     profiler.py       stack sampling behind /debug/profile
-    poll.py           PollLoop: per-device sampling with a deadline, tick plans
+    poll.py           PollLoop: per-device sampling with a deadline,
+                      pipelined rounds, tick plans
+    hoststats.py      PSI, IRQ, NIC, thermal and pod-cgroup signals
+    burstsampler.py   the sub-tick power ring behind kts_power_burst_*
     registry.py       snapshots, their Prometheus/OpenMetrics render
     schema.py         the metric families (the reference's, unchanged)
     validate.py       the accelerator_* contract checker and its parsers

@@ -17,6 +17,7 @@ from .. import schema
 
 _HBM_TOTAL = 95 * 1024**3  # the reference's mock capacity, bytes
 _LINKS = ("x0", "x1", "y0", "y1", "z0", "z1")  # the reference's link names
+_BURST_BASE_WATTS = 90.0  # matches sample()'s idle power floor
 
 
 class MockCollector(Collector):
@@ -35,6 +36,16 @@ class MockCollector(Collector):
         # Per-device tick counters so each sample advances deterministically
         # regardless of call interleaving.
         self._ticks = [itertools.count(start_tick) for _ in range(num_devices)]
+        # The burst sampler's fake knob: tests install their own
+        # (device, t) -> watts to script sub-tick transients the per-tick
+        # sample() never sees. None = the flat base draw.
+        self.burst_power_fn = None
+
+    def read_burst(self, device: Device, t: float | None = None) -> float:
+        """Burst-sampler power read (watts)."""
+        if self.burst_power_fn is not None:
+            return float(self.burst_power_fn(device, t))
+        return _BURST_BASE_WATTS
 
     def discover(self) -> Sequence[Device]:
         return [

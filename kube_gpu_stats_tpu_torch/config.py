@@ -36,6 +36,7 @@ class Config:
     auth_username: str = ""  # + password hash = basic auth on /metrics
     auth_password_sha256: str = ""
     textfile_dir: str = ""  # empty = textfile output disabled
+    sysfs_root: str = "/sys"
     proc_root: str = "/proc"
     device_processes: str = "on"  # accelerator_process_open scan (on|off)
     max_process_series: int = 32  # process_open holders per device; excess
@@ -45,6 +46,8 @@ class Config:
     checkpoint_path: str = DEFAULT_CHECKPOINT
     attribution_interval: float = 10.0
     rediscovery_interval: float = 60.0  # 0 disables hotplug re-enumeration
+    pipeline_fetch: bool = True  # tick serves the last completed read
+    #                              round (False: join this tick's reads)
     trace_enabled: bool = True  # flight recorder (per-tick span digest)
     drop_labels: tuple[str, ...] = ()  # label keys emitted as "" (cardinality)
     label_value_cap: int = 0  # distinct values per attribution label key
@@ -53,6 +56,13 @@ class Config:
     metrics_include: tuple[str, ...] = ()  # family allowlist (() = all)
     metrics_exclude: tuple[str, ...] = ()  # family denylist
     disabled_metrics: frozenset = frozenset()  # resolved from the two above
+    burst_mode: str = "auto"  # off | auto (demand/anomaly armed) |
+    #                           continuous
+    burst_hz: float = 100.0  # sampling rate while armed
+    burst_hold: float = 30.0  # seconds a demand/anomaly arm stays armed
+    burst_ring: int = 4096  # buffered samples per device
+    host_stats: bool = True
+    cgroup_root: str = "/sys/fs/cgroup"  # cgroup v2 mount for per-pod stats
     mock_devices: int = 4
     log_level: str = "info"
     log_format: str = "text"  # text|json (json = Cloud Logging structured)
@@ -95,6 +105,7 @@ def build_parser() -> argparse.ArgumentParser:
                    default=int(_env("LISTEN_PORT", "9400")))
     p.add_argument("--textfile-dir", default=_env("TEXTFILE_DIR", ""),
                    help="node_exporter textfile dir; empty disables")
+    p.add_argument("--sysfs-root", default=_env("SYSFS_ROOT", "/sys"))
     p.add_argument("--proc-root", default=_env("PROC_ROOT", "/proc"))
     p.add_argument("--device-processes", choices=("on", "off"),
                    default=_env("DEVICE_PROCESSES", "on"),
@@ -120,6 +131,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rediscovery-interval", type=float,
                    default=float(_env("REDISCOVERY_INTERVAL", "60.0")),
                    help="device re-enumeration cadence seconds; 0 disables")
+    p.add_argument("--no-pipeline-fetch", action="store_true",
+                   default=_env_bool("NO_PIPELINE_FETCH"),
+                   help="join each tick's own NVML read round instead of "
+                        "serving the last completed one (pipelined mode "
+                        "keeps a stalled read out of the tick latency "
+                        "budget; values then lag the tick by up to the "
+                        "freshness fence, 2x the poll interval)")
     p.add_argument("--no-trace", action="store_true",
                    default=_env_bool("NO_TRACE"),
                    help="disable the flight recorder (per-tick span "
@@ -169,6 +187,41 @@ def build_parser() -> argparse.ArgumentParser:
                    default=_env("AUTH_PASSWORD_SHA256", ""),
                    help="hex sha256 of the basic-auth password (never the "
                         "plaintext)")
+    p.add_argument("--burst-mode", choices=("off", "auto", "continuous"),
+                   default=_env("BURST_MODE", "auto"),
+                   help="sub-tick power burst sampler (burstsampler.py): "
+                        "'auto' arms on demand (/debug/burst?arm=N) or "
+                        "on power/duty anomaly events and disarms after "
+                        "--burst-hold; 'continuous' samples always; "
+                        "'off' disables the thread and the "
+                        "kts_power_burst_* families")
+    p.add_argument("--burst-hz", type=float,
+                   default=float(_env("BURST_HZ", "100.0")),
+                   help="burst sampling rate while armed (Hz); the "
+                        "achieved rate exports as "
+                        "rate(kts_power_burst_samples_total)")
+    p.add_argument("--burst-hold", type=float,
+                   default=float(_env("BURST_HOLD", "30.0")),
+                   help="seconds a demand/anomaly arm keeps the burst "
+                        "sampler running")
+    p.add_argument("--burst-ring", type=int,
+                   default=int(_env("BURST_RING", "4096")),
+                   help="burst samples buffered per device between poll "
+                        "ticks (oldest dropped at the cap)")
+    p.add_argument("--no-host-stats", action="store_true",
+                   default=_env_bool("NO_HOST_STATS"),
+                   help="disable the host-signals collector (PSI "
+                        "pressure, IRQ/softirq rates, NIC errors, "
+                        "thermal throttle, per-pod cgroup stats — the "
+                        "kts_host_* families and /debug/host; read once "
+                        "per tick off the hot path). The endpoint stays "
+                        "up and reports enabled:false")
+    p.add_argument("--cgroup-root", default=_env("CGROUP_ROOT",
+                                                 "/sys/fs/cgroup"),
+                   help="cgroup v2 mount the host-signals collector "
+                        "scans for kubelet pod cgroups (kts_host_pod_* "
+                        "families); v1-only hosts degrade to no pod "
+                        "families")
     p.add_argument("--config", default=_env("CONFIG", ""),
                    help="YAML config file (keys = long flag names); "
                         "precedence: flags > KTS_* env > file > defaults")
@@ -268,6 +321,16 @@ def from_args(argv: Sequence[str] | None = None) -> Config:
         parser.error("--max-process-series must be >= 1")
     if args.label_value_cap < 0:
         parser.error("--label-value-cap must be >= 0 (0 = unfenced)")
+    if args.burst_mode not in ("off", "auto", "continuous"):
+        # Env defaults bypass argparse choices.
+        parser.error(f"--burst-mode must be off, auto or continuous "
+                     f"(got {args.burst_mode!r})")
+    if args.burst_hz <= 0:
+        parser.error("--burst-hz must be > 0")
+    if args.burst_hold <= 0:
+        parser.error("--burst-hold must be > 0 seconds")
+    if args.burst_ring < 16:
+        parser.error("--burst-ring must be >= 16 samples")
     if args.interval <= 0:
         parser.error("--interval must be > 0 seconds")
     if args.deadline <= 0:
@@ -299,6 +362,7 @@ def from_args(argv: Sequence[str] | None = None) -> Config:
         auth_username=args.auth_username,
         auth_password_sha256=args.auth_password_sha256,
         textfile_dir=args.textfile_dir,
+        sysfs_root=args.sysfs_root,
         proc_root=args.proc_root,
         device_processes=args.device_processes,
         max_process_series=args.max_process_series,
@@ -307,12 +371,19 @@ def from_args(argv: Sequence[str] | None = None) -> Config:
         checkpoint_path=args.checkpoint_path,
         attribution_interval=args.attribution_interval,
         rediscovery_interval=args.rediscovery_interval,
+        pipeline_fetch=not args.no_pipeline_fetch,
         trace_enabled=not args.no_trace,
         drop_labels=drop_labels,
         label_value_cap=args.label_value_cap,
         metrics_include=metrics_include,
         metrics_exclude=metrics_exclude,
         disabled_metrics=disabled_metrics,
+        burst_mode=args.burst_mode,
+        burst_hz=args.burst_hz,
+        burst_hold=args.burst_hold,
+        burst_ring=args.burst_ring,
+        host_stats=not args.no_host_stats,
+        cgroup_root=args.cgroup_root,
         mock_devices=args.mock_devices,
         log_level=args.log_level,
         log_format=args.log_format,

@@ -11,14 +11,16 @@ The daemon path imports no ``torch``: the DaemonSet image carries no CUDA
 userspace beyond the NVML the container runtime injects.
 
 One flight recorder (``tracing.Tracer``) is shared by the poll loop (span
-recording, plan compiles, the label fence), the supervisor (breaker and
-health journal feed) and the HTTP server (``/debug/ticks|trace|events``).
-The server takes the TLS, mTLS and basic-auth flags.
+recording, plan compiles, the label fence, the pipeline fence), the
+supervisor (breaker and health journal feed), the burst sampler (arm
+events, anomaly auto-arm) and the HTTP server
+(``/debug/ticks|trace|events``). The server takes the TLS, mTLS and
+basic-auth flags, and serves ``/debug/burst`` (while ``--burst-mode`` is
+not off) and ``/debug/host``.
 
 Not wired here (the reference's, left for later): push egress
-(Pushgateway, remote write, delta push, spill queue), the burst sampler,
-the energy accountant, host signals, their ``/debug/*`` endpoints and
-``reconfigure``.
+(Pushgateway, remote write, delta push, spill queue), the energy
+accountant and its ``/debug/energy``, and ``reconfigure``.
 """
 
 from __future__ import annotations
@@ -30,8 +32,10 @@ import threading
 from . import __version__, topology
 from .collectors import Collector
 from .collectors.mock import MockCollector, NullCollector
+from .burstsampler import BurstSampler
 from .config import Config
 from .exposition import MetricsServer, RenderStats, TextfileWriter
+from .hoststats import HostStats
 from .native.nvml import NvmlError
 from .poll import AttributionProvider, NullAttribution, PollLoop
 from .procopen import DeviceProcessWatcher
@@ -187,6 +191,32 @@ class Daemon:
             if cfg.device_processes == "on"
             else None
         )
+        # Burst sampler: it resolves the CURRENT collector per pass
+        # (late-bound, so it survives the auto-mode backend upgrade).
+        self.burst = (
+            BurstSampler(lambda: self.collector, lambda: self.poll.devices,
+                         hz=cfg.burst_hz, ring=cfg.burst_ring,
+                         hold=cfg.burst_hold, mode=cfg.burst_mode,
+                         tracer=self.tracer)
+            if cfg.burst_mode != "off"
+            else None
+        )
+        # Host-signals collector: read once per tick on the poll loop's
+        # pool, exported as kts_host_* and served at /debug/host. ALWAYS
+        # constructed — under --no-host-stats the disabled instance keeps
+        # the endpoint up answering enabled:false. The per-pod cgroup
+        # join resolves pod UIDs through the kubelet attribution mapping
+        # via the cards' holder processes.
+        self.hoststats = HostStats(
+            proc_root=cfg.proc_root,
+            sysfs_root=cfg.sysfs_root,
+            cgroup_root=cfg.cgroup_root,
+            pod_map=self._pod_uid_map,
+            enabled=cfg.host_stats,
+            # Capability-probe the optional eBPF runqueue source once at
+            # startup (it refuses gracefully; /debug/host says why).
+            probe_ebpf=cfg.host_stats,
+        )
         self.poll = PollLoop(
             self.collector,
             self.registry,
@@ -196,6 +226,7 @@ class Daemon:
             topology_labels=topology.topology_labels(),
             version=__version__,
             rediscovery_interval=cfg.rediscovery_interval,
+            pipeline_fetch=cfg.pipeline_fetch,
             drop_labels=cfg.drop_labels,
             disabled_metrics=cfg.disabled_metrics,
             process_openers=self.procwatch.lookup if self.procwatch else None,
@@ -203,6 +234,8 @@ class Daemon:
             health_stats=self.supervisor.contribute,
             heartbeat=self.supervisor.beater("poll"),
             tracer=self.tracer,
+            burst_sampler=self.burst,
+            host_stats=self.hoststats,
             label_value_cap=cfg.label_value_cap,
         )
         # Hung-tick watchdog threshold: same formula as healthz_max_age,
@@ -225,6 +258,8 @@ class Daemon:
             render_stats=self.render_stats,
             health_provider=self.supervisor.health_report,
             trace_provider=self.tracer,
+            burst_provider=self.burst,
+            host_provider=self.hoststats,
         )
         self.textfile = (
             TextfileWriter(self.registry, cfg.textfile_dir,
@@ -239,6 +274,27 @@ class Daemon:
             and cfg.rediscovery_interval > 0
             else None
         )
+
+    def _pod_uid_map(self) -> dict[str, tuple[str, str]]:
+        """pod UID -> (pod, namespace) for the host collector's cgroup
+        join: a card whose holder process carries a pod UID (procopen's
+        cgroup parse) ties that UID to the kubelet attribution mapping's
+        pod for the same card. Dict walks over cached state — no RPC,
+        safe from the host-read pool thread."""
+        if self.procwatch is None:
+            return {}
+        out: dict[str, tuple[str, str]] = {}
+        for dev in self.poll.devices:
+            attribution = self.attribution.lookup(dev)
+            pod = attribution.get("pod", "")
+            if not pod:
+                continue
+            namespace = attribution.get("namespace", "")
+            for _pid, _comm, pod_uid, _value in \
+                    self.procwatch.lookup(dev.device_path):
+                if pod_uid:
+                    out.setdefault(pod_uid, (pod, namespace))
+        return out
 
     def _attribution_breakers(self):
         """The attribution source's kubelet breaker, once it exists."""
@@ -256,6 +312,8 @@ class Daemon:
             self.textfile.start()
         if self.upgrade_watcher:
             self.upgrade_watcher.start()
+        if self.burst is not None:
+            self.burst.start()
         self.poll.start()
         # Liveness-only supervision for the auxiliary worker threads
         # (their loops already contain exceptions, so death is a bug — the
@@ -276,6 +334,13 @@ class Daemon:
                     name, is_alive=alive, restart=starter,
                     breaker_prefixes=(("kubelet",)
                                       if name == "attribution" else ()))
+        if self.burst is not None:
+            # The sub-tick sampler: a killed or wedged sampler thread
+            # would silently stop the burst families.
+            self.burst.heartbeat = self.supervisor.beater("burst")
+            self.supervisor.register(
+                "burst", is_alive=self.burst.thread_alive,
+                restart=self.burst.respawn, heartbeat_timeout=30.0)
         # The render pre-warmer: a dead warmer makes every scrape pay the
         # render inline, with no functional symptom.
         self.supervisor.register(
@@ -294,6 +359,8 @@ class Daemon:
         self.supervisor.stop()
         if self.upgrade_watcher:
             self.upgrade_watcher.stop()
+        if self.burst is not None:
+            self.burst.stop()
         self.poll.stop()
         if self.procwatch:
             self.procwatch.stop()

@@ -18,8 +18,12 @@ Accepts the exporter's own flags (the same config surface) plus:
                  post-mortem: worst phase, the responsible device, and
                  co-occurring journal events. Uses the --url target's
                  server (default http://127.0.0.1:<--listen-port>)
+  --host         read the RUNNING daemon's /debug/host snapshot and
+                 summarize the host side: PSI pressure, CPU thermal
+                 throttle, NIC drops, pod cgroups, eBPF availability.
+                 Same server as --trace
 
-The reference's --fleet, --efficiency, --at, --energy, --host, --egress,
+The reference's --fleet, --efficiency, --at, --energy, --egress,
 --stores, --cardinality and --skew read modules the port has not ported
 yet; each exits 2 and says so.
 
@@ -43,7 +47,7 @@ OK, WARN, FAIL, SKIP = "ok", "warn", "fail", "skip"
 _ORDER = {FAIL: 0, WARN: 1, OK: 2, SKIP: 3}
 
 # The reference's doctor flags whose rows read modules not ported yet.
-NOT_PORTED_FLAGS = ("--fleet", "--efficiency", "--at", "--energy", "--host",
+NOT_PORTED_FLAGS = ("--fleet", "--efficiency", "--at", "--energy",
                     "--egress", "--stores", "--cardinality", "--skew")
 
 
@@ -243,7 +247,10 @@ def check_poll(cfg: Config, ticks: int = 5) -> list[CheckResult]:
     loop = None
     try:
         registry = Registry()
-        loop = PollLoop(collector, registry, deadline=cfg.deadline)
+        # Blocking: each tick joins its own reads, so the p50 is the
+        # honest cost of a sampling round (the daemon pipelines them).
+        loop = PollLoop(collector, registry, deadline=cfg.deadline,
+                        pipeline_fetch=False)
         if not loop.devices:
             return [
                 _result(
@@ -417,6 +424,78 @@ def check_trace(base: str) -> CheckResult:
     return _result("trace", OK, detail, data=data)
 
 
+def check_host(base: str) -> CheckResult:
+    """--host: read the RUNNING daemon's /debug/host snapshot and
+    summarize the host-side health picture (PSI pressure, IRQ/NIC rates,
+    thermal throttle, per-pod cgroup stats, eBPF availability). Same
+    live-vs-fresh split as --trace: the daemon that has been
+    pressure-stalled for an hour carries the evidence, not a fresh
+    probe."""
+    import urllib.error
+
+    try:
+        payload = _fetch_json(base + "/debug/host")
+    except urllib.error.HTTPError as exc:
+        if exc.code in (401, 403):
+            return _result(
+                "host", WARN,
+                f"{base}/debug/host requires authentication "
+                f"(HTTP {exc.code}); the host snapshot sits behind the "
+                f"exporter's basic-auth gate by design")
+        if exc.code == 404:
+            return _result(
+                "host", WARN,
+                f"{base}: no /debug/host (exporter predates the host-"
+                f"signals collector, or this server has none wired)")
+        return _result("host", FAIL, f"{base}/debug/host: HTTP {exc.code}")
+    except Exception as exc:  # noqa: BLE001 - unreachable daemon, bad JSON
+        return _result("host", FAIL,
+                       f"{base}: host snapshot unreadable ({exc})")
+    if not payload.get("enabled", True):
+        return _result(
+            "host", WARN,
+            "host-signals collector disabled on the daemon "
+            "(--no-host-stats); no host snapshot to read")
+    if not payload.get("read_at"):
+        return _result(
+            "host", WARN,
+            "no host snapshot read yet; is the poll loop running?")
+    parts: list[str] = []
+    status = OK
+    pressure = payload.get("pressure") or {}
+    hot = {key: value for key, value in pressure.items()
+           if key.endswith("avg10") and value >= 5.0}
+    if hot:
+        status = WARN
+        parts.append("pressure: " + ", ".join(
+            f"{key}={value:g}%" for key, value in sorted(hot.items())))
+    elif pressure:
+        parts.append("pressure: all avg10 shares < 5%")
+    else:
+        parts.append("pressure: absent (pre-4.20 kernel?)")
+    throttle_rate = payload.get("throttle_rate")
+    if throttle_rate:
+        status = WARN
+        parts.append(f"CPU thermal throttle {throttle_rate:g}/s")
+    drop_rate = payload.get("nic_drop_rate")
+    if drop_rate:
+        status = WARN
+        parts.append(f"NIC drops {drop_rate:g}/s")
+    pods = payload.get("pods") or {}
+    parts.append(f"{len(pods)} pod cgroup(s)")
+    ebpf = payload.get("ebpf") or {}
+    if not ebpf.get("available", False):
+        parts.append(f"eBPF runq source off "
+                     f"({ebpf.get('reason', 'unavailable')})")
+    errors = payload.get("errors") or {}
+    if errors:
+        status = WARN if status is OK else status
+        parts.append("parse errors: " + ", ".join(
+            f"{reason}={count}" for reason, count in sorted(errors.items())))
+    return _result("host", status, "; ".join(parts),
+                   data={"host": payload})
+
+
 def check_url(target: str) -> list[CheckResult]:
     """Both --url rows — scrape contract + live breaker state — off ONE
     fetch: a node diagnosed because it is degraded must not render its
@@ -583,8 +662,8 @@ def check_embedded_viability(cfg: Config) -> CheckResult:
         "node")
 
 
-def run_checks(cfg: Config, url: str = "",
-               trace: bool = False) -> list[CheckResult]:
+def run_checks(cfg: Config, url: str = "", trace: bool = False,
+               host: bool = False) -> list[CheckResult]:
     probes: list[tuple[str, Callable[[], object]]] = [
         ("nvml", lambda: check_nvml(cfg)),
         ("attribution", lambda: check_attribution(cfg)),
@@ -601,6 +680,13 @@ def run_checks(cfg: Config, url: str = "",
         base = (trace_base(url) if url.startswith(("http://", "https://"))
                 else f"http://127.0.0.1:{cfg.listen_port}")
         probes.append(("trace", lambda: check_trace(base)))
+    if host:
+        # Same live-daemon fallback as --trace: /debug/host lives on the
+        # daemon's own server.
+        host_base = (trace_base(url)
+                     if url.startswith(("http://", "https://"))
+                     else f"http://127.0.0.1:{cfg.listen_port}")
+        probes.append(("host", lambda: check_host(host_base)))
     results: list[CheckResult] = []
     for name, probe in probes:
         results.extend(_bounded(name, probe))
@@ -631,6 +717,7 @@ def main(argv: Sequence[str] | None = None) -> int:
     raw = list(sys.argv[1:] if argv is None else argv)
     as_json = False
     trace = False
+    host = False
     url = ""
     args: list[str] = []
     it = iter(raw)
@@ -640,6 +727,8 @@ def main(argv: Sequence[str] | None = None) -> int:
             as_json = True
         elif token == "--trace":
             trace = True
+        elif token == "--host":
+            host = True
         elif token == "--url":
             url = next(it, "")
             if not url or url.startswith("--"):
@@ -660,7 +749,7 @@ def main(argv: Sequence[str] | None = None) -> int:
             args.append(token)
     cfg = from_args(args)
     started = time.monotonic()
-    results = run_checks(cfg, url=url, trace=trace)
+    results = run_checks(cfg, url=url, trace=trace, host=host)
     results.sort(key=lambda r: _ORDER[r.status])
     if as_json:
         print(json.dumps({

@@ -9,7 +9,10 @@
 - HTTP ``GET /debug/ticks|trace|events`` — the flight recorder's read
   side (``tracing.Tracer``), when one is wired; ``/debug/threads`` (a
   stack dump of every thread) and ``/debug/profile?seconds=N`` (folded
-  stacks sampled over N seconds, ``profiler.py``) always.
+  stacks sampled over N seconds, ``profiler.py``) always;
+  ``/debug/burst`` (the burst sampler's status, ``?arm=N`` and
+  ``?disarm``) and ``/debug/host`` (the host-signals snapshot) when
+  those are wired.
 - TLS (``tls_cert_file``/``tls_key_file``), mTLS (``tls_client_ca_file``)
   and basic auth (``auth_username`` + ``auth_password_sha256``) on every
   path but the kubelet probes ``/healthz`` and ``/readyz``.
@@ -18,8 +21,8 @@
 
 The port's copy of the reference's exposition layer without delta
 ingest, ``/query``, the Pushgateway sender and the ``/debug/*`` endpoints
-of modules not ported yet (burst, energy, host, egress, skew, stores,
-cardinality, fleet, efficiency).
+of modules not ported yet (energy, egress, skew, stores, cardinality,
+fleet, efficiency).
 """
 
 from __future__ import annotations
@@ -279,12 +282,17 @@ class MetricsServer:
                  tls_client_ca_file: str = "",
                  auth_username: str = "", auth_password_sha256: str = "",
                  render_stats: RenderStats | None = None,
-                 health_provider=None, trace_provider=None):
+                 health_provider=None, trace_provider=None,
+                 burst_provider=None, host_provider=None):
         self._registry = registry
         # Flight recorder (tracing.Tracer): serves /debug/ticks,
         # /debug/trace and /debug/events behind the same auth gate as
         # /metrics. None = those paths 404.
         self._trace = trace_provider
+        # Burst sampler (/debug/burst) and host-signals collector
+        # (/debug/host); None = that path 404s.
+        self._burst = burst_provider
+        self._host = host_provider
         # (user, lower-case sha256 hex of the password), or None = open.
         self._auth = (
             (auth_username, auth_password_sha256.lower())
@@ -583,6 +591,40 @@ class MetricsServer:
                             + "\n").encode()
                     self.send_response(200)
                     self.send_header("Content-Type", "application/json")
+                elif path == "/debug/burst" and outer._burst is not None:
+                    # Burst-sampler control + status (burstsampler.py):
+                    # ?arm=<seconds> opens a demand window, ?disarm=1
+                    # closes it, bare GET reads state. A GET with side
+                    # effects is deliberate here — the action is bounded
+                    # (auto-disarms after the hold window) and auth-gated
+                    # like every non-probe path.
+                    params = self._query()
+                    verdict = {}
+                    if "arm" in params:
+                        try:
+                            seconds = float(params.get("arm") or 0.0)
+                        except ValueError:
+                            seconds = 0.0
+                        verdict["armed_for_s"] = outer._burst.arm(
+                            seconds if seconds > 0 else None)
+                    elif "disarm" in params:
+                        outer._burst.disarm()
+                        verdict["disarmed"] = True
+                    payload = outer._burst.status()
+                    payload.update(verdict)
+                    body = (json.dumps(payload, sort_keys=True)
+                            + "\n").encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "application/json")
+                elif path == "/debug/host" and outer._host is not None:
+                    # Host-signals snapshot (hoststats.py), behind the
+                    # same auth gate as every non-probe path. A disabled
+                    # collector answers enabled:false rather than 404 so
+                    # a fetch diagnoses config, not absence.
+                    body = (json.dumps(outer._host.debug_payload(),
+                                       sort_keys=True) + "\n").encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "application/json")
                 elif path == "/debug/threads":
                     # Live stack dump of every thread: enough to diagnose
                     # a wedged sampler or a stuck attribution refresh from
@@ -607,6 +649,10 @@ class MetricsServer:
                     if outer._trace is not None:
                         links += ["/debug/ticks", "/debug/trace?last=20",
                                   "/debug/events"]
+                    if outer._burst is not None:
+                        links += ["/debug/burst"]
+                    if outer._host is not None:
+                        links += ["/debug/host"]
                     body = ("<html><body>kube-tpu-stats " + " ".join(
                         f'<a href="{link}">{link.partition("?")[0]}</a>'
                         for link in links) + "</body></html>").encode()

@@ -17,16 +17,30 @@ invalidated only on device churn (rediscover) or an attribution change for
 that device. The snapshot build then writes values into plan slots
 instead of rebuilding every label list per tick.
 
-The port's copy of the reference's ``PollLoop`` on its tick-plan path and
+Pipelined sampling (default on): for split backends (the NVML one) a
+tick dispatches the next round of per-device reads and assembles from
+the last COMPLETED round, so a read that stalls runs on during the
+inter-tick idle instead of inside the tick's deadline. Freshness fence:
+completed state older than 2x the interval re-engages the blocking
+fan-out (and every deadline/staleness mechanism with it), so values lag
+the tick by at most two intervals and a wedged backend degrades exactly
+as in blocking mode, within two ticks of when blocking mode would have
+flagged it. ``pipeline_fetch=False`` restores the
+join-this-tick's-reads contract (the doctor uses it for honest timing).
+
+The port's copy of the reference's ``PollLoop`` on its tick-plan path,
 its generic sampling path (one ``Collector.sample`` per device on the
-pool), with what the daemon wires: pod attribution behind the label
-fence, process holders, the supervisor's health self-metrics and
-heartbeat, label dropping, backend replacement between ticks and
-crash-only respawn. Not ported: the split/pipelined sampling of runtime
-backends, push/egress self-metrics, the burst sampler, the energy
-accountant, host signals and ``reconfigure``. The reference's pre-plan
-emit path is not copied either: the reference itself is this loop's
-oracle (``tests/test_torch_poll.py``, ``tests/test_torch_daemon.py``).
+pool) and its split/pipelined path, with what the daemon wires: pod
+attribution behind the label fence, process holders, the supervisor's
+health self-metrics and heartbeat, label dropping, backend replacement
+between ticks, crash-only respawn, the sub-tick power burst sampler's
+per-tick fold (``burstsampler.py``) and host signals read on the pool
+(``hoststats.py``). Not ported: push/egress self-metrics, the energy
+accountant (the reference's loop runs without one as ``energy=None``)
+and ``reconfigure``. The reference's pre-plan emit path is not copied
+either: the reference itself is this loop's oracle
+(``tests/test_torch_poll.py``, ``tests/test_torch_pipeline.py``,
+``tests/test_torch_daemon.py``).
 """
 
 from __future__ import annotations
@@ -39,7 +53,7 @@ from typing import Callable, Mapping, NamedTuple, Protocol, Sequence
 
 from . import procstats, schema
 from .cardinality import LabelFence
-from .collectors import Collector, Device, Sample
+from .collectors import Collector, CollectorError, Device, Sample
 from .delta import PROTO_MAX, PROTO_MIN
 from .fleetlens import contribute_trace_digest
 from .ici import RateTracker
@@ -266,7 +280,10 @@ class PollLoop:
         render_stats: Callable[[SnapshotBuilder], None] | None = None,
         health_stats: Callable[[SnapshotBuilder], None] | None = None,
         heartbeat: Callable[[], None] | None = None,
+        pipeline_fetch: bool = True,
         tracer: Tracer | None = None,
+        burst_sampler=None,
+        host_stats=None,
         label_value_cap: int = 0,
         clock: Callable[[], float] = time.monotonic,
     ) -> None:
@@ -303,18 +320,50 @@ class PollLoop:
         # a tick wedged inside a blocking call no timeout covers is
         # detected (and the loop respawned) by the watchdog.
         self._heartbeat = heartbeat
+        # Pipelined reads (split backends advertising pipelined_wait): a
+        # tick serves the last COMPLETED read round while this tick's
+        # round lands during the inter-tick idle, so a stalled read stops
+        # living inside the tick budget. The freshness fence: completed
+        # state older than 2 intervals re-engages the blocking join (and
+        # with it the deadline/staleness machinery), so a wedged backend
+        # degrades exactly as in blocking mode, within two ticks of when
+        # blocking mode would have flagged it (2x, not 1x, so jitter in
+        # read completion does not flap the fast path off). False
+        # restores join-this-tick's-reads.
+        self._fetch_max_age = 2.0 * interval if pipeline_fetch else None
         self._clock = clock
-        # Flight recorder: every tick records phase spans (sample round,
-        # fold, plan_write, publish) plus the per-device reads from the
-        # pool as aux spans. A disabled recorder (--no-trace) makes every
-        # call a cheap no-op.
+        # Flight recorder: every tick records phase spans (fetch_wait,
+        # env_round, fold, plan_write, publish) plus the per-device reads
+        # from the pool as aux spans, and state transitions (plan
+        # compiles, pipeline fence expiries/demotions) into the event
+        # journal. A disabled recorder (--no-trace) makes every call a
+        # cheap no-op.
         self.tracer = tracer if tracer is not None else Tracer()
         # Label-churn fence: caps distinct values per attribution label
         # key at the plan compiler, so a kubelet join minting a fresh pod
         # per tick degrades to pod="overflow" aggregation instead of a
         # per-tick series (and plan) explosion. 0 = unfenced.
         self._label_fence = LabelFence(label_value_cap, tracer=self.tracer)
+        # Burst sampler: the tick drains each device's sub-tick power ring
+        # and folds it into the kts_power_burst_* stats in the snapshot
+        # tail. None = the families stay absent (burst mode off / bare
+        # test loops).
+        self._burst = burst_sampler
+        # Host-signals collector: read once per tick on the pool, so
+        # PSI/IRQ/NIC/cgroup file IO never lives inside the tick budget.
+        # The snapshot tail folds the last COMPLETED read; its per-read
+        # parse errors count under collector_poll_errors_total. None (or
+        # a disabled instance) keeps the kts_host_* families absent.
+        self._host = (host_stats if host_stats is not None
+                      and getattr(host_stats, "enabled", True) else None)
+        self._host_future: concurrent.futures.Future | None = None
+        self._host_snap = None
         self._tick_seq = 0
+        # Pipeline-fence edge detection: the journal records the fence
+        # EXPIRING and the fast path re-arming, not one event per tick of
+        # a long outage (the journal is a ring; a per-tick repeat would
+        # evict the rare events a post-mortem wants).
+        self._fence_expired = False
 
         self._devices: list[Device] = list(collector.discover())
         workers = max(4, len(self._devices))
@@ -323,6 +372,20 @@ class PollLoop:
         # sick backend would make the process unkillable (workers.py).
         self._pool = DaemonSamplerPool(workers, thread_name_prefix="sampler")
         self._rates = RateTracker()
+        # Per-device (read generation, ((link, counter, rate), ...)) from
+        # the last tick that fed this device's counters: a pipelined tick
+        # re-serving the same read round replays the tuple instead of
+        # feeding the rate tracker a duplicate observation (which would
+        # emit a bogus zero rate and reset the baseline under the
+        # genuinely-new counters that follow). Generation-stamped so a
+        # device that missed a generation's first fold (stuck) is fed,
+        # not replayed from an older generation. This tick's captured
+        # generation lives on _tls (set at each sampling path's
+        # wait_ready join, consumed by _update_tick_state): per-thread,
+        # so a superseded loop thread unwedging mid-tick cannot overwrite
+        # the fresh thread's capture.
+        self._ici_memo: dict[str, tuple] = {}
+        self._runtime_seq_seen: int | None = None
         # Futures for samples that missed their deadline but are still
         # running: future.cancel() cannot stop a running call, so until it
         # finishes we must not submit another sample for that device or a
@@ -367,6 +430,14 @@ class PollLoop:
         # from the first snapshot.
         self._procstats: Mapping[str, float] | None = None
         self._proc_future: concurrent.futures.Future | None = None
+        # Pipelined read rounds (split backends, pipeline_fetch): the
+        # per-device reads of round N run on the pool while tick N
+        # assembles from round N-1's completed results, behind the age
+        # fence above. device_id -> (env, error); at == 0 means never
+        # completed.
+        self._env_round: dict[str, concurrent.futures.Future] | None = None
+        self._env_results: dict[str, tuple[dict, Exception | None]] = {}
+        self._env_results_at = 0.0
         self.last_tick_stats: dict[str, float] = {}
         # Per-thread snapshot builder, reset per tick: a superseded loop
         # thread can wedge inside the build and resume after the
@@ -410,6 +481,12 @@ class PollLoop:
         self._pending_collector = None
         old = self._collector
         self._collector = pending
+        # The new backend's read generations are unrelated to the old
+        # one's (a coinciding value must not replay the old collector's
+        # memoized interconnect tuples as this backend's rates).
+        self._ici_memo.clear()
+        self._runtime_seq_seen = None
+        self._tls.tick_runtime_seq = None
         try:
             old.close()
         except Exception:  # noqa: BLE001 - old backend teardown is best-effort
@@ -445,14 +522,35 @@ class PollLoop:
         # reason about which survived (off hot path).
         self._plans.clear()
         self._rebuild_slots()
+        # Pipelined state is per-device-identity too: drop completed
+        # results wholesale (a renumbered card must not serve another
+        # card's readings) and demote the in-flight round's unfinished
+        # reads to the outstanding guard so a wedged backend can't be
+        # handed a second worker by the next blocking fan-out.
+        self._env_results.clear()
+        self._env_results_at = 0.0
+        if self._env_round is not None:
+            for device_id, future in self._env_round.items():
+                if not future.done():
+                    self._outstanding.setdefault(device_id, future)
+            self._env_round = None
         alive = {dev.device_id for dev in self._devices}
+        # Purge over the UNION of per-device state: a device may exist in
+        # one dict and not another, and a renumbered card must never
+        # inherit another card's counter baseline.
         state_dicts = (self._last_totals, self._last_uptime,
-                       self._restarts, self._energy, self._last_power_at)
+                       self._restarts, self._energy, self._last_power_at,
+                       self._ici_memo)
         known = set().union(*(d.keys() for d in state_dicts))
         for device_id in known - alive:
             self._rates.forget_device(device_id)
             for state in state_dicts:
                 state.pop(device_id, None)
+            # The burst ring and histogram go with the device: a
+            # renumbered card must not inherit another card's sub-tick
+            # distribution.
+            if self._burst is not None:
+                self._burst.forget_device(device_id)
         for device_id in [d for d in self._outstanding if d not in alive]:
             self._outstanding.pop(device_id).cancel()
 
@@ -486,9 +584,18 @@ class PollLoop:
         mark = tracer.mark()
         self._registry.publish(snapshot)
         tracer.add_span("publish", mark)
-        tracer.end(devices=len(results),
-                   duration_ms=round(duration * 1000.0, 3),
-                   series=self.last_tick_stats.get("series", 0))
+        meta = {"devices": len(results),
+                "duration_ms": round(duration * 1000.0, 3),
+                "series": self.last_tick_stats.get("series", 0)}
+        if self._host is not None and self._host_snap is not None:
+            # Time-align the tick with the host's state: the trace ring
+            # carries the strongest host signals, so a /debug/ticks
+            # post-mortem of a slow tick shows the PSI/NIC/throttle
+            # picture it co-occurred with.
+            note = self._host.trace_note(self._host_snap)
+            if note:
+                meta["host"] = note
+        tracer.end(**meta)
         return duration
 
     def run_forever(self) -> None:
@@ -560,8 +667,8 @@ class PollLoop:
 
     # -- internals -----------------------------------------------------------
 
-    def _traced_read(self, inner):
-        """Wrap the per-device sampling callable so each pool-thread read
+    def _traced_read(self, name: str, inner):
+        """Wrap a per-device sampling callable so each pool-thread read
         records an aux span carrying the device id — the flight
         recorder's "which device" answer."""
         tracer = self.tracer
@@ -571,23 +678,45 @@ class PollLoop:
             try:
                 return inner(dev)
             finally:
-                tracer.aux_span("sample", start_ns, device=dev.device_id)
+                tracer.aux_span(name, start_ns, device=dev.device_id)
 
         return read
 
     def _sample_all(self) -> list[tuple[Device, Sample | None]]:
         if self._proc_future is None:
             self._proc_future = self._pool.submit(procstats.read)
+        if self._host is not None and self._host_future is None:
+            # At most one host read in flight: the dozens of /proc, /sys
+            # and cgroup reads overlap the device fan-out like the
+            # procstats prefetch.
+            self._host_future = self._pool.submit(self._host.read)
         if not self._devices:
             return []
         self._collector.begin_tick()
-        work = self._collector.sample
+        # Split path (NVML): pool workers run only the blocking reads; the
+        # loop thread assembles every device in memory, from this tick's
+        # reads (blocking) or the last completed round (pipelined).
+        split = (
+            hasattr(self._collector, "read_environment")
+            and hasattr(self._collector, "assemble")
+        )
+        work = (self._collector.read_environment if split
+                else self._collector.sample)
         tracer = self.tracer
         if tracer.enabled:
-            work = self._traced_read(work)
+            work = self._traced_read("env_read" if split else "sample",
+                                     work)
         slot_of = self._slot_of
         results: list = [None] * len(self._devices)
         futures: dict[concurrent.futures.Future, Device] = {}
+        # Single gate for both the fast-path entry and the blocking
+        # fallback's age-fenced wait below — they must always agree.
+        pipelined = (split and self._fetch_max_age is not None
+                     and getattr(self._collector, "pipelined_wait", False))
+        if pipelined:
+            fast = self._sample_pipelined(results)
+            if fast is not None:
+                return fast
         for dev in self._devices:
             stuck = self._outstanding.get(dev.device_id)
             if stuck is not None:
@@ -605,14 +734,55 @@ class PollLoop:
         # same remainder, so one slow device can only consume what's
         # left — the deadline is a property of the TICK, not of each child.
         budget = DeadlineBudget(self._deadline, clock=self._clock)
+        runtime_ready = False
+        if split:
+            mark = tracer.mark()
+            try:
+                if pipelined:
+                    self._collector.wait_ready(
+                        budget.take(), max_age=self._fetch_max_age)
+                else:
+                    self._collector.wait_ready(budget.take())
+                runtime_ready = True
+            except Exception as exc:
+                # The join missed the tick deadline (or died): assemble
+                # from the reads alone, never a crash.
+                self._count_error("fetch_deadline")
+                if log_every("poll:fetch_deadline", 30.0):
+                    log.warning("runtime fetch not ready within %gs: %s "
+                                "(repeats suppressed for 30s; rate in "
+                                "collector_poll_errors_total)",
+                                self._deadline, exc)
+            tracer.add_span("fetch_wait", mark, ready=runtime_ready)
+            # Capture the read generation the assembles below will serve —
+            # the fold keys its interconnect rate-feed dedup on it.
+            # Captured HERE, right after the join and before any assemble:
+            # reading it at fold time instead would race the read threads.
+            self._tls.tick_runtime_seq = getattr(
+                self._collector, "runtime_fetch_seq", None)
+        env_fresh = False
         mark = tracer.mark()
         for future, dev in futures.items():
             slot = slot_of[dev.device_id]
             try:
-                results[slot] = (dev, future.result(timeout=budget.take()))
+                outcome = future.result(timeout=budget.take())
+                if split:
+                    # Feed the pipelined path's completed-state map so
+                    # the NEXT tick can assemble without waiting.
+                    self._env_results[dev.device_id] = (outcome, None)
+                    env_fresh = True
+                    outcome = self._assemble(dev, outcome, None,
+                                             runtime_ready)
+                results[slot] = (dev, outcome)
             except concurrent.futures.TimeoutError:
                 if not future.cancel():
                     self._outstanding[dev.device_id] = future
+                # This device has NO completed read this round: drop any
+                # older entry so the pipelined path degrades it honestly
+                # instead of serving frozen values fenced only by the
+                # round-global freshness stamp.
+                if split:
+                    self._env_results.pop(dev.device_id, None)
                 self._count_error("deadline")
                 if log_every(f"poll:deadline:{dev.device_id}", 30.0):
                     log.warning("sample of %s missed the %gs deadline "
@@ -620,6 +790,23 @@ class PollLoop:
                                 dev.device_path, self._deadline)
                 results[slot] = (dev, None)
             except Exception as exc:  # CollectorError and anything else
+                if split and not isinstance(
+                        exc, concurrent.futures.CancelledError):
+                    # The read failed: assemble decides what survives. A
+                    # CollectorError is expected degradation (a lost
+                    # card); anything else is a bug and must stay
+                    # visible to alerting.
+                    if not isinstance(exc, CollectorError):
+                        self._count_error(type(exc).__name__)
+                        if log_every(f"poll:env:{dev.device_id}", 30.0):
+                            log.warning("environment read of %s failed: %s "
+                                        "(repeats suppressed for 30s)",
+                                        dev.device_path, exc)
+                    self._env_results[dev.device_id] = ({}, exc)
+                    env_fresh = True
+                    results[slot] = (
+                        dev, self._assemble(dev, {}, exc, runtime_ready))
+                    continue
                 self._count_error(type(exc).__name__)
                 if log_every(f"poll:sample:{dev.device_id}", 30.0):
                     log.warning("sample of %s failed: %s "
@@ -627,7 +814,169 @@ class PollLoop:
                                 dev.device_path, exc)
                 results[slot] = (dev, None)
         tracer.add_span("env_round", mark)
+        if split and env_fresh:
+            # Move the pipelined path's freshness fence only when a read
+            # actually completed this tick (success or answered failure):
+            # a tick where EVERY read timed out must leave the fence
+            # expired so the next tick blocks again, rather than re-arm
+            # the fast path around entries that never got refreshed.
+            self._env_results_at = self._clock()
+        if not split:
+            # Generic path: each sample() did its own reads — the
+            # generation is settled once the gather above has drained.
+            self._tls.tick_runtime_seq = getattr(
+                self._collector, "runtime_fetch_seq", None)
         return results
+
+    def _harvest_env(self, device_id: str,
+                     future: concurrent.futures.Future) -> None:
+        """Fold one COMPLETED read into the pipelined state map, with the
+        same accounting as the blocking path's read-failure branch: a
+        CollectorError is expected degradation, but anything else must
+        hit collector_poll_errors_total and the log, or the outage is
+        invisible to the counter operators are told to alert on."""
+        try:
+            self._env_results[device_id] = (future.result(), None)
+        except Exception as exc:  # noqa: BLE001 - per-device, via assemble
+            if not isinstance(exc, CollectorError):
+                self._count_error(type(exc).__name__)
+                if log_every(f"poll:env:{device_id}", 30.0):
+                    log.warning("environment read of device %s failed: %s "
+                                "(repeats suppressed for 30s)",
+                                device_id, exc)
+            self._env_results[device_id] = ({}, exc)
+
+    def _sample_pipelined(
+        self, results: list
+    ) -> list[tuple[Device, Sample | None]] | None:
+        """Zero-wait tick for split backends: assemble every device from
+        the last COMPLETED read round while the next round runs on the
+        pool. Returns None when the completed state is cold (startup) or
+        older than the freshness fence — the caller then runs the
+        blocking fan-out, which re-engages every deadline/staleness
+        mechanism exactly as without pipelining."""
+        now = self._clock()
+        tracer = self.tracer
+        round_ = self._env_round
+        if round_ is not None and all(f.done() for f in round_.values()):
+            for device_id, future in round_.items():
+                self._harvest_env(device_id, future)
+            self._env_results_at = now
+            self._env_round = round_ = None
+        if (self._env_results_at == 0.0
+                or now - self._env_results_at > self._fetch_max_age):
+            # Cold or stale (a read is wedged, or the backend is slower
+            # than the fence): surrender to the blocking path. Still-
+            # running reads are demoted to the per-device outstanding
+            # guard so the blocking fan-out cannot stack another worker
+            # onto a wedged backend.
+            if self._env_results_at > 0.0 and not self._fence_expired:
+                # Journaled on the EDGE (expiry, matched by the re-arm
+                # event below), never per tick of an outage.
+                self._fence_expired = True
+                tracer.event(
+                    "pipeline_fence",
+                    f"completed env state older than "
+                    f"{self._fetch_max_age:g}s; blocking fan-out "
+                    f"re-engaged",
+                    age_s=round(now - self._env_results_at, 3))
+            if round_ is not None:
+                self._env_round = None
+                for device_id, future in round_.items():
+                    if not future.done():
+                        self._outstanding.setdefault(device_id, future)
+                        tracer.event(
+                            "pipeline_demote",
+                            f"device {device_id}: wedged env read demoted "
+                            f"to the outstanding guard",
+                            device=device_id)
+                        # Its completed entry is now older than the fence;
+                        # a later pipelined tick must see "no read has
+                        # completed yet", not serve the frozen pre-wedge
+                        # values as fresh forever.
+                        self._env_results.pop(device_id, None)
+                    else:
+                        # A slow sibling pushed the round past the fence,
+                        # but THIS read finished — record it (the blocking
+                        # tick's re-read then overwrites it on success).
+                        # No stamp move: the fence stays expired.
+                        self._harvest_env(device_id, future)
+            return None
+        if round_ is None:
+            # Reap outstanding (previously wedged) reads that have since
+            # finished — the blocking path does this per device; without
+            # it a device demoted once would be excluded from every
+            # pipelined round until the next cold tick.
+            for device_id in [d for d, f in self._outstanding.items()
+                              if f.done()]:
+                self._outstanding.pop(device_id, None)
+            read = self._collector.read_environment
+            if tracer.enabled:
+                read = self._traced_read("env_read", read)
+            self._env_round = {
+                dev.device_id: self._pool.submit(read, dev)
+                for dev in self._devices
+                if dev.device_id not in self._outstanding
+            }
+        runtime_ready = True
+        mark = tracer.mark()
+        try:
+            # Age-bounded join: in steady state it returns at once.
+            self._collector.wait_ready(self._deadline,
+                                       max_age=self._fetch_max_age)
+        except Exception:  # noqa: BLE001 - degraded tick, never a crash
+            self._count_error("fetch_deadline")
+            runtime_ready = False
+        tracer.add_span("fetch_wait", mark, ready=runtime_ready)
+        # Same capture point as the blocking path: the generation the
+        # assembles below will serve, fixed before any assemble runs.
+        self._tls.tick_runtime_seq = getattr(
+            self._collector, "runtime_fetch_seq", None)
+        mark = tracer.mark()
+        slot_of = self._slot_of
+        empty_env: dict = {}
+        for dev in self._devices:
+            entry = self._env_results.get(dev.device_id)
+            if entry is None:
+                stuck = self._outstanding.get(dev.device_id)
+                if stuck is not None and not stuck.done():
+                    # Same contract as the blocking path's stuck branch:
+                    # a read still wedged inside the backend keeps the
+                    # device visibly down (up 0) and counting every tick.
+                    self._count_error("stuck")
+                    results[slot_of[dev.device_id]] = (dev, None)
+                    continue
+                # New device (or one just reaped, awaiting its first
+                # round): no completed read yet.
+                env, env_err = empty_env, CollectorError(
+                    "no environment read has completed yet")
+            else:
+                env, env_err = entry
+            results[slot_of[dev.device_id]] = (
+                dev, self._assemble(dev, env, env_err, runtime_ready))
+        tracer.add_span("env_round", mark, pipelined=True)
+        if self._fence_expired:
+            # The fast path served again: close the expiry edge so the
+            # next outage journals a fresh pair.
+            self._fence_expired = False
+            tracer.event("pipeline_resume",
+                         "pipelined fast path re-armed (completed env "
+                         "state fresh again)")
+        return results
+
+    def _assemble(self, dev: Device, env, env_err,
+                  runtime_ready: bool) -> Sample | None:
+        """In-memory merge for the split path; None marks stale."""
+        try:
+            return self._collector.assemble(dev, env, env_err,
+                                            runtime_ready=runtime_ready)
+        except Exception as exc:
+            self._count_error(type(exc).__name__)
+            if log_every(f"poll:sample:{dev.device_id}", 30.0):
+                log.warning("sample of %s failed: %s "
+                            "(repeats suppressed for 30s)",
+                            dev.device_path, exc)
+            return None
 
     def _count_error(self, reason: str) -> None:
         self._errors[reason] = self._errors.get(reason, 0) + 1
@@ -647,6 +996,28 @@ class PollLoop:
         if self._procstats is None:
             self._procstats = procstats.read()
         return self._procstats
+
+    def _harvest_hoststats(self):
+        """Last completed host-signals read (hoststats.py). Strictly
+        non-blocking — unlike procstats there is no cold inline read:
+        the kts_host_* families are absent until the first pool read
+        completes (a tick must never wait on a wedged /proc)."""
+        future = self._host_future
+        if future is not None and future.done():
+            self._host_future = None
+            try:
+                snap = future.result()
+            except Exception:  # noqa: BLE001 - host stats must not kill a tick
+                self._count_error("hoststats")
+                log.debug("host-stats read failed", exc_info=True)
+            else:
+                # Per-read parse errors (a garbage PSI line, a hostile
+                # cgroup file) surface on the counter operators are told
+                # to alert on — the same contract as the read path.
+                for reason in snap.errors:
+                    self._count_error(reason)
+                self._host_snap = snap
+        return self._host_snap
 
     _MAX_RAW_FAMILIES = 64
     # Real topologies have a handful of interconnect links per device; 64
@@ -711,14 +1082,35 @@ class PollLoop:
         # mapping. Evaluated once per snapshot.
         attr_stale = bool(getattr(self._attribution, "stale", False))
         openers = self._process_openers
+        # Rate-feed dedup for pipelined ticks: when the collector exposes
+        # a read generation and it hasn't advanced since the last fold,
+        # this tick is re-serving the SAME counters — replay the
+        # previously computed rates rather than hand the tracker a
+        # duplicate observation. The generation was captured at the
+        # sampling path's join, NOT here: reading it at fold time would
+        # race the read threads. Collectors without the attribute always
+        # count as fresh; direct _build_snapshot callers see None too.
+        runtime_seq = getattr(self._tls, "tick_runtime_seq", None)
+        runtime_fresh = (runtime_seq is None
+                         or runtime_seq != self._runtime_seq_seen)
+        self._runtime_seq_seen = runtime_seq
+        burst = self._burst
+        if burst is not None:
+            # Auto-arm on power/duty-shaped anomaly events that landed in
+            # the shared journal since the last tick (one cheap walk of
+            # the new entries; the arm itself edge-journals back).
+            burst.scan_journal()
         tick: list[_TickDevice] = []
         for dev, sample in results:
             plan = self._plan_for(dev)
             device_id = dev.device_id
+            bsamples = burst.drain(device_id) if burst is not None else ()
             holders = (tuple(openers(dev.device_path))
                        if openers is not None else None)
             stale = attr_stale or (sample is not None and sample.stale)
             if sample is None:
+                if burst is not None:
+                    burst.fold(device_id, bsamples)
                 tick.append(_TickDevice(
                     dev, None, plan, stale,
                     self._last_totals.get(device_id),
@@ -762,6 +1154,8 @@ class PollLoop:
                             self._energy.get(device_id, 0.0)
                             + value * gap)
                     self._last_power_at[device_id] = now
+            if burst is not None:
+                burst.fold(device_id, bsamples)
             ici_items = sorted(sample.ici_counters.items())
             if len(ici_items) > self._MAX_ICI_LINKS:
                 # A buggy backend minting unique link names per tick must
@@ -769,11 +1163,27 @@ class PollLoop:
                 # unboundedly). Sorted-first-N keeps a stable subset.
                 self._count_error("ici_link_cap")
                 ici_items = ici_items[:self._MAX_ICI_LINKS]
-            ici = tuple(
-                (link, counter,
-                 self._rates.rate(device_id, link, counter, now))
-                for link, counter in ici_items
-            )
+            if not ici_items:
+                ici: tuple = ()
+            else:
+                memo = self._ici_memo.get(device_id)
+                # Replay only a memo from THIS generation: a device that
+                # was stuck (sample None) on the generation's first fold
+                # has a previous-generation memo, and its now-unstuck
+                # counters must be fed, not shadowed by older values.
+                if (runtime_fresh or memo is None
+                        or memo[0] != runtime_seq):
+                    ici = tuple(
+                        (link, counter,
+                         self._rates.rate(device_id, link, counter, now))
+                        for link, counter in ici_items
+                    )
+                    self._ici_memo[device_id] = (runtime_seq, ici)
+                else:
+                    # Same read generation as the memo: identical
+                    # counters by construction — the replayed tuple IS
+                    # this tick's truth.
+                    ici = memo[1]
             raw: tuple[tuple[str, str, float], ...] = ()
             if sample.raw_values:
                 admitted = []
@@ -855,6 +1265,20 @@ class PollLoop:
                            tick: list[_TickDevice]) -> None:
         """Self-observability tail of every snapshot."""
         builder.add(schema.SELF_DEVICES, float(len(tick)))
+        if self._burst is not None:
+            # kts_power_burst_* per device: the tick fold above already
+            # updated the stats; the chip label comes from the tick's
+            # device records so a renumbered card re-labels with them.
+            self._burst.contribute(builder, {
+                rec.dev.device_id: (("chip", str(rec.dev.index)),)
+                for rec in tick
+            })
+        if self._host is not None:
+            # kts_host_* families from the last completed host read
+            # (absent until one exists).
+            snap = self._harvest_hoststats()
+            if snap is not None:
+                self._host.contribute(builder, snap)
         allocatable = getattr(self._attribution, "allocatable", None)
         if allocatable is not None:
             for resource, count in sorted(allocatable().items()):

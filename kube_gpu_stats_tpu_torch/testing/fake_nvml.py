@@ -3,14 +3,24 @@
 Every CPU test of the NVML backend runs on it. Devices carry their
 readings in the binding's units (milliwatts, millijoules, bytes, KiB per
 NVLink link); a test changes them between ticks, scripts a return code
-per call (``errors``), or loses the card (``lost``), which makes every
-call on it return ``NVML_ERROR_GPU_IS_LOST``.
+per call (``errors``), stalls every Nth call of a named call
+(``stalls``, as NVML on an H100 80GB HBM3 at 700 W took 20-113 ms in a
+few percent of its memory and NVLink reads), or
+loses the card (``lost``), which makes every call on it return
+``NVML_ERROR_GPU_IS_LOST``.
+
+``nvmlDeviceGetFieldValues`` answers under two names: ``power_instant``
+for the burst sampler's one-field read of ``NVML_FI_DEV_POWER_INSTANT``
+(``power_instant_mw``, or ``NVML_ERROR_NOT_SUPPORTED`` for that field
+when ``power_instant_supported`` is False), ``field_values`` for every
+other request.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import Sequence
 
 from ..native import nvml as binding
@@ -47,8 +57,16 @@ class FakeDevice:
     gpm_supported: bool = False
     tensor_util: float = 0.0
     dram_bw_util: float = 0.0
+    # The instantaneous power field (mW; None reads power_mw).
+    power_instant_mw: int | None = None
+    power_instant_supported: bool = True
     # binding method name -> the nvmlReturn_t it returns instead.
     errors: dict[str, int] = dataclasses.field(default_factory=dict)
+    # binding method name -> (seconds, every): every Nth call of it
+    # sleeps that long before it answers. ``calls`` counts each name.
+    stalls: dict[str, tuple[float, int]] = dataclasses.field(
+        default_factory=dict)
+    calls: dict[str, int] = dataclasses.field(default_factory=dict)
     lost: bool = False
 
 
@@ -108,6 +126,11 @@ class FakeNvml:
         if self._refs == 0:
             self._raise(binding.NVML_ERROR_UNINITIALIZED)
         dev = self.devices[handle]
+        with self._lock:
+            n = dev.calls[call] = dev.calls.get(call, 0) + 1
+        stall = dev.stalls.get(call)
+        if stall is not None and n % stall[1] == 0:
+            time.sleep(stall[0])
         if dev.lost:
             self._raise(binding.NVML_ERROR_GPU_IS_LOST)
         code = dev.errors.get(call)
@@ -154,6 +177,14 @@ class FakeNvml:
 
     def field_values(self, handle: int, fields: Sequence[tuple[int, int]]
                      ) -> list[tuple[int, float | int | None]]:
+        instant = [(binding.NVML_FI_DEV_POWER_INSTANT, 0)]
+        if list(fields) == instant:
+            dev = self._device(handle, "power_instant")
+            if not dev.power_instant_supported:
+                return [(binding.NVML_ERROR_NOT_SUPPORTED, None)]
+            return [(binding.NVML_SUCCESS,
+                     dev.power_mw if dev.power_instant_mw is None
+                     else dev.power_instant_mw)]
         dev = self._device(handle, "field_values")
         out: list[tuple[int, float | int | None]] = []
         for field_id, link in fields:

@@ -170,7 +170,8 @@ _NVML_CONSTANTS = (
     "NVML_DEVICE_UUID_V2_BUFFER_SIZE", "NVML_DEVICE_NAME_V2_BUFFER_SIZE",
     "NVML_SYSTEM_DRIVER_VERSION_BUFFER_SIZE",
     "NVML_FI_DEV_NVLINK_LINK_COUNT", "NVML_FI_DEV_NVLINK_THROUGHPUT_DATA_TX",
-    "NVML_FI_DEV_NVLINK_THROUGHPUT_DATA_RX", "NVML_VALUE_TYPE_DOUBLE",
+    "NVML_FI_DEV_NVLINK_THROUGHPUT_DATA_RX", "NVML_FI_DEV_POWER_INSTANT",
+    "NVML_VALUE_TYPE_DOUBLE",
     "NVML_VALUE_TYPE_UNSIGNED_INT", "NVML_VALUE_TYPE_UNSIGNED_LONG",
     "NVML_VALUE_TYPE_UNSIGNED_LONG_LONG", "NVML_VALUE_TYPE_SIGNED_LONG_LONG",
     "NVML_VALUE_TYPE_SIGNED_INT", "NVML_GPM_SUPPORT_VERSION",
@@ -315,6 +316,28 @@ def test_nvml_sample_within_the_smoke_ranges(card):
     assert 0 < values[schema.POWER.name] <= limit_w
     assert 20 <= values[schema.TEMPERATURE.name] <= 100
     del held
+
+
+def test_nvml_read_burst_gives_a_plausible_wattage(card):
+    """One read of the instantaneous power field on card 0: a positive
+    wattage within reach of the card's power limit; or, on a card that
+    refuses the field, None with NVML's answer recorded."""
+    from kube_gpu_stats_tpu_torch.collectors.nvml import NvmlCollector
+
+    uuid = "GPU-" + str(torch.cuda.get_device_properties(0).uuid)
+    limit_w = {r[0]: float(r[1]) for r in _smi("uuid,power.limit")}[uuid]
+    collector = NvmlCollector()
+    try:
+        (dev,) = [d for d in collector.discover() if d.uuid == uuid]
+        watts = collector.read_burst(dev)
+        state = collector.burst_state.get(dev.device_id)
+    finally:
+        collector.close()
+    if watts is None:
+        assert "Not Supported" in state
+        return
+    assert 0 < watts <= 1.5 * limit_w
+    assert state is None
 
 
 def test_embedded_device_path_is_the_daemons(card):

@@ -31,7 +31,9 @@ from kube_gpu_stats_tpu.poll import PollLoop as RefPollLoop
 from kube_gpu_stats_tpu.registry import Registry as RefRegistry
 from kube_gpu_stats_tpu.resilience import CircuitBreaker as RefBreaker
 from kube_gpu_stats_tpu.supervisor import Supervisor as RefSupervisor
+from kube_gpu_stats_tpu import wal as ref_wal
 from kube_gpu_stats_tpu_torch import cli, config, daemon
+from kube_gpu_stats_tpu_torch import wal as port_wal
 from kube_gpu_stats_tpu_torch.collectors.mock import MockCollector
 from kube_gpu_stats_tpu_torch.collectors.nvml import NvmlCollector
 from kube_gpu_stats_tpu_torch.config import Config
@@ -111,6 +113,11 @@ def _supervised(supervisor_cls, breaker_cls, clock):
 
 
 def test_poll_loops_agree_over_the_mock_with_the_daemon_wiring():
+    # The store-health registries are process-global: a server an earlier
+    # test of this worker started would add its accept fence's kts_store_*
+    # to one side only.
+    ref_wal.reset_store_stats()
+    port_wal.reset_store_stats()
     clock = Clock()
     attributions = (Attribution(), Attribution())
     loops = []
@@ -314,10 +321,10 @@ def test_backend_nvml_failure_exits_non_zero(monkeypatch, caplog):
     ["--hub-url", "http://hub:9401"],
     ["--no-native"],
     ["--max-concurrent-scrapes", "8"],
-    ["--burst-mode", "off"],
-    ["--sysfs-root", "/sys"],
+    ["--energy-checkpoint", "/var/lib/kts/energy"],
+    ["--energy-audit-key", "k"],
     ["--libtpu-ports", "8431"],
-    ["--no-pipeline-fetch"],
+    ["--energy-checkpoint-interval", "5"],
     ["--backend", "tpu"],
     ["--backend", "gpu"],
 ])
@@ -381,3 +388,62 @@ def test_ported_subcommands_dispatch(argv, capsys):
         rc = exc.code
     assert rc == 0
     assert "usage:" in capsys.readouterr().out
+
+
+# -- the node-feature flags: defaults, environment, validation ----------------
+
+NODE_FIELDS = ("burst_mode", "burst_hz", "burst_hold", "burst_ring",
+               "host_stats", "cgroup_root", "sysfs_root", "proc_root",
+               "pipeline_fetch")
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--burst-mode", "continuous", "--burst-hz", "250", "--burst-hold",
+     "5", "--burst-ring", "16"],
+    ["--burst-mode", "off", "--no-host-stats", "--no-pipeline-fetch"],
+    ["--cgroup-root", "/host/cgroup", "--sysfs-root", "/host/sys",
+     "--proc-root", "/host/proc"],
+])
+def test_node_feature_flags_parse_as_the_reference(argv):
+    port_cfg, ref_cfg = config.from_args(argv), ref_config.from_args(argv)
+    for field in NODE_FIELDS:
+        assert getattr(port_cfg, field) == getattr(ref_cfg, field), field
+
+
+def test_node_feature_flags_read_the_environment(monkeypatch):
+    env = {"KTS_BURST_MODE": "continuous", "KTS_BURST_HZ": "50",
+           "KTS_BURST_HOLD": "12.5", "KTS_BURST_RING": "64",
+           "KTS_NO_HOST_STATS": "true", "KTS_CGROUP_ROOT": "/c",
+           "KTS_SYSFS_ROOT": "/s", "KTS_NO_PIPELINE_FETCH": "1"}
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    port_cfg, ref_cfg = config.from_args([]), ref_config.from_args([])
+    for field in NODE_FIELDS:
+        assert getattr(port_cfg, field) == getattr(ref_cfg, field), field
+    assert (port_cfg.burst_mode, port_cfg.burst_ring, port_cfg.host_stats,
+            port_cfg.pipeline_fetch) == ("continuous", 64, False, False)
+
+
+@pytest.mark.parametrize("argv,env", [
+    (["--burst-mode", "sometimes"], {}),
+    ([], {"KTS_BURST_MODE": "sometimes"}),
+    (["--burst-hz", "0"], {}),
+    (["--burst-hz", "-5"], {}),
+    (["--burst-hold", "0"], {}),
+    (["--burst-ring", "15"], {}),
+    (["--burst-ring", "many"], {}),
+])
+def test_bad_node_feature_flags_fail_as_the_reference(argv, env, monkeypatch,
+                                                      capsys):
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    errors = []
+    for module in (ref_config, config):
+        with pytest.raises(SystemExit) as info:
+            module.from_args(argv)
+        assert info.value.code == 2
+        # The usage error's message, without the program's name.
+        errors.append(capsys.readouterr().err.strip().splitlines()[-1]
+                      .split(" error: ", 1)[1])
+    assert errors[1] == errors[0]

@@ -506,3 +506,88 @@ def test_the_journal_holds_the_label_fences_first_overflow(running,
     assert event["detail"].startswith("label 'pod': distinct-value cap (1)")
     compiles = _events(d, "plan_compile")
     assert sorted(e["attrs"]["device"] for e in compiles) == ["0", "1"]
+
+
+# -- /debug/burst and /debug/host ----------------------------------------------
+
+def _burst_and_host():
+    from kube_gpu_stats_tpu_torch.burstsampler import BurstSampler
+    from kube_gpu_stats_tpu_torch.hoststats import HostStats
+
+    collector = MockCollector(num_devices=1)
+    burst = BurstSampler(lambda: collector, collector.discover, hold=30.0)
+    host = HostStats(proc_root="/proc", sysfs_root="/sys",
+                     cgroup_root="/nonexistent")
+    host.read()
+    return burst, host
+
+
+@pytest.mark.parametrize("path", ["/debug/burst", "/debug/burst?arm=5",
+                                  "/debug/burst?disarm=1", "/debug/host"])
+def test_burst_and_host_sit_behind_basic_auth(serve, path):
+    burst, host = _burst_and_host()
+    server = serve(auth_username="prom", auth_password_sha256=DIGEST,
+                   burst_provider=burst, host_provider=host)
+    url = f"http://127.0.0.1:{server.port}{path}"
+    code, _, _ = _get(url)
+    assert code == 401
+    assert not burst.armed  # a refused ?arm arms nothing
+    code, headers, body = _get(url, _basic("prom", PASSWORD))
+    assert code == 200 and headers["Content-Type"] == "application/json"
+    payload = json.loads(body)
+    assert payload["enabled"] is True
+    if path == "/debug/burst?arm=5":
+        assert payload["armed"] and payload["armed_for_s"] == 5.0
+        assert burst.armed
+
+
+def test_debug_burst_arms_disarms_and_reads(serve):
+    burst, host = _burst_and_host()
+    server = serve(burst_provider=burst, host_provider=host)
+    base = f"http://127.0.0.1:{server.port}/debug/burst"
+    status = json.loads(_get(base)[2])
+    assert (status["armed"], status["mode"], status["hz"]) == \
+        (False, "auto", 100.0)
+    armed = json.loads(_get(base + "?arm=")[2])  # no length: the hold
+    assert armed["armed"] and armed["armed_for_s"] == 30.0
+    assert armed["arms_total"] == {"demand": 1}
+    disarmed = json.loads(_get(base + "?disarm")[2])
+    assert disarmed["disarmed"] is True and not disarmed["armed"]
+
+
+def test_burst_mode_off_404s_and_host_stats_off_says_so(serve):
+    from kube_gpu_stats_tpu_torch.hoststats import HostStats
+
+    server = serve(host_provider=HostStats(enabled=False))
+    base = f"http://127.0.0.1:{server.port}"
+    assert _get(base + "/debug/burst")[0] == 404
+    code, _, body = _get(base + "/debug/host")
+    assert code == 200 and json.loads(body) == {"enabled": False}
+
+
+@pytest.mark.parametrize("burst_on", [True, False])
+@pytest.mark.parametrize("host_on", [True, False])
+def test_landing_page_lists_burst_and_host_when_served(serve, burst_on,
+                                                       host_on):
+    burst, host = _burst_and_host()
+    server = serve(trace_provider=Tracer(),
+                   burst_provider=burst if burst_on else None,
+                   host_provider=host if host_on else None)
+    base = f"http://127.0.0.1:{server.port}"
+    links = _links(_get(base + "/")[2])
+    extra = (["/debug/burst"] if burst_on else []) + \
+        (["/debug/host"] if host_on else [])
+    recorder = ["/debug/ticks", "/debug/trace?last=20", "/debug/events"]
+    assert links[5:] == recorder + extra
+    for link in ("/debug/burst", "/debug/host"):
+        served = link in extra
+        assert (_get(base + link)[0] == 200) is served, link
+
+
+def test_the_daemon_serves_burst_and_host_from_its_flags(running):
+    d = running(burst_mode="off", host_stats=False)
+    base = f"http://127.0.0.1:{d.server.port}"
+    assert _get(base + "/debug/burst")[0] == 404
+    assert json.loads(_get(base + "/debug/host")[2]) == {"enabled": False}
+    assert "/debug/host" in _links(_get(base + "/")[2])
+    assert "/debug/burst" not in _links(_get(base + "/")[2])

@@ -489,3 +489,118 @@ def test_python_m_doctor_on_mock_exits_0():
     assert payload["ready"] is True
     poll = next(c for c in payload["checks"] if c["name"] == "poll")
     assert poll["status"] == "ok" and poll["data"]["up"] == 4
+
+
+# -- --host: check_host against the reference on the same payload -------------
+
+_HOST_HEALTHY = {
+    "enabled": True, "read_at": 1234.5,
+    "pressure": {"cpu_some_avg10": 1.0, "memory_full_avg10": 0.0,
+                 "io_some_avg60": 0.5},
+    "throttle_rate": None, "nic_drop_rate": 0.0, "pods": {},
+    "ebpf": {"available": False,
+             "reason": "eBPF toolchain (bcc) not importable"},
+    "errors": {}}
+HOST_PAYLOADS = {
+    "healthy": (200, _HOST_HEALTHY),
+    "hot_pressure": (200, {**_HOST_HEALTHY, "pressure": {
+        "memory_full_avg10": 18.0, "cpu_some_avg10": 6.5,
+        "io_some_avg60": 40.0}}),
+    "throttle_and_drops": (200, {**_HOST_HEALTHY, "throttle_rate": 2.5,
+                                 "nic_drop_rate": 7.0}),
+    "no_psi_with_pods_and_ebpf": (200, {
+        **_HOST_HEALTHY, "pressure": {},
+        "pods": {"uid-a": {"pod": "train-0"}, "uid-b": {}},
+        "ebpf": {"available": True, "reason": ""}}),
+    "parse_errors": (200, {**_HOST_HEALTHY,
+                           "errors": {"hoststats_psi": 3,
+                                      "hoststats_nic_cap": 1}}),
+    "disabled": (200, {"enabled": False}),
+    "not_read_yet": (200, {**_HOST_HEALTHY, "read_at": 0.0}),
+    "needs_auth": (401, None),
+    "not_served": (404, None),
+    "server_error": (500, None),
+    "not_json": (200, "not json"),
+}
+
+
+@pytest.fixture(scope="module")
+def host_server():
+    """A server answering /debug/host with the payload named by the
+    first path segment."""
+    import http.server
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+        def do_GET(self):
+            name = self.path.strip("/").split("/")[0]
+            code, payload = HOST_PAYLOADS[name]
+            body = (payload if isinstance(payload, str)
+                    else json.dumps(payload)).encode()
+            self.send_response(code)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    yield f"http://127.0.0.1:{server.server_address[1]}"
+    server.shutdown()
+    server.server_close()
+
+
+@pytest.mark.parametrize("name", HOST_PAYLOADS)
+def test_check_host_equals_the_reference(host_server, name):
+    base = f"{host_server}/{name}"
+    got = doctor.check_host(base)
+    assert _row(got) == _row(ref_doctor.check_host(base))
+    want_status = {"healthy": "ok", "no_psi_with_pods_and_ebpf": "ok",
+                   "server_error": "fail", "not_json": "fail"}
+    assert got.status == want_status.get(name, "warn")
+
+
+def test_check_host_of_an_unreachable_daemon_fails_as_the_reference():
+    port = _free_port()
+    base = f"http://127.0.0.1:{port}"
+    got = doctor.check_host(base)
+    assert _row(got) == _row(ref_doctor.check_host(base))
+    assert got.status == "fail"
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def test_doctor_host_reads_a_running_daemon(capsys):
+    from kube_gpu_stats_tpu_torch.config import Config
+
+    cfg = Config(backend="mock", mock_devices=1, interval=0.05,
+                 listen_host="127.0.0.1", listen_port=0, attribution="off",
+                 device_processes="off")
+    instance = daemon.Daemon(cfg)
+    instance.start()
+    try:
+        assert instance.registry.wait_for_publish(1, timeout=5)
+        url = f"http://127.0.0.1:{instance.server.port}/metrics"
+        rc = doctor.main(["--backend", "mock", "--json", "--host",
+                          "--url", url])
+    finally:
+        instance.stop()
+    payload = json.loads(capsys.readouterr().out)
+    rows = {row["name"]: row for row in payload["checks"]}
+    assert rc == 0
+    assert rows["host"]["status"] in ("ok", "warn")
+    assert rows["host"]["data"]["host"]["enabled"] is True
+
+
+def test_doctor_energy_still_exits_2(capsys):
+    assert doctor.main(["--backend", "mock", "--energy"]) == 2
+    assert "doctor --energy: not ported yet" in capsys.readouterr().err
+    assert "--host" not in doctor.NOT_PORTED_FLAGS

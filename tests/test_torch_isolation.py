@@ -55,7 +55,8 @@ def test_importing_the_port_loads_no_jax():
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     for module in ("loadgen.tiled_burn", "loadgen.mesh", "loadgen.ici_burn",
-                   "validate", "testing.ranks", "doctor", "profiler"):
+                   "validate", "testing.ranks", "doctor", "profiler",
+                   "hoststats", "burstsampler"):
         assert f"kube_gpu_stats_tpu_torch.{module}" in report["imported"]
     assert [m for m in report["loaded"] if _forbidden(m)] == []
 
@@ -80,8 +81,10 @@ _IMPORT_DAEMON_PATH = """
 import json, sys
 import kube_gpu_stats_tpu_torch.cli
 import kube_gpu_stats_tpu_torch.collectors.nvml
+import kube_gpu_stats_tpu_torch.burstsampler
 import kube_gpu_stats_tpu_torch.daemon
 import kube_gpu_stats_tpu_torch.doctor
+import kube_gpu_stats_tpu_torch.hoststats
 import kube_gpu_stats_tpu_torch.profiler
 import kube_gpu_stats_tpu_torch.testing.fake_nvml
 print(json.dumps(sorted(sys.modules)))
@@ -104,6 +107,35 @@ try:
 finally:
     server.stop()
 print(json.dumps({"rc": rc, "loaded": sorted(sys.modules)}))
+"""
+
+
+# The daemon on the mock backend with the burst sampler armed and host
+# signals on: a few ticks fold both, and /debug/burst and /debug/host
+# answer.
+_RUN_DAEMON_NODE_FEATURES = """
+import json, sys, time, urllib.request
+from kube_gpu_stats_tpu_torch import config, daemon
+cfg = config.from_args(["--backend", "mock", "--mock-devices", "1",
+                        "--listen-host", "127.0.0.1", "--listen-port", "0",
+                        "--interval", "0.1", "--attribution", "off"])
+d = daemon.Daemon(cfg)
+d.start()
+try:
+    base = f"http://127.0.0.1:{d.server.port}"
+    urllib.request.urlopen(base + "/debug/burst?arm=5").read()
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline:
+        text = d.registry.rendered()[0].decode()
+        if "kts_power_burst_samples_total" in text and "kts_host_" in text:
+            break
+        time.sleep(0.05)
+    host = json.loads(urllib.request.urlopen(base + "/debug/host").read())
+finally:
+    d.stop()
+print(json.dumps({"burst": "kts_power_burst_samples_total" in text,
+                  "host": "kts_host_" in text, "enabled": host["enabled"],
+                  "loaded": sorted(sys.modules)}))
 """
 
 
@@ -130,4 +162,14 @@ def test_a_doctor_pass_imports_no_torch():
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["rc"] == 0
+    assert _no_torch(report["loaded"]) == []
+
+
+def test_the_burst_sampler_and_host_signals_import_no_torch():
+    proc = subprocess.run([sys.executable, "-c", _RUN_DAEMON_NODE_FEATURES],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["burst"] and report["host"] and report["enabled"]
     assert _no_torch(report["loaded"]) == []

@@ -129,7 +129,7 @@ def test_every_reading_failing_raises():
 def test_lost_card_serves_up_0_and_the_other_card_stays_up():
     fake = FakeNvml(_devices(2))
     loop = PollLoop(NvmlCollector(fake), Registry(), deadline=30.0,
-                    clock=Clock())
+                    clock=Clock(), pipeline_fetch=False)
     try:
         loop.tick()
         fake.devices[1].lost = True
@@ -187,7 +187,7 @@ def test_nvlink_links_become_counters_with_rates_from_the_second_tick():
     fake = FakeNvml([dev])
     clock = Clock()
     loop = PollLoop(NvmlCollector(fake), Registry(), deadline=30.0,
-                    clock=clock)
+                    clock=clock, pipeline_fetch=False)
     bw = schema.ICI_BANDWIDTH.name
     traffic = schema.ICI_TRAFFIC_TOTAL.name
     try:
@@ -305,8 +305,10 @@ def test_per_device_series_render_identically_to_the_reference(seed):
     ref_registry, port_registry = RefRegistry(native=False), Registry()
     ref = RefPollLoop(_RefScripted(seed), ref_registry, clock=clocks[0],
                       **common)
+    # Blocking, as the reference's generic loop: each tick serves its own
+    # reads (tests/test_torch_pipeline.py holds the pipelined tick).
     port = PollLoop(NvmlCollector(fake), port_registry, clock=clocks[1],
-                    **common)
+                    pipeline_fetch=False, **common)
     seen = set()
     try:
         for tick in range(1, TICKS + 1):
@@ -339,6 +341,60 @@ def test_memory_used_leaves_out_the_drivers_reservation():
     values = collector.sample(device).values
     assert values[schema.MEMORY_USED.name] == 2425 * 1024**2
     assert values[schema.MEMORY_TOTAL.name] == dev.memory_total
+
+
+class _CountingLibrary:
+    """Stands in for libnvidia-ml: each call takes 5 ms and counts how
+    many run at once."""
+
+    def __init__(self):
+        import threading
+
+        self._lock = threading.Lock()
+        self.running = self.most = self.calls = 0
+
+    def _call(self, *args):
+        import time
+
+        with self._lock:
+            self.running += 1
+            self.calls += 1
+            self.most = max(self.most, self.running)
+        time.sleep(0.005)
+        with self._lock:
+            self.running -= 1
+        return binding.NVML_SUCCESS
+
+    nvmlDeviceGetFieldValues = nvmlDeviceGetPowerUsage = _call
+    nvmlDeviceGetMemoryInfo_v2 = _call
+
+
+def test_nvml_calls_run_one_at_a_time():
+    """The burst sampler's one-field read and the poll loop's reads come
+    from different threads; the binding makes them one at a time."""
+    import threading
+
+    library = _CountingLibrary()
+    nvml = Nvml()
+    nvml._lib = library
+    links = [(binding.NVML_FI_DEV_NVLINK_THROUGHPUT_DATA_TX, link)
+             for link in range(18)]
+    calls = [lambda: nvml.field_values(0, links),
+             lambda: nvml.field_values(
+                 0, [(binding.NVML_FI_DEV_POWER_INSTANT, 0)]),
+             lambda: nvml.power_mw(0), lambda: nvml.memory(0)]
+
+    def run(call):
+        for _ in range(10):
+            call()
+
+    threads = [threading.Thread(target=run, args=(call,)) for call in calls]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join(timeout=30)
+    assert library.calls == 40
+    assert library.most == 1
 
 
 def test_memory_v2_struct_and_version():
@@ -430,6 +486,31 @@ def test_gpm_on_a_lost_card_raises():
         collector.sample(device)
 
 
+def test_rediscovery_waits_for_a_gpm_read_in_flight():
+    """A pipelined read may still fill the card's GPM buffers when the
+    loop rediscovers: they are freed when that read lets go, not under
+    it."""
+    import threading
+    import time
+
+    dev = _gpm_card()
+    fake = FakeNvml([dev])
+    collector = NvmlCollector(fake)
+    (device,) = collector.discover()
+    collector.sample(device)  # opens GPM: one sample_get
+    dev.stalls["gpm_sample_get"] = (0.3, dev.calls["gpm_sample_get"] + 1)
+    reader = threading.Thread(target=collector.read_environment,
+                              args=(device,))
+    reader.start()
+    time.sleep(0.1)
+    collector.discover()
+    assert fake.gpm_freed == 0  # the read still holds them
+    reader.join(timeout=5)
+    assert not reader.is_alive()
+    assert fake.gpm_freed == 2 and fake.gpm_samples == {}
+    collector.close()
+
+
 def test_rediscovery_frees_and_reopens_gpm():
     fake = FakeNvml([_gpm_card()])
     collector = NvmlCollector(fake)
@@ -441,6 +522,31 @@ def test_rediscovery_frees_and_reopens_gpm():
     assert schema.TENSORCORE_UTIL.name in collector.sample(device).values
     collector.close()
     assert fake.gpm_freed == 4
+
+
+def test_rediscovery_keeps_a_cards_no_gpm_verdict():
+    """A card whose GPM was refused is not probed again when rediscovery
+    finds the same card at its index; another card there is."""
+    dev = _gpm_card()
+    dev.errors["gpm_sample_get"] = binding.NVML_ERROR_UNKNOWN
+    fake = FakeNvml([dev])
+    collector = NvmlCollector(fake)
+    (device,) = collector.discover()
+    collector.sample(device)
+    (device,) = collector.discover()
+    for _ in range(2):
+        values = collector.sample(device).values
+    assert dev.calls["gpm_sample_get"] == 1
+    assert schema.TENSORCORE_UTIL.name not in values
+    assert collector.gpm_state == {"0": "NVML error 999: Unknown Error"}
+    fake.devices[0] = _gpm_card()
+    fake.devices[0].uuid = "GPU-b"
+    (device,) = collector.discover()
+    collector.sample(device)
+    assert fake.devices[0].calls["gpm_sample_get"] == 1
+    assert collector.gpm_state == {"0": "on"}
+    collector.close()
+    assert fake.gpm_samples == {}
 
 
 def test_gpm_structs_as_the_header_lays_them_out():

@@ -391,7 +391,10 @@ def _nvml_gpm_ticks(n):
                      tensor_util=61.5, dram_bw_util=33.25,
                      nvlink_kib={0: (10, 20)})
     reg = Registry()
-    loop = PollLoop(NvmlCollector(FakeNvml([dev])), reg, deadline=5.0)
+    # Blocking: each tick serves its own reads, so GPM shows from the
+    # second tick.
+    loop = PollLoop(NvmlCollector(FakeNvml([dev])), reg, deadline=5.0,
+                    pipeline_fetch=False)
     texts = []
     try:
         for tick in range(n):
