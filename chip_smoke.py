@@ -88,11 +88,29 @@ prints its result line after one):
    the mean within 15% of ``nvidia-smi``'s instantaneous draw, disarmed
    after the hold (where the card refuses the field: no samples, and the
    reason in the status);
+8e. ``energy``: a kubelet device-plugin checkpoint that gives card 0 to
+   one pod; the daemon at 10 Hz with ``--attribution checkpoint
+   --burst-mode continuous --burst-hz 100`` and a write-ahead energy
+   checkpoint every second signed with a random audit key, under the
+   ``cuda`` burn pulsed 100 ms on and off for ENERGY_SECONDS: the pod's
+   ``kts_energy_pod_joules_total`` and ``accelerator_energy_joules_total``
+   over the window each within ENERGY_PHASE_TOL of NVML's energy counter
+   read at the same moments, ``kts_energy_coverage_ratio`` at
+   ENERGY_COVERAGE_MIN or more, checkpoint writes, every scrape through
+   ``validate.check``; SIGTERM (its forced final checkpoint) and a second
+   daemon on the same checkpoint whose first scrape serves a pod total no
+   lower than the first daemon's last; ``doctor --energy`` OK with the key
+   and FAIL with a wrong one, ``doctor --stores`` with the ``energy``
+   store healthy;
 9. time the kernel, its plain version and one library call
    (``torch.mm`` with f32 out) at the main path's and the sweep's sizes,
    each as the median of batches of back-to-back calls;
-10. one JSON line describing every kernel of the path; last, the ``ok``
-    line with the device.
+10. one JSON line describing every kernel of the path;
+11. every process the run started has ended: the smoke adopts its
+    descendants' orphans (``PR_SET_CHILD_SUBREAPER``), stops
+    multiprocessing's resource tracker, reaps what has exited and fails
+    on (and stops) any that still runs; last, the ``ok`` line with the
+    device.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -101,6 +119,7 @@ from __future__ import annotations
 
 import base64
 import collections
+import ctypes
 import gzip
 import hashlib
 import json
@@ -124,7 +143,7 @@ import urllib.request
 import torch
 
 from kube_gpu_stats_tpu_torch import (_build, config, daemon, doctor, embedded,
-                                      schema, validate)
+                                      schema, validate, wal)
 from kube_gpu_stats_tpu_torch.kinds import _kind_lookup, _kind_peak_flops
 from kube_gpu_stats_tpu_torch.entry import dryrun_multichip, entry
 from kube_gpu_stats_tpu_torch.loadgen import tiled_burn
@@ -134,7 +153,8 @@ from kube_gpu_stats_tpu_torch.loadgen.burn import (make_all_device_burn,
 from kube_gpu_stats_tpu_torch.loadgen.tiled_burn import (
     tiled_all_device_burn, tiled_matmul, tiled_matmul_reference)
 from kube_gpu_stats_tpu_torch.loadgen.ici_burn import run_ici_burn
-from kube_gpu_stats_tpu_torch.loadgen.mesh import run_ranks
+from kube_gpu_stats_tpu_torch.loadgen.mesh import (run_ranks,
+                                                   stop_resource_tracker)
 from kube_gpu_stats_tpu_torch.native import nvml as nvml_binding
 from kube_gpu_stats_tpu_torch.testing import ranks
 
@@ -236,6 +256,20 @@ BURST_RATE_MIN = 0.8
 BURST_SPREAD_X_IDLE = 3.0
 BURST_SPREAD_MIN_W = 100.0
 BURST_MEAN_TOL = 0.15
+# The energy phase: the daemon at ENERGY_INTERVAL_S with the sampler
+# continuous at BURST_HZ and a checkpoint every ENERGY_CKPT_INTERVAL_S;
+# ENERGY_LEAD_S of burn before the window of ENERGY_SECONDS opens; the
+# joules over the window within ENERGY_PHASE_TOL of NVML's counter; the
+# burst share of the integrated time at least ENERGY_COVERAGE_MIN; the
+# checkpoint's write timed ENERGY_FSYNC_WRITES times in this process.
+ENERGY_INTERVAL_S = 0.1
+ENERGY_CKPT_INTERVAL_S = 1.0
+ENERGY_LEAD_S = 2.0
+ENERGY_SECONDS = 8.0
+ENERGY_PHASE_TOL = 0.10
+ENERGY_COVERAGE_MIN = 0.8
+ENERGY_FSYNC_WRITES = 20
+ENERGY_POD_UID = "0c1d2e3f-4a5b-6c7d-8e9f-a0b1c2d3e4f5"
 MIB = 1024**2
 ROOT = pathlib.Path(__file__).resolve().parent
 KERNEL_NAME = "tiled_gemm_bf16_f32"
@@ -1519,15 +1553,19 @@ class DaemonWatcher:
     ``accelerator_up`` by UUID, card 0's ``kts_power_burst_*`` (samples,
     min/mean/max of the tick's fold, armed) and when it was first seen;
     every TRACE_EVERY_S and at the end, the recorder's last 128 ticks
-    (``trace_ticks``, merged by seq). A daemon that exits meanwhile fails
-    the block, its whole log printed first."""
+    (``trace_ticks``, merged by seq). With ``conform`` every scrape goes
+    through ``validate.check`` against the one before it. A daemon that
+    exits meanwhile fails the block, its whole log printed first."""
 
     TRACE_EVERY_S = 6.0
     GAP_S = 0.03
 
-    def __init__(self, proc: subprocess.Popen, port: int, log: list
-                 ) -> None:
+    def __init__(self, proc: subprocess.Popen, port: int, log: list,
+                 conform: bool = False) -> None:
         self.proc, self.port, self.log = proc, port, log
+        self.conform = conform
+        self.scrapes = 0
+        self._previous: str | None = None
         self.ups: dict[int, dict[str, float]] = {}
         self.burst: dict[int, dict] = {}
         self.seen_at: dict[int, float] = {}
@@ -1560,6 +1598,10 @@ class DaemonWatcher:
 
     def _observe(self, text: str) -> None:
         at = time.monotonic()
+        if self.conform:
+            conforms(text, self._previous, f"scrape {self.scrapes + 1}")
+            self._previous = text
+        self.scrapes += 1
         series = validate.parse_exposition(text)
         tick = int(poll_count(series))
         if tick in self.ups:
@@ -1926,10 +1968,11 @@ def c5_run(pipelined: bool, uuid: str) -> tuple[tuple, dict]:
         "unfenced": unfenced}
 
 
-def phase_c5(card_line: str) -> int:
+def phase_c5(card_line: str) -> tuple[int, dict]:
     """C5, the repair: a stalled NVML read must not serve a healthy card
     as down when the daemon pipelines; the same run with
-    ``--no-pipeline-fetch`` beside it. Returns the kernel launches."""
+    ``--no-pipeline-fetch`` beside it. Returns the kernel launches and
+    the pipelined run's tick p50/max."""
     uuid = "GPU-" + str(torch.cuda.get_device_properties(0).uuid)
     (inputs, pipelined), (_, blocking) = (c5_run(True, uuid),
                                           c5_run(False, uuid))
@@ -1945,7 +1988,8 @@ def phase_c5(card_line: str) -> int:
         require(run["observed_ticks"] >= 0.9 * run["ticks"]
                 and run["ticks"] >= 0.9 * C5_SECONDS / C5_INTERVAL_S,
                 f"{run['observed_ticks']} of {run['ticks']} ticks observed")
-    return sum(run["burn"]["launches"] for run in runs)
+    return (sum(run["burn"]["launches"] for run in runs),
+            pipelined["tick_ms"])
 
 
 class PowerSampler:
@@ -2177,6 +2221,220 @@ def phase_burst(card_line: str) -> int:
     return launches
 
 
+def kubelet_checkpoint(path: str, uuid: str, pod_uid: str) -> None:
+    """The kubelet's device-plugin checkpoint that gives the card
+    ``uuid`` to the pod ``pod_uid`` (``attribution/checkpoint.py``'s
+    format, NUMA-keyed as kubelets since 1.20 write it)."""
+    with open(path, "w", encoding="utf-8") as handle:
+        json.dump({"Data": {"PodDeviceEntries": [
+            {"PodUID": pod_uid, "ContainerName": "trainer",
+             "ResourceName": "nvidia.com/gpu",
+             "DeviceIDs": {"0": [uuid]}}],
+            "RegisteredDevices": {"nvidia.com/gpu": [uuid]}},
+            "Checksum": 0}, handle)
+
+
+def energy_reading(port: int, nvml, handle: int, uuid: str) -> dict:
+    """The first scrape of the next published tick and NVML's energy
+    counter read right after it: the pod's joules, the card's
+    ``accelerator_energy_joules_total``, coverage, checkpoint writes."""
+    text, series = fresh_scrape(
+        port, poll_count(validate.parse_exposition(scrape(port))))
+    mj = nvml.energy_mj(handle)
+    pod = [value for family, labels, value in series
+           if family == schema.ENERGY_POD.name
+           and labels.get("pod") == ENERGY_POD_UID]
+    card = card_series(series, uuid)
+    require(len(pod) == 1, f"{len(pod)} pod energy series for "
+                           f"{ENERGY_POD_UID}")
+    require(schema.ENERGY.name in card, "no accelerator_energy_joules_total")
+    return {"text": text, "tick": poll_count(series), "nvml_j": mj / 1e3,
+            "pod_j": pod[0], "card_j": card[schema.ENERGY.name][1],
+            "coverage": one(series, schema.ENERGY_COVERAGE.name),
+            "writes": one(series, schema.ENERGY_CHECKPOINT_WRITES.name)}
+
+
+def checkpoint_write_ms(state_path: str) -> dict:
+    """The checkpoint's write (``.wal`` + fsync + rename) in this
+    process, ENERGY_FSYNC_WRITES times, beside the daemon's file."""
+    with open(state_path, encoding="utf-8") as handle:
+        state = json.load(handle)
+    path = os.path.join(os.path.dirname(state_path), "fsync-probe.json")
+    health = wal.StoreHealth("fsync-probe")
+    times = []
+    for _ in range(ENERGY_FSYNC_WRITES):
+        t0 = time.perf_counter()
+        require(wal.write_state(path, state, label="fsync-probe",
+                                health=health), "checkpoint write failed")
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"median_ms": statistics.median(times), "max_ms": max(times),
+            "writes": len(times), "bytes": os.path.getsize(path)}
+
+
+def run_doctor(port: int, *flags: str) -> tuple[int, dict]:
+    """``doctor`` against the daemon on ``port``: exit code, rows."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "kube_gpu_stats_tpu_torch", "doctor",
+         "--backend", "nvml", "--attribution", "off", "--json", "--url",
+         f"http://127.0.0.1:{port}/metrics", *flags],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    payload = json.loads(proc.stdout)
+    return proc.returncode, {row["name"]: row for row in payload["checks"]}
+
+
+def phase_energy(card_line: str, c5_tick_ms: dict) -> int:
+    """The energy accountant on card 0, owned by one pod through the
+    kubelet's checkpoint file: per-pod joules and the card's energy
+    counter held against NVML's over a pulsed burn, the checkpoint
+    across a SIGTERM restart, the signed digest through the doctor.
+    Returns the kernel launches."""
+    uuid = "GPU-" + str(torch.cuda.get_device_properties(0).uuid)
+    workdir = tempfile.mkdtemp(prefix="kts-energy-")
+    attribution = os.path.join(workdir, "kubelet_internal_checkpoint")
+    kubelet_checkpoint(attribution, uuid, ENERGY_POD_UID)
+    state_path = os.path.join(workdir, "energy.json")
+    key = base64.b16encode(os.urandom(16)).decode()
+    flags = ("--interval", str(ENERGY_INTERVAL_S), "--textfile-dir", "",
+             "--attribution", "checkpoint", "--checkpoint-path", attribution,
+             "--burst-mode", "continuous", "--burst-hz", str(BURST_HZ),
+             "--energy-checkpoint", state_path,
+             "--energy-checkpoint-interval", str(ENERGY_CKPT_INTERVAL_S),
+             "--energy-audit-key", key)
+    nvml = nvml_binding.Nvml()
+    nvml.init()
+    try:
+        handle = next(h for h in (nvml.handle(i)
+                                  for i in range(nvml.device_count()))
+                      if nvml.uuid(h) == uuid)
+        proc, port, log = start_daemon(workdir, flags)
+        out: dict = {}
+        failure: list = []
+        try:
+            # The pod owns the card once the attribution's first refresh
+            # has landed.
+            deadline = time.monotonic() + 30
+            while True:
+                text = scrape(port)
+                if f'pod="{ENERGY_POD_UID}"' in text:
+                    break
+                require(time.monotonic() < deadline,
+                        "the pod's energy series never appeared")
+                time.sleep(0.1)
+            with DaemonWatcher(proc, port, log, conform=True) as watch:
+
+                def reader() -> None:
+                    try:
+                        time.sleep(ENERGY_LEAD_S)
+                        out["start"] = energy_reading(port, nvml, handle,
+                                                      uuid)
+                        time.sleep(ENERGY_SECONDS)
+                        out["end"] = energy_reading(port, nvml, handle,
+                                                    uuid)
+                    except Exception as exc:  # noqa: BLE001 - re-raised
+                        failure.append(exc)
+
+                thread = threading.Thread(target=reader, daemon=True)
+                tiled_burn.launches = 0
+                thread.start()
+                steps = chunks = 0
+                while thread.is_alive():
+                    chunks += 1
+                    steps += run_burn(seconds=BURST_CHUNK_S, size=MAIN_SIZE,
+                                      report_every=1e9, kernel="cuda",
+                                      pulse_ms=BURST_PULSE_MS,
+                                      device="cuda:0")
+                    require(chunks * BURST_CHUNK_S < 120,
+                            "the energy window did not close in 120 s")
+                launches = tiled_burn.launches
+                thread.join(timeout=30)
+            require(not failure, f"the energy phase failed: {failure}")
+            window = (int(out["start"]["tick"]) + 1, int(out["end"]["tick"]))
+            tick_ms = window_p50(watch.traced, *window)["tick"]
+            conforms(out["end"]["text"], out["start"]["text"],
+                     "the energy window's last scrape")
+            last = energy_reading(port, nvml, handle, uuid)
+        finally:
+            rc = stop_daemon(proc)
+        require(rc == 0, f"the energy daemon exited {rc}: {log[-20:]}")
+        require(launches == steps + chunks,
+                f"{launches} launches for {steps} steps in {chunks} chunks")
+        saved = json.loads(pathlib.Path(state_path).read_text())
+        saved_j = {(pod, ns): joules for pod, ns, joules
+                   in saved["per_pod"]}.get((ENERGY_POD_UID, ""), 0.0)
+        # The restart: a second daemon on the same checkpoint.
+        proc, port, log = start_daemon(workdir, flags)
+        try:
+            # Its first published tick serves the replayed totals.
+            _, series = fresh_scrape(port, 0.0)
+            first = {"pod_j": sum(
+                value for family, labels, value in series
+                if family == schema.ENERGY_POD.name
+                and labels.get("pod") == ENERGY_POD_UID)}
+            rc_ok, rows_ok = run_doctor(port, "--energy",
+                                        "--energy-audit-key", key)
+            rc_bad, rows_bad = run_doctor(port, "--energy",
+                                          "--energy-audit-key", key + "0")
+            rc_stores, rows_stores = run_doctor(port, "--stores")
+            require(proc.poll() is None,
+                    f"the restarted daemon exited: {log[-40:]}")
+        finally:
+            rc2 = stop_daemon(proc)
+        require(rc2 == 0, f"the restarted daemon exited {rc2}: {log[-20:]}")
+    finally:
+        nvml.shutdown()
+    start, end = out["start"], out["end"]
+    nvml_j = end["nvml_j"] - start["nvml_j"]
+    pod_j = end["pod_j"] - start["pod_j"]
+    card_j = end["card_j"] - start["card_j"]
+    stores = rows_stores["stores"]["data"]["stores"]["stores"]
+    row = {
+        "card": card_line, "seconds": ENERGY_SECONDS,
+        "interval_s": ENERGY_INTERVAL_S, "burst_hz": BURST_HZ,
+        "pulse_ms": BURST_PULSE_MS,
+        "joules": {"nvml": nvml_j, "pod": pod_j, "card": card_j,
+                   "pod_err": pod_j / nvml_j - 1.0,
+                   "card_err": card_j / nvml_j - 1.0},
+        "mean_w": nvml_j / ENERGY_SECONDS,
+        "coverage": end["coverage"],
+        "checkpoint": {"writes": last["writes"],
+                       "write_ms": checkpoint_write_ms(state_path)},
+        "tick_ms": tick_ms, "window_ticks": window,
+        "c5_pipelined_tick_ms": c5_tick_ms,
+        "scrapes_validated": watch.scrapes,
+        "restart": {"last_pod_j": last["pod_j"], "saved_pod_j": saved_j,
+                    "first_pod_j": first["pod_j"],
+                    "monotone": first["pod_j"] >= last["pod_j"]},
+        "doctor": {
+            "energy": [rc_ok, rows_ok["energy"]["status"],
+                       rows_ok["energy"]["detail"]],
+            "energy_wrong_key": [rc_bad, rows_bad["energy"]["status"]],
+            "stores": [rc_stores, rows_stores["stores"]["status"],
+                       stores.get("energy", {}).get("state")]},
+        "burn": {"steps": steps, "chunks": chunks, "launches": launches}}
+    emit("energy", row)
+    for name in ("pod_err", "card_err"):
+        require(abs(row["joules"][name]) <= ENERGY_PHASE_TOL,
+                f"energy {name} {row['joules'][name]:+.2%} against NVML's "
+                f"counter ({row['joules']})")
+    require(end["coverage"] >= ENERGY_COVERAGE_MIN,
+            f"coverage {end['coverage']:.3f}")
+    require(last["writes"] > 0, "no energy checkpoint written")
+    # The checkpoint keeps joules to 6 decimals (the reference's format).
+    require(saved_j >= round(last["pod_j"], 6),
+            f"the final checkpoint holds {saved_j} J, below the last "
+            f"scrape's {last['pod_j']} J")
+    require(row["restart"]["monotone"],
+            f"the pod total fell across the restart: {row['restart']}")
+    require(rc_ok == 0 and rows_ok["energy"]["status"] == "ok",
+            f"doctor --energy with the key: {rc_ok} {rows_ok['energy']}")
+    require(rc_bad != 0 and rows_bad["energy"]["status"] == "fail",
+            f"doctor --energy with a wrong key: {rc_bad} "
+            f"{rows_bad['energy']}")
+    require(rc_stores == 0 and stores.get("energy", {}).get("state")
+            == "healthy", f"doctor --stores: {rc_stores} {stores}")
+    return launches
+
+
 def library_call():
     """The yardstick: one PyTorch call computing the same function. Returns
     (name, fn(a, b))."""
@@ -2229,10 +2487,69 @@ def phase_timing(card: str) -> dict:
     return at_main
 
 
+# prctl(2): orphaned descendants are re-parented to this process.
+PR_SET_CHILD_SUBREAPER = 36
+STOP_GRACE_S = 5.0
+
+
+def adopt_orphans() -> None:
+    """Make this process the reaper of its descendants' orphans, so that
+    ``stop_children`` sees every process the run started, however deep."""
+    libc = ctypes.CDLL(None, use_errno=True)
+    require(libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) == 0,
+            f"prctl(PR_SET_CHILD_SUBREAPER): errno {ctypes.get_errno()}")
+
+
+def stop_children() -> list[str]:
+    """Stop multiprocessing's resource tracker, reap every child that has
+    exited, and stop (SIGTERM, then SIGKILL) and reap every one still
+    running. Returns the live ones' pid and command line."""
+    stop_resource_tracker()
+    live, me = [], os.getpid()
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            fields = pathlib.Path(f"/proc/{entry}/stat").read_text(
+                ).rsplit(")", 1)[1].split()
+            cmd = pathlib.Path(f"/proc/{entry}/cmdline").read_bytes(
+                ).replace(b"\0", b" ").decode(errors="replace")
+        except OSError:  # it ended meanwhile
+            continue
+        if int(fields[1]) != me:
+            continue
+        pid = int(entry)
+        if fields[0] != "Z":
+            live.append(f"{pid}: {cmd}")
+            os.kill(pid, signal.SIGTERM)
+        deadline = time.monotonic() + STOP_GRACE_S
+        while os.waitpid(pid, os.WNOHANG) == (0, 0):
+            if time.monotonic() > deadline:
+                os.kill(pid, signal.SIGKILL)
+                os.waitpid(pid, 0)
+                break
+            time.sleep(0.05)
+    return live
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    adopt_orphans()
+    try:
+        phases()
+    finally:
+        live = stop_children()
+    require(not live, f"processes still running after the last phase: "
+                      f"{live}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def phases() -> None:
     card = phase_card()
     phase_build()
     max_abs_err = phase_correctness()
@@ -2244,8 +2561,10 @@ def main() -> int:
     launches += embedded_launches
     launches += phase_daemon(card, embedded_paths)
     launches += phase_doctor(card)
-    launches += phase_c5(card)
+    c5_launches, c5_tick_ms = phase_c5(card)
+    launches += c5_launches
     launches += phase_burst(card)
+    launches += phase_energy(card, c5_tick_ms)
     t = phase_timing(card)
     emit("kernels", [{
         "name": KERNEL_NAME, "route": "cuda", "source": KERNEL_SOURCE,
@@ -2254,10 +2573,6 @@ def main() -> int:
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"], "design": KERNEL_DESIGN,
         "bound_share": t["bound_share"]}])
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

@@ -19,9 +19,10 @@ a process group of one rank per card); the exposition-contract validator
 recorder's read side and event journal (``tracing.py``), the server's
 ``/debug/*`` endpoints, TLS/mTLS and basic auth; the daemon's pipelined
 sampling, host signals (``hoststats.py``) and sub-tick power burst
-sampler (``burstsampler.py``); and the entry points (``entry.py``). The
-energy accountant, the hub and top come in later slices. The daemon and
-doctor paths import no torch.
+sampler (``burstsampler.py``); the per-pod energy accountant
+(``energy.py``) on the write-ahead stores (``wal.py``); the H100 deploy
+assets (``deploy/``); and the entry points (``entry.py``). The hub and
+top come in later slices. The daemon and doctor paths import no torch.
 
 Layer map:
 
@@ -29,7 +30,7 @@ Layer map:
                       loadgen, validate and doctor subcommands
     doctor.py         node preflight: nvml, attribution, topology, poll,
                       --url scrape and live breakers, --trace post-mortem,
-                      --host summary
+                      --host summary, --energy digest, --stores health
     daemon.py         Daemon: backend choice, watchers, supervisor, server
     config.py         its flags and KTS_* environment
     collectors/nvml.py  NvmlCollector over native/nvml.py (ctypes NVML)
@@ -58,11 +59,13 @@ Layer map:
                       pipelined rounds, tick plans
     hoststats.py      PSI, IRQ, NIC, thermal and pod-cgroup signals
     burstsampler.py   the sub-tick power ring behind kts_power_burst_*
+    energy.py         per-pod joules, their checkpoint, the signed digest
+    wal.py            write-ahead state files, segment rings, store health
     registry.py       snapshots, their Prometheus/OpenMetrics render
     schema.py         the metric families (the reference's, unchanged)
     validate.py       the accelerator_* contract checker and its parsers
     collectors/       the collector trait; workers, resilience,
-                      cardinality, procstats, ici, wal, history, fleetlens,
+                      cardinality, procstats, ici, history, fleetlens,
                       delta, topology, proto: the parts of them the stack uses
     kinds.py          accel_type and the per-kind datasheet tables
     device.py         device resolution and the Hopper probe

@@ -61,6 +61,11 @@ class Config:
     burst_hz: float = 100.0  # sampling rate while armed
     burst_hold: float = 30.0  # seconds a demand/anomaly arm stays armed
     burst_ring: int = 4096  # buffered samples per device
+    energy_checkpoint: str = ""  # path; empty = per-pod joules reset on
+    #                              restart (in-memory only)
+    energy_checkpoint_interval: float = 10.0
+    energy_audit_key: str = ""  # HMAC key signing the /debug/energy
+    #                             digest; empty = unsigned
     host_stats: bool = True
     cgroup_root: str = "/sys/fs/cgroup"  # cgroup v2 mount for per-pod stats
     mock_devices: int = 4
@@ -208,6 +213,24 @@ def build_parser() -> argparse.ArgumentParser:
                    default=int(_env("BURST_RING", "4096")),
                    help="burst samples buffered per device between poll "
                         "ticks (oldest dropped at the cap)")
+    p.add_argument("--energy-checkpoint",
+                   default=_env("ENERGY_CHECKPOINT", ""),
+                   help="path persisting the per-pod joules accumulator "
+                        "(write-ahead + atomic rename) so "
+                        "kts_energy_pod_joules_total is monotone across "
+                        "daemon restarts; empty = in-memory only")
+    p.add_argument("--energy-checkpoint-interval", type=float,
+                   default=float(_env("ENERGY_CHECKPOINT_INTERVAL", "10.0")),
+                   help="minimum seconds between energy checkpoint "
+                        "writes (a final write always lands on clean "
+                        "shutdown)")
+    p.add_argument("--energy-audit-key",
+                   default=_env("ENERGY_AUDIT_KEY", ""),
+                   help="HMAC-SHA256 key signing the /debug/energy "
+                        "governance digest; the same key verifies it "
+                        "via `doctor --energy`. Empty serves the digest "
+                        "unsigned. Prefer the KTS_ENERGY_AUDIT_KEY env "
+                        "var (a flag value is visible in `ps`)")
     p.add_argument("--no-host-stats", action="store_true",
                    default=_env_bool("NO_HOST_STATS"),
                    help="disable the host-signals collector (PSI "
@@ -331,6 +354,8 @@ def from_args(argv: Sequence[str] | None = None) -> Config:
         parser.error("--burst-hold must be > 0 seconds")
     if args.burst_ring < 16:
         parser.error("--burst-ring must be >= 16 samples")
+    if args.energy_checkpoint_interval <= 0:
+        parser.error("--energy-checkpoint-interval must be > 0 seconds")
     if args.interval <= 0:
         parser.error("--interval must be > 0 seconds")
     if args.deadline <= 0:
@@ -382,6 +407,9 @@ def from_args(argv: Sequence[str] | None = None) -> Config:
         burst_hz=args.burst_hz,
         burst_hold=args.burst_hold,
         burst_ring=args.burst_ring,
+        energy_checkpoint=args.energy_checkpoint,
+        energy_checkpoint_interval=args.energy_checkpoint_interval,
+        energy_audit_key=args.energy_audit_key,
         host_stats=not args.no_host_stats,
         cgroup_root=args.cgroup_root,
         mock_devices=args.mock_devices,

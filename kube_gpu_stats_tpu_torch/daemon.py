@@ -13,27 +13,31 @@ userspace beyond the NVML the container runtime injects.
 One flight recorder (``tracing.Tracer``) is shared by the poll loop (span
 recording, plan compiles, the label fence, the pipeline fence), the
 supervisor (breaker and health journal feed), the burst sampler (arm
-events, anomaly auto-arm) and the HTTP server
-(``/debug/ticks|trace|events``). The server takes the TLS, mTLS and
-basic-auth flags, and serves ``/debug/burst`` (while ``--burst-mode`` is
-not off) and ``/debug/host``.
+events, anomaly auto-arm), the WAL stores (disk faults and recoveries)
+and the HTTP server (``/debug/ticks|trace|events``). The server takes
+the TLS, mTLS and basic-auth flags, and serves ``/debug/burst`` (while
+``--burst-mode`` is not off), ``/debug/energy`` (the energy accountant's
+signed digest), ``/debug/stores`` (every disk-backed store's health) and
+``/debug/host``.
 
 Not wired here (the reference's, left for later): push egress
-(Pushgateway, remote write, delta push, spill queue), the energy
-accountant and its ``/debug/energy``, and ``reconfigure``.
+(Pushgateway, remote write, delta push, spill queue) and
+``reconfigure``.
 """
 
 from __future__ import annotations
 
 import logging
 import signal
+import socket
 import threading
 
-from . import __version__, topology
+from . import __version__, topology, wal
 from .collectors import Collector
 from .collectors.mock import MockCollector, NullCollector
 from .burstsampler import BurstSampler
 from .config import Config
+from .energy import DEFAULT_COVER_GAP, EnergyAccountant
 from .exposition import MetricsServer, RenderStats, TextfileWriter
 from .hoststats import HostStats
 from .native.nvml import NvmlError
@@ -167,6 +171,10 @@ class Daemon:
         # endpoints answer "disabled") but makes every recording call a
         # cheap no-op.
         self.tracer = Tracer(enabled=cfg.trace_enabled)
+        # Store-fault journal feed: every WAL-backed store's disk_fault /
+        # store_recovered transitions land in the shared event journal
+        # beside breaker trips and health flips.
+        wal.set_journal(self.tracer)
         self.collector = build_collector(cfg)
         self.attribution = build_attribution(cfg)
         # Crash-only supervisor: liveness/hang detection and restart with
@@ -200,6 +208,22 @@ class Daemon:
                          tracer=self.tracer)
             if cfg.burst_mode != "off"
             else None
+        )
+        # Energy accountant: ALWAYS constructed (an empty
+        # --energy-checkpoint keeps the per-pod joules in memory only). It
+        # persists them across restarts and signs the /debug/energy
+        # digest with --energy-audit-key.
+        self.energy = EnergyAccountant(
+            checkpoint_path=cfg.energy_checkpoint,
+            checkpoint_interval=cfg.energy_checkpoint_interval,
+            audit_key=cfg.energy_audit_key,
+            node=socket.gethostname(),
+            max_gap=10 * cfg.interval,
+            # "Covered by burst samples" follows the configured rate: at
+            # --burst-hz 5 the honest inter-sample gap is 0.2 s, and the
+            # fixed default (0.1 s) would report coverage ~0 while the
+            # trapezoid integration was fully active.
+            cover_gap=max(DEFAULT_COVER_GAP, 4.0 / cfg.burst_hz),
         )
         # Host-signals collector: read once per tick on the poll loop's
         # pool, exported as kts_host_* and served at /debug/host. ALWAYS
@@ -235,6 +259,7 @@ class Daemon:
             heartbeat=self.supervisor.beater("poll"),
             tracer=self.tracer,
             burst_sampler=self.burst,
+            energy=self.energy,
             host_stats=self.hoststats,
             label_value_cap=cfg.label_value_cap,
         )
@@ -259,7 +284,9 @@ class Daemon:
             health_provider=self.supervisor.health_report,
             trace_provider=self.tracer,
             burst_provider=self.burst,
+            energy_provider=self.energy,
             host_provider=self.hoststats,
+            stores_provider=self._stores_payload,
         )
         self.textfile = (
             TextfileWriter(self.registry, cfg.textfile_dir,
@@ -295,6 +322,19 @@ class Daemon:
                 if pod_uid:
                     out.setdefault(pod_uid, (pod, namespace))
         return out
+
+    def _stores_payload(self) -> dict:
+        """/debug/stores: every disk-backed store's durability state
+        machine (which store is degraded, why, what was lost), the
+        accept-loop fd fence, and the supervisor's restarted and
+        storm-latched threads — what ``doctor --stores`` summarizes."""
+        return {
+            "enabled": True,
+            "role": "daemon",
+            "stores": wal.store_report(),
+            "accept_fence": self.server.accept_fence_status(),
+            "threads": self.supervisor.restart_report(),
+        }
 
     def _attribution_breakers(self):
         """The attribution source's kubelet breaker, once it exists."""
@@ -362,6 +402,9 @@ class Daemon:
         if self.burst is not None:
             self.burst.stop()
         self.poll.stop()
+        # Final forced checkpoint: the last partial interval of per-pod
+        # joules must survive a clean pod reschedule.
+        self.energy.checkpoint(force=True)
         if self.procwatch:
             self.procwatch.stop()
         if self.textfile:

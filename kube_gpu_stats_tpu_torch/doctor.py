@@ -22,10 +22,21 @@ Accepts the exporter's own flags (the same config surface) plus:
                  summarize the host side: PSI pressure, CPU thermal
                  throttle, NIC drops, pod cgroups, eBPF availability.
                  Same server as --trace
+  --energy       pull the RUNNING daemon's /debug/energy governance
+                 digest (per-pod joules + burst coverage) and verify its
+                 HMAC-SHA256 signature with the locally configured
+                 --energy-audit-key. FAIL on a tampered/mismatched
+                 digest, WARN when either side runs unsigned. Same
+                 server as --trace
+  --stores       pull the RUNNING daemon's /debug/stores and summarize
+                 every disk-backed store's durability state (degraded
+                 stores with reason/errno, records that lost
+                 durability), the accept loop's fd fence and the
+                 supervisor's thread restarts. Same server as --trace
 
-The reference's --fleet, --efficiency, --at, --energy, --egress,
---stores, --cardinality and --skew read modules the port has not ported
-yet; each exits 2 and says so.
+The reference's --fleet, --efficiency, --at, --egress, --cardinality and
+--skew read modules the port has not ported yet; each exits 2 and says
+so.
 
 Exit code: 0 = no failures (warns allowed), 1 = at least one failure,
 2 = usage error. Every probe is time-bounded; the doctor never hangs on a
@@ -47,8 +58,8 @@ OK, WARN, FAIL, SKIP = "ok", "warn", "fail", "skip"
 _ORDER = {FAIL: 0, WARN: 1, OK: 2, SKIP: 3}
 
 # The reference's doctor flags whose rows read modules not ported yet.
-NOT_PORTED_FLAGS = ("--fleet", "--efficiency", "--at", "--energy",
-                    "--egress", "--stores", "--cardinality", "--skew")
+NOT_PORTED_FLAGS = ("--fleet", "--efficiency", "--at", "--egress",
+                    "--cardinality", "--skew")
 
 
 @dataclasses.dataclass
@@ -496,6 +507,169 @@ def check_host(base: str) -> CheckResult:
                    data={"host": payload})
 
 
+def check_energy(base: str, audit_key: str) -> CheckResult:
+    """--energy: read the RUNNING daemon's /debug/energy governance
+    digest and verify its HMAC with the locally configured
+    --energy-audit-key (the key never rides the wire — both ends hold
+    it out of band). FAIL on a signature mismatch (tampered payload, or
+    the two ends hold different keys — both are audit-trust failures);
+    WARN when either end runs unsigned."""
+    import urllib.error
+
+    from .energy import verify_payload
+
+    try:
+        digest = _fetch_json(base + "/debug/energy")
+    except urllib.error.HTTPError as exc:
+        if exc.code in (401, 403):
+            return _result(
+                "energy", WARN,
+                f"{base}/debug/energy requires authentication "
+                f"(HTTP {exc.code}); the digest sits behind the "
+                f"exporter's basic-auth gate by design")
+        if exc.code == 404:
+            return _result(
+                "energy", WARN,
+                f"{base}: no /debug/energy (exporter predates energy "
+                f"accounting, or no accountant is wired)")
+        return _result("energy", FAIL,
+                       f"{base}/debug/energy: HTTP {exc.code}")
+    except Exception as exc:  # noqa: BLE001 - unreachable daemon, bad JSON
+        return _result("energy", FAIL,
+                       f"{base}: energy digest unreadable ({exc})")
+    pods = digest.get("per_pod") or []
+    total = sum(float(row[2]) for row in pods if len(row) >= 3)
+    coverage = digest.get("coverage_ratio", 0.0)
+    summary = (f"{len(pods)} pod total(s), {total:.1f} J, "
+               f"burst coverage {coverage:.1%}")
+    data = {"digest": digest}
+    if not audit_key:
+        return _result(
+            "energy", WARN,
+            f"{summary}; digest NOT verified (no --energy-audit-key "
+            f"configured locally)", data=data)
+    if not digest.get("signed") or "hmac" not in digest:
+        return _result(
+            "energy", FAIL,
+            f"{summary}; daemon serves an UNSIGNED digest but a local "
+            f"audit key is configured — energy totals are not "
+            f"attestable", data=data)
+    if not verify_payload(digest, audit_key):
+        return _result(
+            "energy", FAIL,
+            f"{summary}; digest signature DOES NOT VERIFY — payload "
+            f"tampered in flight, or the daemon holds a different "
+            f"audit key", data=data)
+    return _result("energy", OK, f"{summary}; signature verified",
+                   data=data)
+
+
+# Human rendering of the fleet lens's host_* anomaly kinds (the joined
+# verdict's vocabulary): kind -> (digest["host"] key, format).
+_HOST_KIND_TEXT = {
+    "host_mem_stall": ("mem_full_avg10", "PSI memory full-stall {:.1f}%"),
+    "host_cpu_stall": ("cpu_some_avg10", "PSI cpu some-stall {:.1f}%"),
+    "host_io_stall": ("io_full_avg10", "PSI io full-stall {:.1f}%"),
+    "host_nic_drops": ("nic_drop_rate", "NIC drops {:.1f}/s"),
+    "host_throttle": ("throttle_rate",
+                      "CPU thermal throttle {:.1f} events/s"),
+}
+
+
+def stores_verdict(payload: dict) -> tuple[str, str]:
+    """(status, detail) for a /debug/stores payload — every degraded
+    store NAMED with its reason/errno/loss, every restarted thread
+    NAMED with its count, storm latches called out. Pure so tests drive
+    it on canned JSON; check_stores wraps it with the fetch."""
+    parts: list[str] = []
+    status = OK
+    degraded = []
+    lost_total = 0
+    faults_total = 0
+    for store, info in sorted((payload.get("stores") or {}).items()):
+        faults_total += sum((info.get("fault_counts") or {}).values())
+        lost_total += info.get("lost_records", 0)
+        if info.get("state") == "degraded":
+            label = f"{store} ({info.get('reason', '?')}"
+            if info.get("errno"):
+                label += f", {info['errno']}"
+            if "degraded_for_seconds" in info:
+                label += f", {info['degraded_for_seconds']:.0f}s"
+            label += ")"
+            degraded.append(label)
+    if degraded:
+        status = WARN
+        parts.append("degraded store(s): " + ", ".join(degraded)
+                     + " — durability off, telemetry in-memory, "
+                     "auto-probing for recovery")
+    if lost_total:
+        status = WARN
+        parts.append(f"{lost_total} record(s) lost durability "
+                     f"(kts_store_lost_records_total — exactly what a "
+                     f"crash during the window would cost)")
+    if faults_total and not degraded:
+        parts.append(f"{faults_total} disk fault(s) survived and "
+                     f"recovered (kts_disk_faults_total)")
+    fence = payload.get("accept_fence") or {}
+    if fence.get("in_episode"):
+        status = WARN
+        parts.append(f"accept loop shedding on fd exhaustion "
+                     f"({fence.get('fenced_total', 0)} fenced)")
+    elif fence.get("fenced_total"):
+        parts.append(f"accept loop survived {fence['fenced_total']} "
+                     f"fd-exhaustion fault(s)")
+    restarted = [row for row in (payload.get("threads") or [])
+                 if row.get("restarts", 0) > 0]
+    if restarted:
+        status = WARN
+        parts.append("restarted thread(s): " + ", ".join(
+            f"{row['component']} x{row['restarts']}"
+            + (f" ({row['last_reason']})" if row.get("last_reason")
+               else "")
+            for row in restarted))
+    storms = [row["component"]
+              for row in (payload.get("threads") or [])
+              if row.get("storm_latched")]
+    if storms:
+        status = WARN
+        parts.append("RESTART STORM latched: " + ", ".join(storms)
+                     + " — respawns paused; the component is dying on "
+                     "arrival, read its last restart reason above")
+    if not parts:
+        parts.append("all stores durable; no thread restarts")
+    return status, "; ".join(parts)
+
+
+def check_stores(base: str) -> CheckResult:
+    """--stores: read /debug/stores and summarize the local-fault-
+    survival picture. Classified 401/404 like --host: a WARN row
+    diagnoses config, only a broken surface FAILs."""
+    import urllib.error
+
+    try:
+        payload = _fetch_json(base + "/debug/stores")
+    except urllib.error.HTTPError as exc:
+        if exc.code in (401, 403):
+            return _result(
+                "stores", WARN,
+                f"{base}/debug/stores requires authentication "
+                f"(HTTP {exc.code}); the stores snapshot sits behind "
+                f"the exporter's basic-auth gate by design")
+        if exc.code == 404:
+            return _result(
+                "stores", WARN,
+                f"{base}: no /debug/stores (exporter predates the "
+                f"local-fault-survival layer, or this server has none "
+                f"wired)")
+        return _result("stores", FAIL,
+                       f"{base}/debug/stores: HTTP {exc.code}")
+    except Exception as exc:  # noqa: BLE001 - unreachable, bad JSON
+        return _result("stores", FAIL,
+                       f"{base}: stores snapshot unreadable ({exc})")
+    status, detail = stores_verdict(payload)
+    return _result("stores", status, detail, data={"stores": payload})
+
+
 def check_url(target: str) -> list[CheckResult]:
     """Both --url rows — scrape contract + live breaker state — off ONE
     fetch: a node diagnosed because it is degraded must not render its
@@ -663,7 +837,8 @@ def check_embedded_viability(cfg: Config) -> CheckResult:
 
 
 def run_checks(cfg: Config, url: str = "", trace: bool = False,
-               host: bool = False) -> list[CheckResult]:
+               host: bool = False, energy: bool = False,
+               stores: bool = False) -> list[CheckResult]:
     probes: list[tuple[str, Callable[[], object]]] = [
         ("nvml", lambda: check_nvml(cfg)),
         ("attribution", lambda: check_attribution(cfg)),
@@ -680,6 +855,14 @@ def run_checks(cfg: Config, url: str = "", trace: bool = False,
         base = (trace_base(url) if url.startswith(("http://", "https://"))
                 else f"http://127.0.0.1:{cfg.listen_port}")
         probes.append(("trace", lambda: check_trace(base)))
+    if energy:
+        # Same live-daemon fallback as --trace: /debug/energy lives on
+        # the daemon's own server.
+        energy_base = (trace_base(url)
+                       if url.startswith(("http://", "https://"))
+                       else f"http://127.0.0.1:{cfg.listen_port}")
+        probes.append(("energy", lambda: check_energy(
+            energy_base, cfg.energy_audit_key)))
     if host:
         # Same live-daemon fallback as --trace: /debug/host lives on the
         # daemon's own server.
@@ -687,6 +870,12 @@ def run_checks(cfg: Config, url: str = "", trace: bool = False,
                      if url.startswith(("http://", "https://"))
                      else f"http://127.0.0.1:{cfg.listen_port}")
         probes.append(("host", lambda: check_host(host_base)))
+    if stores:
+        # Same fallback: /debug/stores lives on the daemon's server.
+        stores_base = (trace_base(url)
+                       if url.startswith(("http://", "https://"))
+                       else f"http://127.0.0.1:{cfg.listen_port}")
+        probes.append(("stores", lambda: check_stores(stores_base)))
     results: list[CheckResult] = []
     for name, probe in probes:
         results.extend(_bounded(name, probe))
@@ -718,6 +907,8 @@ def main(argv: Sequence[str] | None = None) -> int:
     as_json = False
     trace = False
     host = False
+    energy = False
+    stores = False
     url = ""
     args: list[str] = []
     it = iter(raw)
@@ -729,6 +920,10 @@ def main(argv: Sequence[str] | None = None) -> int:
             trace = True
         elif token == "--host":
             host = True
+        elif token == "--energy":
+            energy = True
+        elif token == "--stores":
+            stores = True
         elif token == "--url":
             url = next(it, "")
             if not url or url.startswith("--"):
@@ -749,7 +944,8 @@ def main(argv: Sequence[str] | None = None) -> int:
             args.append(token)
     cfg = from_args(args)
     started = time.monotonic()
-    results = run_checks(cfg, url=url, trace=trace, host=host)
+    results = run_checks(cfg, url=url, trace=trace, host=host,
+                         energy=energy, stores=stores)
     results.sort(key=lambda r: _ORDER[r.status])
     if as_json:
         print(json.dumps({

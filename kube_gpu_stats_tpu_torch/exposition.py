@@ -11,8 +11,10 @@
   stack dump of every thread) and ``/debug/profile?seconds=N`` (folded
   stacks sampled over N seconds, ``profiler.py``) always;
   ``/debug/burst`` (the burst sampler's status, ``?arm=N`` and
-  ``?disarm``) and ``/debug/host`` (the host-signals snapshot) when
-  those are wired.
+  ``?disarm``), ``/debug/energy`` (the energy accountant's signed
+  digest), ``/debug/stores`` (every disk-backed store's health, the
+  accept fence, thread restarts) and ``/debug/host`` (the host-signals
+  snapshot) when those are wired.
 - TLS (``tls_cert_file``/``tls_key_file``), mTLS (``tls_client_ca_file``)
   and basic auth (``auth_username`` + ``auth_password_sha256``) on every
   path but the kubelet probes ``/healthz`` and ``/readyz``.
@@ -21,8 +23,8 @@
 
 The port's copy of the reference's exposition layer without delta
 ingest, ``/query``, the Pushgateway sender and the ``/debug/*`` endpoints
-of modules not ported yet (energy, egress, skew, stores, cardinality,
-fleet, efficiency).
+of modules not ported yet (egress, skew, cardinality, fleet,
+efficiency).
 """
 
 from __future__ import annotations
@@ -192,10 +194,17 @@ class _AcceptFence:
         # like every other retry path in the package: 50 ms doubling to
         # a 1 s cap, reset on the first successful accept.
         self._backoff = BackoffPolicy(base=0.05, cap=1.0)
+        # Per-fence episode bookkeeping, so two servers in one process
+        # report their own accept health at /debug/stores.
+        self.fenced_total = 0
+        self.episodes = 0
         self.in_episode = False
 
     def faulted(self, exc: OSError) -> None:
-        self.in_episode = True
+        if not self.in_episode:
+            self.episodes += 1
+            self.in_episode = True
+        self.fenced_total += 1
         self._health.record_fault(exc)
         time.sleep(self._backoff.next_delay())
 
@@ -205,6 +214,14 @@ class _AcceptFence:
         self.in_episode = False
         self._backoff.reset()
         self._health.ok()
+
+    def status(self) -> dict:
+        return {
+            "fenced_total": self.fenced_total,
+            "episodes": self.episodes,
+            "in_episode": self.in_episode,
+            "state": self._health.state,
+        }
 
 
 class _FencedHTTPServer(http.server.ThreadingHTTPServer):
@@ -283,16 +300,21 @@ class MetricsServer:
                  auth_username: str = "", auth_password_sha256: str = "",
                  render_stats: RenderStats | None = None,
                  health_provider=None, trace_provider=None,
-                 burst_provider=None, host_provider=None):
+                 burst_provider=None, energy_provider=None,
+                 host_provider=None, stores_provider=None):
         self._registry = registry
         # Flight recorder (tracing.Tracer): serves /debug/ticks,
         # /debug/trace and /debug/events behind the same auth gate as
         # /metrics. None = those paths 404.
         self._trace = trace_provider
-        # Burst sampler (/debug/burst) and host-signals collector
-        # (/debug/host); None = that path 404s.
+        # Burst sampler (/debug/burst), energy accountant
+        # (/debug/energy), host-signals collector (/debug/host) and the
+        # stores payload, () -> dict (/debug/stores); None = that path
+        # 404s.
         self._burst = burst_provider
+        self._energy = energy_provider
         self._host = host_provider
+        self._stores = stores_provider
         # (user, lower-case sha256 hex of the password), or None = open.
         self._auth = (
             (auth_username, auth_password_sha256.lower())
@@ -616,6 +638,27 @@ class MetricsServer:
                             + "\n").encode()
                     self.send_response(200)
                     self.send_header("Content-Type", "application/json")
+                elif path == "/debug/energy" and outer._energy is not None:
+                    # Governance digest (energy.py): per-pod joules +
+                    # coverage, HMAC-signed when an audit key is
+                    # configured; `doctor --energy` verifies it.
+                    body = (json.dumps(outer._energy.digest(),
+                                       sort_keys=True) + "\n").encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "application/json")
+                elif path == "/debug/stores" and outer._stores is not None:
+                    # Every store's durability state machine + the thread
+                    # restart/storm report, behind the same auth gate as
+                    # every non-probe path.
+                    try:
+                        payload = outer._stores()
+                    except Exception as exc:  # noqa: BLE001 - a status
+                        # walk must not 500 the whole debug surface.
+                        payload = {"enabled": False, "error": str(exc)}
+                    body = (json.dumps(payload, sort_keys=True)
+                            + "\n").encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "application/json")
                 elif path == "/debug/host" and outer._host is not None:
                     # Host-signals snapshot (hoststats.py), behind the
                     # same auth gate as every non-probe path. A disabled
@@ -651,6 +694,10 @@ class MetricsServer:
                                   "/debug/events"]
                     if outer._burst is not None:
                         links += ["/debug/burst"]
+                    if outer._energy is not None:
+                        links += ["/debug/energy"]
+                    if outer._stores is not None:
+                        links += ["/debug/stores"]
                     if outer._host is not None:
                         links += ["/debug/host"]
                     body = ("<html><body>kube-tpu-stats " + " ".join(
@@ -717,6 +764,12 @@ class MetricsServer:
     def port(self) -> int:
         """Actual bound port (useful when constructed with port 0 in tests)."""
         return self._server.server_address[1]
+
+    def accept_fence_status(self) -> dict:
+        """The accept loop's fd-exhaustion fence state, for
+        /debug/stores — per server, so two servers in one process each
+        report their own episode."""
+        return self._fence.status()
 
     def _warm_loop(self) -> None:
         """Fill the per-generation render cache right behind each

@@ -389,12 +389,10 @@ def sweep_burn(sizes=(1024, 2048, 4096, 8192), seconds_per_size: float = 6.0,
     return rows
 
 
-def main(argv=None, device=None) -> int:
-    """The load generator's command line. ``device`` is for Python callers
-    only (``"cpu"`` in the tests); the CLI always burns every card
-    (``--mode ici``: one ring rank per card)."""
+def build_parser():
+    """The load generator's flags (``python -m
+    kube_gpu_stats_tpu_torch.loadgen``)."""
     import argparse
-    import json
 
     parser = argparse.ArgumentParser(
         description="GPU tensor-core load generator for exporter validation"
@@ -425,7 +423,16 @@ def main(argv=None, device=None) -> int:
                              "port, printed on stdout)")
     parser.add_argument("--embedded-textfile", default="",
                         help="embedded exporter textfile output dir")
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv=None, device=None) -> int:
+    """The load generator's command line. ``device`` is for Python callers
+    only (``"cpu"`` in the tests); the CLI always burns every card
+    (``--mode ici``: one ring rank per card)."""
+    import json
+
+    args = build_parser().parse_args(argv)
     exporter = None
     step_hook = None
     if args.embedded_port is not None:

@@ -16,8 +16,10 @@ processes, joins every one within a deadline and raises if any failed.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import multiprocessing
+import multiprocessing.resource_tracker
 import os
 import queue
 import shutil
@@ -134,6 +136,17 @@ def _rank_main(rank: int, world_size: int, init_method: str, device: str,
     results.put((rank, True, out))
 
 
+def stop_resource_tracker() -> None:
+    """Stop and reap the resource tracker that spawning the ranks started.
+
+    A spawned child needs multiprocessing's tracker process. Older
+    Pythons (3.12.3 among them) do not stop it at exit: it outlives this
+    process until it notices the closed pipe, so a caller that waits for
+    every process it started finds it still running. Registered to run
+    at exit once ranks were spawned."""
+    multiprocessing.resource_tracker._resource_tracker._stop()
+
+
 def run_ranks(fn, n_ranks: int, *, device: str, args: tuple = (),
               timeout: float = RANK_TIMEOUT_S) -> list:
     """Run ``fn(rank, n_ranks, *args)`` in ``n_ranks`` spawned processes
@@ -143,12 +156,15 @@ def run_ranks(fn, n_ranks: int, *, device: str, args: tuple = (),
     ``fn`` must be importable by name (the children start from a fresh
     interpreter); its result and ``args`` are pickled. Raises
     ``RuntimeError`` naming every rank that failed, exited without a
-    result or outlived ``timeout``; no rank is left running."""
+    result or outlived ``timeout``; no rank is left running, nor, once
+    this process exits, the tracker the spawn started."""
     dev = resolve_device(device)
     if dev.type == "cuda" and n_ranks > torch.cuda.device_count():
         raise ValueError(f"{n_ranks} ranks need {n_ranks} cards, "
                          f"{torch.cuda.device_count()} visible")
     ctx = multiprocessing.get_context("spawn")
+    atexit.unregister(stop_resource_tracker)
+    atexit.register(stop_resource_tracker)
     results = ctx.Queue()
     store_dir = tempfile.mkdtemp(prefix="kts-ranks-")
     init_method = f"file://{os.path.join(store_dir, 'store')}"

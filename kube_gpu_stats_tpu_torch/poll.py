@@ -34,10 +34,11 @@ pool) and its split/pipelined path, with what the daemon wires: pod
 attribution behind the label fence, process holders, the supervisor's
 health self-metrics and heartbeat, label dropping, backend replacement
 between ticks, crash-only respawn, the sub-tick power burst sampler's
-per-tick fold (``burstsampler.py``) and host signals read on the pool
-(``hoststats.py``). Not ported: push/egress self-metrics, the energy
-accountant (the reference's loop runs without one as ``energy=None``)
-and ``reconfigure``. The reference's pre-plan emit path is not copied
+per-tick fold (``burstsampler.py``), the per-pod energy accountant
+(``energy.py``: each device-tick integrated and attributed, its
+checkpoint written on the pool) and host signals read on the pool
+(``hoststats.py``). Not ported: push/egress self-metrics and
+``reconfigure``. The reference's pre-plan emit path is not copied
 either: the reference itself is this loop's oracle
 (``tests/test_torch_poll.py``, ``tests/test_torch_pipeline.py``,
 ``tests/test_torch_daemon.py``).
@@ -51,7 +52,7 @@ import threading
 import time
 from typing import Callable, Mapping, NamedTuple, Protocol, Sequence
 
-from . import procstats, schema
+from . import procstats, schema, wal
 from .cardinality import LabelFence
 from .collectors import Collector, CollectorError, Device, Sample
 from .delta import PROTO_MAX, PROTO_MIN
@@ -283,6 +284,7 @@ class PollLoop:
         pipeline_fetch: bool = True,
         tracer: Tracer | None = None,
         burst_sampler=None,
+        energy=None,
         host_stats=None,
         label_value_cap: int = 0,
         clock: Callable[[], float] = time.monotonic,
@@ -349,6 +351,14 @@ class PollLoop:
         # tail. None = the families stay absent (burst mode off / bare
         # test loops).
         self._burst = burst_sampler
+        # Energy accountant (energy.py): the tick integrates each
+        # device's power (trapezoid over the drained burst samples when
+        # armed, the tick rectangle otherwise) into per-pod joules and
+        # folds kts_energy_* into the snapshot tail; its checkpoint runs
+        # on the pool, at most one in flight. None = the families stay
+        # absent (bare test loops).
+        self._energy_acct = energy
+        self._ckpt_future: concurrent.futures.Future | None = None
         # Host-signals collector: read once per tick on the pool, so
         # PSI/IRQ/NIC/cgroup file IO never lives inside the tick budget.
         # The snapshot tail folds the last COMPLETED read; its per-read
@@ -546,11 +556,14 @@ class PollLoop:
             self._rates.forget_device(device_id)
             for state in state_dicts:
                 state.pop(device_id, None)
-            # The burst ring and histogram go with the device: a
-            # renumbered card must not inherit another card's sub-tick
-            # distribution.
+            # The burst ring and histogram and the energy anchor go with
+            # the device: a renumbered card must not inherit another
+            # card's sub-tick distribution or integrate against its last
+            # reading.
             if self._burst is not None:
                 self._burst.forget_device(device_id)
+            if self._energy_acct is not None:
+                self._energy_acct.forget_device(device_id)
         for device_id in [d for d in self._outstanding if d not in alive]:
             self._outstanding.pop(device_id).cancel()
 
@@ -1067,6 +1080,17 @@ class PollLoop:
         self._plans[dev.device_id] = plan
         return plan
 
+    def _observe_energy(self, plan: _DevicePlan, device_id: str,
+                        now: float, watts: float | None,
+                        bsamples) -> None:
+        """One device-tick into the energy accountant, attributed to
+        the pod the plan's kubelet join names RIGHT NOW (a rescheduled
+        pod's draw lands on the new owner from this tick on)."""
+        attribution = dict(plan.key)
+        self._energy_acct.observe(
+            device_id, attribution.get("pod", ""),
+            attribution.get("namespace", ""), now, watts, bsamples)
+
     # -- tick state update (the only mutating phase) -------------------------
 
     def _update_tick_state(
@@ -1095,6 +1119,7 @@ class PollLoop:
                          or runtime_seq != self._runtime_seq_seen)
         self._runtime_seq_seen = runtime_seq
         burst = self._burst
+        energy_acct = self._energy_acct
         if burst is not None:
             # Auto-arm on power/duty-shaped anomaly events that landed in
             # the shared journal since the last tick (one cheap walk of
@@ -1109,6 +1134,12 @@ class PollLoop:
                        if openers is not None else None)
             stale = attr_stale or (sample is not None and sample.stale)
             if sample is None:
+                if energy_acct is not None and bsamples:
+                    # A stale tick observed no gauge power, but armed
+                    # burst samples ARE observations: integrate them (no
+                    # endpoint at `now` — the gauge saw nothing).
+                    self._observe_energy(plan, device_id, now, None,
+                                         bsamples)
                 if burst is not None:
                     burst.fold(device_id, bsamples)
                 tick.append(_TickDevice(
@@ -1121,6 +1152,7 @@ class PollLoop:
                 ))
                 continue
             retained_total = None
+            power_value: float | None = None
             if schema.MEMORY_TOTAL.name not in sample.values:
                 # Degraded samples lack capacity; the retained total keeps
                 # used/total ratios and capacity recording rules from
@@ -1154,6 +1186,15 @@ class PollLoop:
                             self._energy.get(device_id, 0.0)
                             + value * gap)
                     self._last_power_at[device_id] = now
+                    power_value = value
+            if energy_acct is not None and (power_value is not None
+                                            or bsamples):
+                # Per-pod accounting: trapezoid over the drained burst
+                # samples when armed, tick rectangle otherwise
+                # (power_value None = no gauge endpoint: the burst
+                # readings integrate alone, as on a stale tick).
+                self._observe_energy(plan, device_id, now, power_value,
+                                     bsamples)
             if burst is not None:
                 burst.fold(device_id, bsamples)
             ici_items = sorted(sample.ici_counters.items())
@@ -1273,6 +1314,14 @@ class PollLoop:
                 rec.dev.device_id: (("chip", str(rec.dev.index)),)
                 for rec in tick
             })
+        if self._energy_acct is not None:
+            self._energy_acct.contribute(builder)
+            # Checkpoint on the pool, never the tick path (the fsync is
+            # worth milliseconds); rate-limited inside the accountant,
+            # at most one write in flight.
+            if self._ckpt_future is None or self._ckpt_future.done():
+                self._ckpt_future = self._pool.submit(
+                    self._energy_acct.checkpoint)
         if self._host is not None:
             # kts_host_* families from the last completed host read
             # (absent until one exists).
@@ -1342,7 +1391,14 @@ class PollLoop:
              ("proto_min", str(PROTO_MIN)),
              ("proto_max", str(PROTO_MAX))],
         )
-        # Per-store durability state (the HTTP accept fence's among them).
+        # Future-format files quarantined at startup stay visible for as
+        # long as the process runs: the degradation they mean must never
+        # be silent.
+        for store, count in sorted(wal.quarantine_counts().items()):
+            builder.add(schema.WAL_QUARANTINED, float(count),
+                        (("store", store),))
+        # Per-store durability state (the energy checkpoint's and the
+        # HTTP accept fence's among them).
         contribute_store_metrics(builder)
         procstats.contribute(builder, self._harvest_procstats())
         builder.add_histogram(self._hist)

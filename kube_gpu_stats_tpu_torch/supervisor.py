@@ -413,6 +413,32 @@ class Supervisor:
                     component.name, HEALTHY, "", component.restarts))
         return rows
 
+    def restart_report(self) -> list[dict]:
+        """Per-component restart/storm bookkeeping for /debug/stores and
+        doctor --stores: which threads the watchdog has respawned, why,
+        and whether any are storm-latched right now."""
+        now = self._clock()
+        with self._lock:
+            components = list(self._components.values())
+        out: list[dict] = []
+        for component in components:
+            row: dict = {
+                "component": component.name,
+                "restarts": component.restarts,
+                "storms": component.storms,
+                "storm_latched": now < component.storm_until,
+            }
+            if component.last_reason:
+                row["last_reason"] = component.last_reason
+            if component.last_restart_at is not None:
+                row["last_restart_ago_seconds"] = round(
+                    max(0.0, now - component.last_restart_at), 1)
+            if now < component.storm_until:
+                row["storm_resumes_in_seconds"] = round(
+                    component.storm_until - now, 1)
+            out.append(row)
+        return out
+
     def health_report(self) -> Sequence[tuple[str, str, str]]:
         """(name, state, reason) rows for MetricsServer's /healthz body;
         breakers that belong to no registered component get their own

@@ -2,7 +2,7 @@
 does a DaemonSet exporter die under them?
 
     python -m kube_gpu_stats_tpu_torch.testing.burst_soak [--seconds 300]
-        [--continuous 2] [--lifetime S]
+        [--continuous 2] [--lifetime S] [--arms ARM,...] [--malloc-check]
 
 Starts exporters over NVML at 10 Hz under ``-X faulthandler``:
 ``--continuous`` of them with the burst sampler at ``--burst-mode
@@ -22,12 +22,30 @@ an exit, seconds held, burn steps, reads that failed; without
 ``--lifetime`` each exporter's exit code or null), and the whole log of
 each exporter that exited (a native abort leaves its Python stacks
 there). Exits 1 if one did.
+
+``--arms`` splits the suspects of an exporter's heap corruption
+(``ROADMAP.md`` C6): each arm runs ``--seconds`` of waves whose
+exporters patch their own process before the CLI starts, so the
+program itself gains no switch. ``lock``/``nolock``: every NVML call of
+the process under the binding's one lock, or none (the lock replaced by
+a no-op); ``gpm``/``nogpm``: each card's GPM probed as the collector
+does, or never opened (no sample allocated, taken or freed); those
+four read field values as the binding does (an array with room for
+twice the count, the C6 repair). ``exact``: each
+``nvmlDeviceGetFieldValues`` array exactly the count, as before the
+repair; ``per-link``: the same, two fields a call. One JSON line per
+arm. ``--malloc-check`` runs the exporters with glibc's heap
+checking armed (``MALLOC_CHECK_=3``, with ``libc_malloc_debug.so.0``
+preloaded where glibc >= 2.34 has it), so an exporter aborts at the
+first bad ``free`` and faulthandler's stack names the Python call that
+made it.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import subprocess
 import sys
@@ -46,21 +64,95 @@ ARM_S = 6
 ARM_EVERY_S = 7.5
 SCRAPE_GAP_S = 0.03
 READ_BURST_ROUND_S = 5.0
+# --arms: arm name -> (NVML lock on, GPM probed, how field values are
+# read: "as-is" (the binding's array, twice the count), "exact" (an array
+# of exactly the count, as before the C6 repair) or "per-link" (an
+# exact array of two fields a call)).
+ARMS = {"lock+gpm": (True, True, "as-is"),
+        "nolock+gpm": (False, True, "as-is"),
+        "lock+nogpm": (True, False, "as-is"),
+        "nolock+nogpm": (False, False, "as-is"),
+        "exact": (True, True, "exact"),
+        "per-link": (True, True, "per-link")}
+# An arm's exporter: the patch, then the CLI with the exporter's flags.
+_ARM_CHILD = """
+import contextlib, sys
+from kube_gpu_stats_tpu_torch.collectors.nvml import NvmlCollector
+from kube_gpu_stats_tpu_torch.native import nvml as binding
+lock, gpm, read = {lock!r}, {gpm!r}, {read!r}
+if not lock:
+    binding._CALLS = contextlib.nullcontext()
+if not gpm:
+    def _gpm_open(self, device, handle):
+        self.gpm_state[device.device_id] = "never opened"
+        return None
+    NvmlCollector._gpm_open = _gpm_open
+def exact(self, handle, fields):
+    values = (binding.NvmlFieldValue * len(fields))()
+    for slot, (field_id, scope_id) in zip(values, fields):
+        slot.fieldId, slot.scopeId = field_id, scope_id
+    self._check(self._call("nvmlDeviceGetFieldValues", handle,
+                           len(fields), values))
+    out = []
+    for slot in values:
+        member = binding._VALUE_MEMBER.get(slot.valueType)
+        if slot.nvmlReturn != binding.NVML_SUCCESS:
+            out.append((slot.nvmlReturn, None))
+        elif member is None:
+            out.append((binding.NVML_ERROR_UNKNOWN, None))
+        else:
+            out.append((binding.NVML_SUCCESS, getattr(slot.value, member)))
+    return out
+if read == "exact":
+    binding.Nvml.field_values = exact
+elif read == "per-link":
+    def field_values(self, handle, fields):
+        out = []
+        for i in range(0, len(fields), 2):
+            out += exact(self, handle, fields[i:i + 2])
+        return out
+    binding.Nvml.field_values = field_values
+from kube_gpu_stats_tpu_torch.cli import main
+sys.exit(main(sys.argv[1:]))
+"""
+MALLOC_DEBUG_LIB = "libc_malloc_debug.so.0"
+
+
+def malloc_check_env() -> tuple[dict, str]:
+    """The exporters' environment with glibc's heap checks armed, and
+    what was armed (``ldd --version``'s first line, the preload)."""
+    env = dict(os.environ, MALLOC_CHECK_="3")
+    glibc = subprocess.run(["ldd", "--version"], capture_output=True,
+                           text=True).stdout.splitlines()[:1]
+    listed = subprocess.run(["ldconfig", "-p"], capture_output=True,
+                            text=True).stdout
+    paths = [line.rpartition("=> ")[2].strip()
+             for line in listed.splitlines() if MALLOC_DEBUG_LIB in line]
+    if paths:
+        env["LD_PRELOAD"] = paths[0]
+    return env, f"{glibc}; MALLOC_CHECK_=3; LD_PRELOAD={paths[:1]}"
 
 
 class Exporter:
     """One exporter process and its whole log, read on a thread."""
 
-    def __init__(self, mode: str) -> None:
+    def __init__(self, mode: str, arm: str | None = None,
+                 env: dict | None = None) -> None:
         self.mode = mode
         self.log: list[str] = []
+        if arm is None:
+            entry = ["-m", "kube_gpu_stats_tpu_torch"]
+        else:
+            lock, gpm, read = ARMS[arm]
+            entry = ["-c", _ARM_CHILD.format(lock=lock, gpm=gpm, read=read)]
         self.proc = subprocess.Popen(
-            [sys.executable, "-X", "faulthandler", "-m",
-             "kube_gpu_stats_tpu_torch", "--backend", "nvml",
+            [sys.executable, "-X", "faulthandler", *entry,
+             "--backend", "nvml",
              "--listen-port", "0", "--interval", str(INTERVAL_S),
              "--attribution", "off", "--textfile-dir", "",
              "--burst-mode", mode, "--burst-hz", str(BURST_HZ)],
-            stderr=subprocess.PIPE, stdout=subprocess.DEVNULL, text=True)
+            stderr=subprocess.PIPE, stdout=subprocess.DEVNULL, text=True,
+            env=env)
         for line in self.proc.stderr:
             self.log.append(line.rstrip("\n"))
             match = re.search(r"listening on \S+:(\d+)", line)
@@ -92,10 +184,11 @@ class Exporter:
             return None
 
 
-def wave(seconds: float, continuous: int) -> dict:
+def wave(seconds: float, continuous: int, arm: str | None = None,
+         env: dict | None = None) -> dict:
     """One set of fresh exporters under the load for ``seconds``, or
     until one of them exits."""
-    exporters = [Exporter(mode) for mode in
+    exporters = [Exporter(mode, arm, env) for mode in
                  ["continuous"] * continuous + ["auto"]]
     stop = threading.Event()
     failed: list[str] = []
@@ -172,14 +265,15 @@ def wave(seconds: float, continuous: int) -> dict:
             "failed": failed, "logs": logs}
 
 
-def soak(seconds: float, continuous: int, lifetime: float | None) -> dict:
+def soak(seconds: float, continuous: int, lifetime: float | None,
+         arm: str | None = None, env: dict | None = None) -> dict:
     """Waves of fresh exporters, each living ``lifetime`` s (the whole
     soak when None), until ``seconds`` have passed."""
     t0 = time.monotonic()
     out: dict = {"waves": 0, "lives": 0, "exited": 0, "seconds": 0.0,
                  "steps": 0, "failed": [], "logs": {}}
     while (left := seconds - (time.monotonic() - t0)) > 0:
-        row = wave(min(lifetime or left, left), continuous)
+        row = wave(min(lifetime or left, left), continuous, arm, env)
         out["waves"] += 1
         out["lives"] += len(row["exits"])
         out["exited"] += len(row["logs"])
@@ -197,15 +291,30 @@ def main(argv=None) -> int:
     parser.add_argument("--seconds", type=float, default=300.0)
     parser.add_argument("--continuous", type=int, default=2)
     parser.add_argument("--lifetime", type=float, default=None)
+    parser.add_argument("--arms", default="",
+                        help=f"comma-separated, of {', '.join(ARMS)}")
+    parser.add_argument("--malloc-check", action="store_true")
     args = parser.parse_args(argv)
-    print(smi("name,power.limit"), flush=True)
-    row = soak(args.seconds, args.continuous, args.lifetime)
-    logs = row.pop("logs")
-    print(json.dumps(row), flush=True)
-    for name, lines in logs.items():
-        print(f"--- exporter {name} exited; its log:", flush=True)
-        print("\n".join(lines), flush=True)
-    return 1 if logs or row["failed"] else 0
+    arms = [arm for arm in args.arms.split(",") if arm] or [None]
+    unknown = [arm for arm in arms if arm is not None and arm not in ARMS]
+    if unknown:
+        parser.error(f"unknown arms {unknown}; choose from {list(ARMS)}")
+    print(smi("name,power.limit,driver_version"), flush=True)
+    env = None
+    if args.malloc_check:
+        env, armed = malloc_check_env()
+        print(f"malloc check: {armed}", flush=True)
+    failed = False
+    for arm in arms:
+        row = soak(args.seconds, args.continuous, args.lifetime, arm, env)
+        logs = row.pop("logs")
+        print(json.dumps({"arm": arm, **row}), flush=True)
+        for name, lines in logs.items():
+            print(f"--- exporter {name} ({arm}) exited; its log:",
+                  flush=True)
+            print("\n".join(lines), flush=True)
+        failed = failed or bool(logs or row["failed"])
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

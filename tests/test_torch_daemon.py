@@ -321,10 +321,10 @@ def test_backend_nvml_failure_exits_non_zero(monkeypatch, caplog):
     ["--hub-url", "http://hub:9401"],
     ["--no-native"],
     ["--max-concurrent-scrapes", "8"],
-    ["--energy-checkpoint", "/var/lib/kts/energy"],
-    ["--energy-audit-key", "k"],
+    ["--remote-write-wal-dir", "/var/lib/kts/rw"],
+    ["--hub-spill-dir", "/var/lib/kts/spill"],
     ["--libtpu-ports", "8431"],
-    ["--energy-checkpoint-interval", "5"],
+    ["--no-fleet-lens"],
     ["--backend", "tpu"],
     ["--backend", "gpu"],
 ])

@@ -56,7 +56,8 @@ def test_importing_the_port_loads_no_jax():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     for module in ("loadgen.tiled_burn", "loadgen.mesh", "loadgen.ici_burn",
                    "validate", "testing.ranks", "doctor", "profiler",
-                   "hoststats", "burstsampler"):
+                   "hoststats", "burstsampler", "energy", "wal",
+                   "testing.faultfs"):
         assert f"kube_gpu_stats_tpu_torch.{module}" in report["imported"]
     assert [m for m in report["loaded"] if _forbidden(m)] == []
 
@@ -84,9 +85,12 @@ import kube_gpu_stats_tpu_torch.collectors.nvml
 import kube_gpu_stats_tpu_torch.burstsampler
 import kube_gpu_stats_tpu_torch.daemon
 import kube_gpu_stats_tpu_torch.doctor
+import kube_gpu_stats_tpu_torch.energy
 import kube_gpu_stats_tpu_torch.hoststats
 import kube_gpu_stats_tpu_torch.profiler
 import kube_gpu_stats_tpu_torch.testing.fake_nvml
+import kube_gpu_stats_tpu_torch.testing.faultfs
+import kube_gpu_stats_tpu_torch.wal
 print(json.dumps(sorted(sys.modules)))
 """
 

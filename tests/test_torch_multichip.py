@@ -6,6 +6,9 @@ NCCL refuses two ranks on one card, so multi-rank numerics are shown
 here only; on the card, ``chip_smoke.py`` runs one NCCL rank.
 """
 
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -116,6 +119,33 @@ def test_a_failing_rank_fails_the_caller_without_hanging():
     with pytest.raises(RuntimeError, match="rank 1 fails on purpose"):
         run_ranks(ranks.fail_on, 3, device="cpu", args=(1,),
                   timeout=TIMEOUT_S)
+
+
+# In a fresh interpreter: ranks, then the exit handlers as the exit runs
+# them; the resource tracker the spawn started must be stopped and
+# reaped by then, so no process of this one outlives it.
+_TRACKER_AT_EXIT = """
+import atexit, os
+from multiprocessing import resource_tracker
+from kube_gpu_stats_tpu_torch.loadgen.mesh import run_ranks
+from kube_gpu_stats_tpu_torch.testing import ranks
+run_ranks(ranks.ring, 1, device="cpu", args=("cpu", 0.001, 1))
+pid = resource_tracker._resource_tracker._pid
+assert pid is not None, "no tracker was started"
+atexit._run_exitfuncs()
+assert resource_tracker._resource_tracker._fd is None
+try:
+    os.kill(pid, 0)
+except ProcessLookupError:
+    print("tracker gone")
+"""
+
+
+def test_the_spawns_resource_tracker_ends_with_the_process():
+    out = subprocess.run([sys.executable, "-c", _TRACKER_AT_EXIT],
+                         capture_output=True, text=True, timeout=TIMEOUT_S)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "tracker gone"
 
 
 def test_run_ici_burn_spawns_ranks_and_reports(capfd):

@@ -397,6 +397,68 @@ def test_nvml_calls_run_one_at_a_time():
     assert library.most == 1
 
 
+class _FieldValuesLibrary:
+    """Stands in for libnvidia-ml's ``nvmlDeviceGetFieldValues``: records
+    each call's count and the room of the array it was handed, answers
+    the first ``count`` entries and poisons the rest."""
+
+    def __init__(self):
+        self.calls = []
+
+    def nvmlDeviceGetFieldValues(self, handle, count, values):
+        room = len(values)
+        self.calls.append((count, room))
+        for i, slot in enumerate(values):
+            if i < count:
+                slot.nvmlReturn = binding.NVML_SUCCESS
+                slot.valueType = binding.NVML_VALUE_TYPE_UNSIGNED_LONG_LONG
+                slot.value.ullVal = 1000 * slot.scopeId + slot.fieldId
+            else:
+                slot.nvmlReturn = binding.NVML_ERROR_UNKNOWN
+        return binding.NVML_SUCCESS
+
+
+def test_field_values_hand_nvml_twice_the_room():
+    """The C6 repair: every nvmlDeviceGetFieldValues call gets an array
+    with room for twice the fields it asks for (an exact-size array for
+    the 36 NVLink fields corrupted the heap on the test machine's
+    H100), and only the first ``count`` entries are read back."""
+    library = _FieldValuesLibrary()
+    nvml = Nvml()
+    nvml._lib = library
+    links = [(field, link) for link in range(18)
+             for field in (binding.NVML_FI_DEV_NVLINK_THROUGHPUT_DATA_TX,
+                           binding.NVML_FI_DEV_NVLINK_THROUGHPUT_DATA_RX)]
+    got = nvml.field_values(0, links)
+    power = nvml.field_values(0, [(binding.NVML_FI_DEV_POWER_INSTANT, 0)])
+    assert library.calls == [(36, 72), (1, 2)]
+    assert got == [(binding.NVML_SUCCESS, 1000 * link + field)
+                   for field, link in links]
+    assert power == [(binding.NVML_SUCCESS,
+                      binding.NVML_FI_DEV_POWER_INSTANT)]
+
+
+def test_the_nvlink_read_goes_through_the_padded_call():
+    """The collector reads the 36 NVLink fields in one ``field_values``
+    call of the binding (over ``fake_nvml``: one batch per read round,
+    never split), so the padding covers it."""
+    fake = FakeNvml([FakeDevice("GPU-a", 0, nvlink_kib={
+        link: (link, 2 * link) for link in range(18)})])
+    batches = []
+    whole = fake.field_values
+
+    def recording(handle, fields):
+        batches.append(len(fields))
+        return whole(handle, fields)
+
+    fake.field_values = recording
+    collector = NvmlCollector(fake)
+    (device,) = collector.discover()
+    batches.clear()
+    collector.sample(device)
+    assert batches.count(36) == 1 and max(batches) == 36
+
+
 def test_memory_v2_struct_and_version():
     assert ctypes.sizeof(binding.NvmlMemoryV2) == 40
     assert binding.NVML_MEMORY_V2_VERSION == \
