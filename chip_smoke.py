@@ -102,6 +102,27 @@ prints its result line after one):
    lower than the first daemon's last; ``doctor --energy`` OK with the key
    and FAIL with a wrong one, ``doctor --stores`` with the ``energy``
    store healthy;
+8f. ``egress``: the daemon at 10 Hz under the ``cuda`` burn on card 0
+   with all three push senders on — ``--hub-url`` with
+   ``--hub-spill-dir``, ``--remote-write-url`` with
+   ``--remote-write-protocol 2.0``, ``--remote-write-wal-dir`` and
+   ``--remote-write-shards 2``, ``--pushgateway-url`` — into one
+   ``testing.egress_sink`` on threads of this process; a live window,
+   the sink blacked out, the recovery drain, the sink restarted at wire
+   v1..v1 (a downgrade) and at a disjoint v3..v3 (counted refusals),
+   then back at v1..v2. Every scrape through ``validate.check``; the
+   sink's delta state, remote-write samples (plus ``job``/``instance``,
+   less empty labels) and Pushgateway bodies equal the scrape of the
+   same tick; spooled about once per tick in the blackout, drained ==
+   spooled, none dropped, at most one resync FULL per reconnect, no
+   409, every tick of the phase at the sink or among the publisher's
+   ``skipped_total``; every remote-write snapshot once per shard,
+   oldest-first, none pending, dropped or parked, lag under two
+   intervals; ``doctor --egress|--skew`` and the ``remote-write`` row OK
+   live, ``--egress`` WARN (link down) in the blackout, ``--skew`` WARN
+   naming the refusal; tick p50 under 50 ms in each window; frame
+   bytes, the publisher's render and encode ms, the writer's serialize
+   ms and a shard WAL append's ms;
 9. time the kernel, its plain version and one library call
    (``torch.mm`` with f32 out) at the main path's and the sweep's sizes,
    each as the median of batches of back-to-back calls;
@@ -129,6 +150,7 @@ import pathlib
 import queue
 import re
 import signal
+import socket
 import ssl
 import stat
 import statistics
@@ -142,8 +164,8 @@ import urllib.request
 
 import torch
 
-from kube_gpu_stats_tpu_torch import (_build, config, daemon, doctor, embedded,
-                                      schema, validate, wal)
+from kube_gpu_stats_tpu_torch import (_build, config, daemon, delta, doctor,
+                                      embedded, schema, validate, wal)
 from kube_gpu_stats_tpu_torch.kinds import _kind_lookup, _kind_peak_flops
 from kube_gpu_stats_tpu_torch.entry import dryrun_multichip, entry
 from kube_gpu_stats_tpu_torch.loadgen import tiled_burn
@@ -270,6 +292,20 @@ ENERGY_PHASE_TOL = 0.10
 ENERGY_COVERAGE_MIN = 0.8
 ENERGY_FSYNC_WRITES = 20
 ENERGY_POD_UID = "0c1d2e3f-4a5b-6c7d-8e9f-a0b1c2d3e4f5"
+# The egress phase: the daemon at EGRESS_INTERVAL_S, the delta publisher
+# free to push every tick (EGRESS_PUSH_INTERVAL_S), remote write every
+# EGRESS_RW_INTERVAL_S; a live window of EGRESS_LIVE_S, the sink blacked
+# out for EGRESS_BLACKOUT_S, each drain capped at EGRESS_RECOVERY_MAX_S;
+# the burn in chunks of EGRESS_BURN_CHUNK_S; a shard WAL append timed
+# EGRESS_WAL_WRITES times.
+EGRESS_INTERVAL_S = 0.1
+EGRESS_PUSH_INTERVAL_S = 0.01
+EGRESS_RW_INTERVAL_S = 0.5
+EGRESS_LIVE_S = 8.0
+EGRESS_BLACKOUT_S = 6.0
+EGRESS_RECOVERY_MAX_S = 20.0
+EGRESS_BURN_CHUNK_S = 2.0
+EGRESS_WAL_WRITES = 20
 MIB = 1024**2
 ROOT = pathlib.Path(__file__).resolve().parent
 KERNEL_NAME = "tiled_gemm_bf16_f32"
@@ -1554,16 +1590,20 @@ class DaemonWatcher:
     min/mean/max of the tick's fold, armed) and when it was first seen;
     every TRACE_EVERY_S and at the end, the recorder's last 128 ticks
     (``trace_ticks``, merged by seq). With ``conform`` every scrape goes
-    through ``validate.check`` against the one before it. A daemon that
-    exits meanwhile fails the block, its whole log printed first."""
+    through ``validate.check`` against the one before it; with
+    ``keep_texts`` the first scrape of each tick is kept in ``texts``. A
+    daemon that exits meanwhile fails the block, its whole log printed
+    first."""
 
     TRACE_EVERY_S = 6.0
     GAP_S = 0.03
 
     def __init__(self, proc: subprocess.Popen, port: int, log: list,
-                 conform: bool = False) -> None:
+                 conform: bool = False, keep_texts: bool = False) -> None:
         self.proc, self.port, self.log = proc, port, log
         self.conform = conform
+        self.keep_texts = keep_texts
+        self.texts: dict[int, str] = {}
         self.scrapes = 0
         self._previous: str | None = None
         self.ups: dict[int, dict[str, float]] = {}
@@ -1607,6 +1647,8 @@ class DaemonWatcher:
         if tick in self.ups:
             return
         self.seen_at[tick] = at
+        if self.keep_texts:
+            self.texts[tick] = text
         self.ups[tick] = {labels["uuid"]: value
                           for family, labels, value in series
                           if family == schema.DEVICE_UP.name}
@@ -2435,6 +2477,502 @@ def phase_energy(card_line: str, c5_tick_ms: dict) -> int:
     return launches
 
 
+def egress_state(port: int) -> tuple[dict, dict]:
+    """The daemon's /debug/egress and /debug/skew payloads."""
+    out = []
+    for path in ("/debug/egress", "/debug/skew"):
+        status, body, _ = fetch(f"http://127.0.0.1:{port}{path}")
+        require(status == 200, f"{path} answered {status}")
+        out.append(json.loads(body))
+    return out[0], out[1]
+
+
+def wait_egress(port: int, what: str, predicate, timeout: float
+                ) -> tuple[dict, dict, float]:
+    """Poll /debug/egress and /debug/skew until ``predicate(egress,
+    skew)``; returns both and the seconds it took."""
+    t0 = time.monotonic()
+    while True:
+        egress, skew = egress_state(port)
+        if predicate(egress, skew):
+            return egress, skew, time.monotonic() - t0
+        require(time.monotonic() - t0 < timeout,
+                f"egress: {what} not reached in {timeout:g} s "
+                f"(egress {json.dumps(egress)[:2000]}, skew "
+                f"{json.dumps(skew.get('publisher'))})")
+        time.sleep(0.05)
+
+
+def drained(egress: dict, _skew=None) -> bool:
+    """The spill queue and every remote-write shard have no backlog."""
+    return (egress["spill"]["depth_frames"] == 0
+            and all(shard["wal_records"] == 0
+                    for shard in egress["remote_write"]["shards"]))
+
+
+def tick_at(watch: DaemonWatcher, at: float) -> int:
+    """The newest tick the watcher had seen by monotonic time ``at``."""
+    seen = [tick for tick, t in watch.seen_at.items() if t <= at]
+    return max(seen) if seen else 0
+
+
+def series_key(series) -> list:
+    """(name, labels, value repr) rows of a parse, comparable exactly."""
+    return [(name, tuple(labels), repr(float(value)))
+            for name, labels, value in series]
+
+
+def check_delta_records(applied: list, watch: DaemonWatcher, first: int,
+                        last: int, live_last: int, skipped: int,
+                        reconnects: list[float]) -> dict:
+    """The sink's applied frames against the daemon's own scrapes: the
+    reconstructed state at every tick that was also scraped equals the
+    scrape; the ticks between ``first`` and ``last`` the sink lacks, each
+    of which must be among the ``skipped`` snapshots the publisher
+    counted over the window; FULLs after each reconnect."""
+    states: dict[int, list] = {}
+    ticks_applied: list[int] = []
+    late = 0
+    for frame in applied:
+        tick = int(poll_count(frame.series))
+        ticks_applied.append(tick)
+        states.setdefault(tick, series_key(frame.series))
+        if tick_at(watch, frame.at) - tick >= 2:
+            late += 1
+    compared = 0
+    for tick, state in states.items():
+        text = watch.texts.get(tick)
+        if text is None:
+            continue
+        want = series_key(validate.parse_exposition_interned(text))
+        require(state == want,
+                f"egress: the sink's delta state at tick {tick} differs from "
+                f"the scrape: {sorted(set(state) ^ set(want))[:10]}")
+        compared += 1
+    require(compared >= 0.5 * len(states),
+            f"egress: only {compared} of {len(states)} delta states had a "
+            f"scrape of their tick")
+    # Every tick of the phase reached the sink, or is one of the
+    # snapshots the publisher counted as skipped: the follower renders
+    # the newest generation at each push, so a tick published while a
+    # push lasts past the next publish is never taken in (the reference's
+    # design; see PERF.md).
+    have = set(ticks_applied)
+    missing = [t for t in range(first, last + 1) if t not in have]
+    # FULLs after each reconnect that re-anchor an unchanged series set
+    # (a resync); a FULL for a changed set is a shape change.
+    resync_fulls = []
+    previous = None
+    for frame in applied:
+        keys = [(name, labels) for name, labels, _ in frame.series]
+        if (frame.kind == 0 and previous is not None and keys == previous
+                and not frame.duplicate):
+            resync_fulls.append(frame.at)
+        previous = keys
+    per_reconnect = []
+    edges = sorted(reconnects) + [math.inf]
+    for start, end in zip(edges, edges[1:]):
+        per_reconnect.append(sum(start <= t < end for t in resync_fulls))
+    before = sum(t < edges[0] for t in resync_fulls)
+    return {"applied": len(applied), "states_compared": compared,
+            "first_tick": first, "last_tick": last,
+            "missing": len(missing), "missing_ticks": missing[:40],
+            "missing_live": sum(t <= live_last for t in missing),
+            "skipped_by_publisher": skipped,
+            "late_frames": late, "resync_fulls_before": before,
+            "resync_fulls_per_reconnect": per_reconnect,
+            "duplicates": sum(frame.duplicate for frame in applied)}
+
+
+def check_remote_write_records(writes: list, watch: DaemonWatcher,
+                               instance: str) -> dict:
+    """The sink's remote-write requests: each snapshot's two shard
+    requests arrived exactly once, oldest-first per shard, and the
+    samples of every snapshot whose tick was also scraped equal the
+    scrape's values (with the writer's job/instance labels, and without
+    the empty-valued labels the wire drops)."""
+    requests = [w for w in writes if w.series]
+    require(requests, "egress: no remote-write request reached the sink")
+    by_ts: dict[int, list] = {}
+    for index, write in enumerate(requests):
+        stamps = {ts for _, samples, _ in write.series for _, ts in samples}
+        require(len(stamps) == 1, f"egress: a request with {len(stamps)} "
+                                  f"timestamps")
+        by_ts.setdefault(stamps.pop(), []).append(index)
+    # Shard identity: routing is stable, so the series of the first
+    # request's first row always rides the same shard.
+    marker = requests[0].series[0][0]
+    shard_of = [0 if any(labels == marker for labels, _, _ in write.series)
+                else 1 for write in requests]
+    bad = {ts: len(idx) for ts, idx in by_ts.items()
+           if sorted(shard_of[i] for i in idx) != [0, 1]}
+    require(not bad, f"egress: remote-write snapshots not delivered exactly "
+                     f"once per shard: {dict(list(bad.items())[:10])}")
+    for shard in (0, 1):
+        stamps = [ts for ts, idx in sorted(by_ts.items(),
+                                           key=lambda kv: min(kv[1]))
+                  for i in idx if shard_of[i] == shard]
+        require(all(b > a for a, b in zip(stamps, stamps[1:])),
+                f"egress: shard {shard} delivered out of order")
+    compared = 0
+    for ts, idx in by_ts.items():
+        got = {}
+        for i in idx:
+            for labels, samples, _ in requests[i].series:
+                labels = dict(labels)
+                name = labels.pop("__name__")
+                got[(name, tuple(sorted(labels.items())))] = \
+                    repr(float(samples[0][0]))
+        tick = int(float(got.get((schema.SELF_POLL_DURATION.name + "_count",
+                                  (("instance", instance),
+                                   ("job", "kube-tpu-stats"))), "0")))
+        text = watch.texts.get(tick)
+        if text is None:
+            continue
+        want = {}
+        for name, labels, value in validate.parse_exposition(text):
+            labels = {k: v for k, v in labels.items() if v}
+            labels.update(job="kube-tpu-stats", instance=instance)
+            want[(name, tuple(sorted(labels.items())))] = repr(float(value))
+        require(got == want,
+                f"egress: remote-write samples at tick {tick} differ from "
+                f"the scrape: {sorted(set(got.items()) ^ set(want.items()))[:10]}")
+        compared += 1
+    require(compared >= 1, "egress: no remote-write snapshot had a scrape of "
+                           "its tick")
+    return {"requests": len(requests), "snapshots": len(by_ts),
+            "snapshots_compared": compared,
+            "protocols": sorted({w.protocol for w in requests}),
+            "bytes_median": statistics.median(w.nbytes for w in requests)}
+
+
+def check_pushgateway_records(pushes: list, watch: DaemonWatcher) -> dict:
+    """Each Pushgateway PUT body of a tick the watcher also scraped is
+    the scrape's text, byte for byte (both are the generation's one
+    render)."""
+    require(pushes, "egress: no Pushgateway push reached the sink")
+    compared = 0
+    for path, body in pushes:
+        require(path.startswith("/metrics/job/kube-tpu-stats/instance/"),
+                f"egress: Pushgateway path {path}")
+        text = body.decode()
+        tick = int(poll_count(validate.parse_exposition(text)))
+        if tick in watch.texts:
+            require(text == watch.texts[tick],
+                    f"egress: the Pushgateway body of tick {tick} differs "
+                    f"from the scrape")
+            compared += 1
+    require(compared >= 1, "egress: no Pushgateway body had a scrape of its "
+                           "tick")
+    return {"pushes": len(pushes), "compared": compared}
+
+
+def wal_append_ms(directory: str, nbytes: int) -> dict:
+    """A remote-write shard's WAL append (CRC frame + write + fsync) in
+    this process, EGRESS_WAL_WRITES times, with a payload the size of the
+    median request, in a ring beside the daemon's."""
+    ring = wal.SegmentRing(os.path.join(directory, "append-probe"),
+                           max_bytes=64 * MIB, segment_bytes=MIB,
+                           prefix="rw", fsync=True, label="append-probe",
+                           format_version=1)
+    payload = os.urandom(int(nbytes))
+    times = []
+    try:
+        for i in range(EGRESS_WAL_WRITES):
+            t0 = time.perf_counter()
+            ring.append(float(i), payload)
+            times.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        ring.close()
+    return {"median_ms": statistics.median(times), "max_ms": max(times),
+            "writes": len(times), "bytes": int(nbytes)}
+
+
+def encode_ms(texts: list[str]) -> dict:
+    """The delta publisher's diff + encode, timed in this process over
+    the daemon's scraped texts in tick order (what the daemon's own
+    ``output="delta"`` histogram leaves out: it times the render-cache
+    read only)."""
+    encoder = delta.DeltaEncoder("chip-smoke", 1, build="chip-smoke")
+    encoder.set_wire(delta.PROTO_MAX, delta.CAPS_CURRENT)
+    full, deltas = [], []
+    for text in texts:
+        t0 = time.perf_counter()
+        _, kind = encoder.encode_next(text)
+        ms = (time.perf_counter() - t0) * 1e3
+        encoder.ack()
+        (full if kind == delta.KIND_FULL else deltas).append(ms)
+    return {"full_ms": statistics.median(full), "fulls": len(full),
+            "delta_ms": statistics.median(deltas), "deltas": len(deltas)}
+
+
+def phase_egress(card_line: str, c5_tick_ms: dict) -> int:
+    """Push egress on card 0: the NVML daemon at 10 Hz under the ``cuda``
+    burn with all three senders on — the delta publisher with a disk
+    spill queue, durable remote write 2.0 over two shards, the
+    Pushgateway pusher — shipping into one ``testing.egress_sink`` in
+    this process. A live window, a blackout of the sink, the recovery,
+    then the sink restarted at wire v1..v1 and at a disjoint v3..v3, and
+    back. Returns the kernel launches."""
+    from kube_gpu_stats_tpu_torch.testing.egress_sink import EgressSink
+
+    workdir = tempfile.mkdtemp(prefix="kts-egress-")
+    sink = EgressSink().start()
+    source = "http://chip-smoke:9400/metrics"
+    flags = ("--interval", str(EGRESS_INTERVAL_S), "--textfile-dir", "",
+             "--hub-url", sink.url, "--hub-push-source", source,
+             "--hub-push-interval", str(EGRESS_PUSH_INTERVAL_S),
+             "--hub-spill-dir", os.path.join(workdir, "spill"),
+             "--remote-write-url", sink.url + "/api/v1/write",
+             "--remote-write-protocol", "2.0",
+             "--remote-write-wal-dir", os.path.join(workdir, "rw"),
+             "--remote-write-shards", "2",
+             "--remote-write-interval", str(EGRESS_RW_INTERVAL_S),
+             "--pushgateway-url", sink.url)
+    instance = socket.gethostname()
+    out: dict = {}
+    failure: list = []
+    marks: dict = {}
+    proc, port, log = start_daemon(workdir, flags)
+    try:
+        with DaemonWatcher(proc, port, log, conform=True,
+                           keep_texts=True) as watch:
+
+            def controller() -> None:
+                try:
+                    # Every sender has delivered and the publisher has
+                    # negotiated v2 off the sink's first hello.
+                    wait_egress(port, "the senders' first delivery",
+                                lambda e, k: sink.applied()
+                                and sink.writes() and sink.pushes()
+                                and k["publisher"]["negotiated_proto"] == 2,
+                                30.0)
+                    time.sleep(1.0)
+                    egress, _ = egress_state(port)
+                    marks["live"] = (
+                        time.monotonic(), max(watch.seen_at, default=0),
+                        egress["senders"]["delta"]["skipped_total"])
+                    time.sleep(EGRESS_LIVE_S)
+                    out["doctor_live"] = run_doctor(
+                        port, "--egress", "--skew", "--remote-write-url",
+                        sink.url + "/api/v1/write",
+                        "--remote-write-protocol", "2.0")
+                    egress, _ = egress_state(port)
+                    marks["cut"] = (time.monotonic(),
+                                    max(watch.seen_at, default=0),
+                                    egress["spill"]["spooled_total"])
+                    sink.blackout()
+                    time.sleep(EGRESS_BLACKOUT_S / 2)
+                    out["doctor_blackout"] = run_doctor(port, "--egress")
+                    remaining = EGRESS_BLACKOUT_S - (time.monotonic()
+                                                    - marks["cut"][0])
+                    time.sleep(max(0.0, remaining))
+                    egress, _ = egress_state(port)
+                    marks["restore"] = (time.monotonic(),
+                                        max(watch.seen_at, default=0),
+                                        egress["spill"]["spooled_total"])
+                    out["blackout_egress"] = egress
+                    sink.restore()
+                    out["recovered"] = wait_egress(
+                        port, "the recovery drain", drained,
+                        EGRESS_RECOVERY_MAX_S)
+                    marks["recovered"] = (time.monotonic(),
+                                          max(watch.seen_at, default=0))
+                    # Skew: the sink back at v1..v1, then disjoint.
+                    _, skew = egress_state(port)
+                    before = skew["publisher"]
+                    marks["v1"] = time.monotonic()
+                    sink.restart(1, 1)
+                    out["v1"] = wait_egress(
+                        port, "the downgrade to v1",
+                        lambda e, k: k["publisher"]["negotiated_proto"] == 1
+                        and k["publisher"]["proto_downgrades_total"]
+                        > before["proto_downgrades_total"], 15.0)
+                    marks["v3"] = time.monotonic()
+                    sink.restart(3, 3)
+                    out["v3"] = wait_egress(
+                        port, "the disjoint refusal",
+                        lambda e, k: k["publisher"]["skew_refused_total"]
+                        > out["v1"][1]["publisher"]["skew_refused_total"]
+                        and e["spill"]["depth_frames"] > 0, 15.0)
+                    out["doctor_skew_refused"] = run_doctor(port, "--skew")
+                    marks["v2"] = time.monotonic()
+                    sink.restart(1, 2)
+                    out["back"] = wait_egress(
+                        port, "the drain after the skew",
+                        lambda e, k: drained(e)
+                        and k["publisher"]["negotiated_proto"] == 2,
+                        EGRESS_RECOVERY_MAX_S)
+                    time.sleep(1.0)
+                    marks["end"] = (time.monotonic(),
+                                    max(watch.seen_at, default=0))
+                    # A read can land between a snapshot's journaling
+                    # and its shard's send: wait for a quiescent one.
+                    out["final_egress"], out["final_skew"], _ = \
+                        wait_egress(port, "the final drain", drained, 10.0)
+                except Exception as exc:  # noqa: BLE001 - re-raised
+                    failure.append(exc)
+
+            thread = threading.Thread(target=controller, daemon=True)
+            tiled_burn.launches = 0
+            thread.start()
+            steps = chunks = 0
+            while thread.is_alive():
+                chunks += 1
+                steps += run_burn(seconds=EGRESS_BURN_CHUNK_S,
+                                  size=MAIN_SIZE, report_every=1e9,
+                                  kernel="cuda", device="cuda:0")
+                require(chunks * EGRESS_BURN_CHUNK_S < 240,
+                        "the egress phase did not end in 240 s")
+            launches = tiled_burn.launches
+            thread.join(timeout=30)
+            require(not failure, f"the egress phase failed: {failure}")
+            last = validate.parse_exposition(scrape(port))
+    finally:
+        rc = stop_daemon(proc)
+        sink.stop()
+    require(rc == 0, f"the egress daemon exited {rc}: {log[-20:]}")
+    require(launches == steps + chunks,
+            f"{launches} launches for {steps} steps in {chunks} chunks")
+    applied = sink.applied(source)
+    reconnects = [marks["restore"][0], marks["v1"], marks["v3"],
+                  marks["v2"]]
+    in_phase = [a for a in applied if a.at >= marks["live"][0]]
+    require(in_phase, "egress: no delta frame reached the sink in the phase")
+    first_tick = int(poll_count(in_phase[0].series))
+    last_tick = marks["end"][1]
+    skipped = (out["final_egress"]["senders"]["delta"]["skipped_total"]
+               - marks["live"][2])
+    delta_row = check_delta_records(in_phase, watch, first_tick, last_tick,
+                                    marks["cut"][1], skipped, reconnects)
+    rw_row = check_remote_write_records(sink.writes(), watch, instance)
+    pg_row = check_pushgateway_records(sink.pushes(), watch)
+    final = out["final_egress"]
+    spill = final["spill"]
+    cut_tick, restore_tick = marks["cut"][1], marks["restore"][1]
+    spooled_in_blackout = marks["restore"][2] - marks["cut"][2]
+    blackout_ticks = restore_tick - cut_tick
+    windows = {
+        "live": window_p50(watch.traced, first_tick, cut_tick),
+        "blackout": window_p50(watch.traced, cut_tick + 1, restore_tick),
+        "recovery": window_p50(watch.traced, restore_tick + 1,
+                               marks["recovered"][1]),
+    }
+    fulls = [a.nbytes for a in applied if a.kind == 0]
+    deltas = [a.nbytes for a in applied if a.kind == 1]
+    rc_live, rows_live = out["doctor_live"]
+    rc_black, rows_black = out["doctor_blackout"]
+    rc_refused, rows_refused = out["doctor_skew_refused"]
+    publisher = out["final_skew"]["publisher"]
+    delta_render = histogram_summary(last, schema.SELF_SCRAPE_DURATION.name,
+                                     {"output": "delta"})
+    rw_render = histogram_summary(last, schema.SELF_SCRAPE_DURATION.name,
+                                  {"output": "remote_write"})
+    row = {
+        "card": card_line, "interval_s": EGRESS_INTERVAL_S,
+        "hub_push_interval_s": EGRESS_PUSH_INTERVAL_S,
+        "remote_write_interval_s": EGRESS_RW_INTERVAL_S,
+        "windows_s": {"live": EGRESS_LIVE_S, "blackout": EGRESS_BLACKOUT_S,
+                      "recovery": out["recovered"][2],
+                      "skew_drain": out["back"][2]},
+        "tick_ms": {k: v["tick"] for k, v in windows.items()},
+        "c5_pipelined_tick_ms": c5_tick_ms,
+        "delta": delta_row,
+        "blackout": {"ticks": blackout_ticks,
+                     "spooled": spooled_in_blackout,
+                     "spooled_per_tick": spooled_in_blackout
+                     / max(1, blackout_ticks)},
+        "spill": {k: spill[k] for k in ("spooled_total", "drained_total",
+                                        "dropped_total", "depth_frames",
+                                        "undecodable_total")},
+        "remote_write": rw_row | {
+            "shards": [{k: shard[k] for k in (
+                "shard", "sent_total", "wal_records", "dropped_total",
+                "parked_total", "lag_seconds")}
+                for shard in final["remote_write"]["shards"]]},
+        "pushgateway": pg_row,
+        "frame_bytes": {"first_full": fulls[0] if fulls else None,
+                        "delta_median": statistics.median(deltas)
+                        if deltas else None,
+                        "fulls": len(fulls), "deltas": len(deltas)},
+        "publisher_render_ms": delta_render,
+        "publisher_encode_ms": encode_ms(
+            [watch.texts[t] for t in sorted(watch.texts)][-200:]),
+        "remote_write_serialize_ms": rw_render,
+        "remote_write_wal_append": wal_append_ms(workdir,
+                                                 rw_row["bytes_median"]),
+        "skew": {"final": publisher,
+                 "v1": out["v1"][1]["publisher"],
+                 "v3": out["v3"][1]["publisher"],
+                 "sink_statuses": dict(sorted(sink.delta_status.items()))},
+        "doctor": {
+            "live": {name: [rows_live[name]["status"],
+                            rows_live[name]["detail"]]
+                     for name in ("egress", "skew", "remote-write")},
+            "live_rc": rc_live,
+            "blackout": [rc_black, rows_black["egress"]["status"],
+                         rows_black["egress"]["detail"]],
+            "skew_refused": [rc_refused, rows_refused["skew"]["status"],
+                             rows_refused["skew"]["detail"]]},
+        "scrapes_validated": watch.scrapes,
+        "burn": {"steps": steps, "chunks": chunks, "launches": launches}}
+    emit("egress", row)
+    # Same numbers as the scrape: checked inside the check_* calls above.
+    # A partition is late, not lost.
+    require(0.8 <= row["blackout"]["spooled_per_tick"] <= 1.0,
+            f"egress: {spooled_in_blackout} frames spooled over "
+            f"{blackout_ticks} blackout ticks")
+    require(spill["drained_total"] == spill["spooled_total"]
+            and spill["dropped_total"] == 0 and spill["depth_frames"] == 0
+            and spill["undecodable_total"] == 0,
+            f"egress: spill accounting {row['spill']}")
+    require(delta_row["missing"] <= skipped,
+            f"egress: {delta_row['missing']} ticks missing at the sink, "
+            f"{skipped} skipped by the publisher: "
+            f"{delta_row['missing_ticks']}")
+    require(delta_row["resync_fulls_per_reconnect"][0] <= 1
+            and all(n <= 1 for n in delta_row["resync_fulls_per_reconnect"])
+            and delta_row["resync_fulls_before"] == 0,
+            f"egress: FULL resyncs {delta_row}")
+    require(409 not in sink.delta_status,
+            f"egress: the sink answered 409 {sink.delta_status}")
+    for shard in final["remote_write"]["shards"]:
+        require(shard["wal_records"] == 0 and shard["dropped_total"] == 0
+                and shard["parked_total"] == 0,
+                f"egress: remote-write shard {shard}")
+        require(shard["lag_seconds"] < 2 * EGRESS_RW_INTERVAL_S,
+                f"egress: shard {shard['shard']} lag {shard['lag_seconds']} s")
+    # Skew.
+    require(out["v1"][1]["publisher"]["negotiated_proto"] == 1,
+            "egress: no downgrade to v1")
+    require(publisher["negotiated_proto"] == 2
+            and publisher["skew_refused_total"]
+            > out["v1"][1]["publisher"]["skew_refused_total"],
+            f"egress: skew counters {publisher}")
+    # Doctor.
+    require(rc_live == 0 and all(
+        rows_live[name]["status"] == "ok"
+        for name in ("egress", "skew", "remote-write")),
+        f"egress: doctor live {row['doctor']['live']}")
+    require("negotiated v2" in rows_live["skew"]["detail"],
+            f"egress: doctor --skew live {rows_live['skew']['detail']}")
+    require(rows_black["egress"]["status"] == "warn"
+            and "link down" in rows_black["egress"]["detail"]
+            and "delta" in rows_black["egress"]["detail"],
+            f"egress: doctor --egress in the blackout {row['doctor']}")
+    require(rows_refused["skew"]["status"] == "warn"
+            and "REFUSED" in rows_refused["skew"]["detail"],
+            f"egress: doctor --skew refused {rows_refused['skew']}")
+    # Cost: the daemon's own limit.
+    for name, window in windows.items():
+        require(window["tick"]["p50_ms"] < TICK_BUDGET_MS,
+                f"egress: {name} tick p50 {window['tick']}")
+    senders = final["senders"]
+    require(set(senders) == {"delta", "remote_write", "pushgateway"},
+            f"egress: senders {senders}")
+    return launches
+
+
 def library_call():
     """The yardstick: one PyTorch call computing the same function. Returns
     (name, fn(a, b))."""
@@ -2565,6 +3103,7 @@ def phases() -> None:
     launches += c5_launches
     launches += phase_burst(card)
     launches += phase_energy(card, c5_tick_ms)
+    launches += phase_egress(card, c5_tick_ms)
     t = phase_timing(card)
     emit("kernels", [{
         "name": KERNEL_NAME, "route": "cuda", "source": KERNEL_SOURCE,

@@ -20,9 +20,11 @@ recorder's read side and event journal (``tracing.py``), the server's
 ``/debug/*`` endpoints, TLS/mTLS and basic auth; the daemon's pipelined
 sampling, host signals (``hoststats.py``) and sub-tick power burst
 sampler (``burstsampler.py``); the per-pod energy accountant
-(``energy.py``) on the write-ahead stores (``wal.py``); the H100 deploy
-assets (``deploy/``); and the entry points (``entry.py``). The hub and
-top come in later slices. The daemon and doctor paths import no torch.
+(``energy.py``) on the write-ahead stores (``wal.py``); push egress
+(the delta publisher with its disk spill queue, durable remote write
+1.0/2.0, the Pushgateway pusher); the H100 deploy assets
+(``deploy/``); and the entry points (``entry.py``). The hub and top
+come in later slices. The daemon and doctor paths import no torch.
 
 Layer map:
 
@@ -30,7 +32,8 @@ Layer map:
                       loadgen, validate and doctor subcommands
     doctor.py         node preflight: nvml, attribution, topology, poll,
                       --url scrape and live breakers, --trace post-mortem,
-                      --host summary, --energy digest, --stores health
+                      --host summary, --energy digest, --stores health,
+                      --egress and --skew, the remote-write probe
     daemon.py         Daemon: backend choice, watchers, supervisor, server
     config.py         its flags and KTS_* environment
     collectors/nvml.py  NvmlCollector over native/nvml.py (ctypes NVML)
@@ -51,7 +54,14 @@ Layer map:
     embedded.py       TorchIntrospectCollector (steps, FLOPs, MFU, allocator
                       memory per card), EmbeddedExporter, start()
     exposition.py     MetricsServer (/metrics, /healthz, /readyz, /debug/*;
-                      TLS, mTLS, basic auth), textfile
+                      TLS, mTLS, basic auth), textfile, PushgatewayPusher
+    delta.py          the push-delta frame codec, DeltaEncoder and
+                      DeltaPublisher (node -> hub)
+    spillq.py         the publisher's disk spill queue (a wal.SegmentRing)
+    remote_write.py   RemoteWriter: remote write 1.0/2.0, durable shards
+    snappy.py         snappy block codec (remote write, delta frames)
+    proto/            protobuf codec: PodResources, prompb, prompb2
+    testing/egress_sink.py  one receiver for all three push paths
     tracing.py        the flight recorder: tick spans, event journal, and
                       their read side (/debug/ticks|trace|events)
     profiler.py       stack sampling behind /debug/profile
@@ -66,7 +76,7 @@ Layer map:
     validate.py       the accelerator_* contract checker and its parsers
     collectors/       the collector trait; workers, resilience,
                       cardinality, procstats, ici, history, fleetlens,
-                      delta, topology, proto: the parts of them the stack uses
+                      topology: the parts of them the stack uses
     kinds.py          accel_type and the per-kind datasheet tables
     device.py         device resolution and the Hopper probe
 """

@@ -5,7 +5,10 @@ The port's copy of the reference's ``Config``, ``build_parser`` and
 reference's name, default and ``KTS_*`` environment variable, so the
 DaemonSet manifest configures the container without args churn; a
 reference flag that is not wired here is rejected by argparse, not
-accepted and ignored. ``nvml`` takes the place of the reference's ``tpu``
+accepted and ignored. The push-egress flags (``--pushgateway-*``,
+``--remote-write-*``, ``--hub-*``) come from the reference whole:
+:func:`add_delta_push_flags` and :func:`validate_delta_push_args` keep
+its shape so the hub can share them when it is ported. ``nvml`` takes the place of the reference's ``tpu``
 backend; the reference's ``gpu`` (drm sysfs) backend is not offered on an
 NVIDIA node.
 """
@@ -15,6 +18,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import re
 from typing import Sequence
 
 DEFAULT_KUBELET_SOCKET = "/var/lib/kubelet/pod-resources/kubelet.sock"
@@ -35,7 +39,26 @@ class Config:
     tls_client_ca_file: str = ""  # set = require client certs (mTLS)
     auth_username: str = ""  # + password hash = basic auth on /metrics
     auth_password_sha256: str = ""
+    max_concurrent_scrapes: int = 16  # parallel /metrics renders; 0 = off
     textfile_dir: str = ""  # empty = textfile output disabled
+    pushgateway_url: str = ""  # empty = push disabled
+    pushgateway_job: str = "kube-tpu-stats"
+    remote_write_url: str = ""  # empty = remote_write disabled
+    remote_write_job: str = "kube-tpu-stats"
+    remote_write_interval: float = 15.0
+    remote_write_bearer_token_file: str = ""
+    remote_write_protocol: str = "1.0"  # 1.0 | 2.0 (415 downgrades to 1.0)
+    remote_write_extra_labels: tuple = ()  # ((name, value), ...) stamped on
+    #                                        every remote-written series
+    # Durable sharded exporter: wal_dir set => every snapshot is
+    # journaled to per-shard write-ahead segment rings and drained with
+    # retry classification (5xx/timeout retried off the WAL, poison 4xx
+    # parked, Retry-After honored) — a receiver outage becomes late
+    # delivery, bounded and accounted, instead of a hole.
+    remote_write_shards: int = 1
+    remote_write_wal_dir: str = ""
+    remote_write_wal_max_bytes: int = 64 * 1024 * 1024
+    remote_write_drain_max: int = 64  # requests per shard per push cycle
     sysfs_root: str = "/sys"
     proc_root: str = "/proc"
     device_processes: str = "on"  # accelerator_process_open scan (on|off)
@@ -66,6 +89,33 @@ class Config:
     energy_checkpoint_interval: float = 10.0
     energy_audit_key: str = ""  # HMAC key signing the /debug/energy
     #                             digest; empty = unsigned
+    # Delta push: when hub_url is set, the daemon publishes seq-numbered
+    # changed-series deltas to that hub's /ingest/delta instead of
+    # waiting to be pull-scraped. hub_push_source is the identity the
+    # hub lists this node under — by convention the node's own scrape
+    # URL, so the hub's pull fallback lands on the right endpoint; empty
+    # derives it from the hostname and listen port at startup.
+    hub_url: str = ""
+    hub_push_source: str = ""
+    hub_push_interval: float = 1.0
+    # Credentials + TLS trust for the POSTs to --hub-url. The password
+    # rides in a file, re-read per push, never on the command line.
+    hub_auth_username: str = ""
+    hub_auth_password_file: str = ""
+    hub_ca_file: str = ""
+    hub_insecure_tls: bool = False
+    # Partition survival: when hub_spill_dir is set, a publisher whose
+    # hub link is down spools every published snapshot to a bounded
+    # on-disk ring and drains it oldest-first (at most hub_drain_rate
+    # frames/s) on reconnect. Empty = offline snapshots are lost.
+    hub_spill_dir: str = ""
+    hub_spill_max_bytes: int = 64 * 1024 * 1024
+    hub_drain_rate: float = 50.0
+    # The highest delta wire-protocol version this publisher negotiates
+    # UP to; 0 = this build's maximum (delta.PROTO_MAX). The publisher
+    # still opens at v1 and raises only on the hub's hello, so this is a
+    # ceiling, not a request.
+    hub_proto_max: int = 0
     host_stats: bool = True
     cgroup_root: str = "/sys/fs/cgroup"  # cgroup v2 mount for per-pod stats
     mock_devices: int = 4
@@ -84,6 +134,147 @@ def _env(name: str, default: str | None = None) -> str | None:
 def _env_bool(name: str) -> bool:
     raw = os.environ.get("KTS_" + name, "")
     return raw.strip().lower() in ("1", "true", "yes", "on")
+
+
+def parse_extra_labels(raw: str) -> tuple:
+    """Parse 'name=value,name2=value2' into label pairs, rejecting names
+    that collide with the schema (a duplicate label name makes every
+    remote-written series invalid) — raises ValueError naming the entry."""
+    from . import schema
+
+    reserved = {"job", "instance", "le", "__name__"}
+    reserved.update(schema.ALL_BASE_LABELS)
+    for spec in schema.ALL_METRICS:
+        reserved.update(spec.extra_labels)
+    pairs = []
+    for token in raw.split(","):
+        token = token.strip()
+        if not token:
+            continue
+        name, sep, value = token.partition("=")
+        name = name.strip()
+        value = value.strip()
+        if not sep or not name:
+            raise ValueError(
+                f"extra label {token!r} must be name=value")
+        if not value:
+            # The wire encoders drop empty-valued labels (spec), so an
+            # empty value would silently no-op — reject it here instead.
+            raise ValueError(
+                f"extra label {name!r} needs a non-empty value")
+        if not re.match(r"^[a-zA-Z_][a-zA-Z0-9_]*$", name):
+            raise ValueError(f"invalid extra label name {name!r}")
+        if name in reserved:
+            raise ValueError(
+                f"extra label {name!r} collides with a schema/identity "
+                f"label")
+        pairs.append((name, value))
+    names = [name for name, _ in pairs]
+    if len(names) != len(set(names)):
+        raise ValueError("duplicate extra label names")
+    return tuple(pairs)
+
+
+
+def add_delta_push_flags(p: argparse.ArgumentParser) -> None:
+    """The delta-push publisher flag surface, shared by the daemon
+    parser (node -> hub) and `kube-tpu-stats hub` (leaf hub -> root hub
+    in a federation tree): one definition so spellings, KTS_* env vars
+    and defaults can never drift between the two CLIs."""
+    p.add_argument("--hub-url", default=_env("HUB_URL", ""),
+                   help="base URL of an upstream hub (e.g. "
+                        "http://hub:9401); when set, each published "
+                        "snapshot ships as a seq-numbered changed-series "
+                        "delta to <url>/ingest/delta — a quiet tick "
+                        "costs bytes proportional to churn, not chip "
+                        "count. Empty disables (the hub can still "
+                        "pull-scrape this exporter)")
+    p.add_argument("--hub-push-source",
+                   default=_env("HUB_PUSH_SOURCE", ""),
+                   help="identity the upstream hub lists this publisher "
+                        "under (its 'target'). Use this node's own "
+                        "scrape URL so the hub's automatic pull "
+                        "fallback hits the right endpoint when the push "
+                        "session goes stale; empty derives "
+                        "http://<hostname>:<listen-port>/metrics")
+    p.add_argument("--hub-push-interval", type=float,
+                   default=float(_env("HUB_PUSH_INTERVAL", "1.0")),
+                   help="minimum seconds between delta pushes (each "
+                        "push follows a snapshot publish; backs off "
+                        "under consecutive failures)")
+    p.add_argument("--hub-auth-username",
+                   default=_env("HUB_AUTH_USERNAME", ""),
+                   help="basic-auth username sent with every delta "
+                        "push to --hub-url (hubs behind "
+                        "--auth-username); needs "
+                        "--hub-auth-password-file")
+    p.add_argument("--hub-auth-password-file",
+                   default=_env("HUB_AUTH_PASSWORD_FILE", ""),
+                   help="file holding the delta-push basic-auth "
+                        "password (re-read per push; rotations apply "
+                        "without a restart)")
+    p.add_argument("--hub-ca-file", default=_env("HUB_CA_FILE", ""),
+                   help="CA bundle verifying an https --hub-url's TLS "
+                        "cert (hubs behind --tls-cert-file signed by a "
+                        "private CA)")
+    p.add_argument("--hub-insecure-tls", action="store_true",
+                   default=_env_bool("HUB_INSECURE_TLS"),
+                   help="skip TLS verification of an https --hub-url "
+                        "(self-signed dev certs; prefer --hub-ca-file)")
+    p.add_argument("--hub-spill-dir", default=_env("HUB_SPILL_DIR", ""),
+                   help="directory for the delta-push spill queue: while "
+                        "--hub-url is unreachable every published "
+                        "snapshot spools to a bounded on-disk ring "
+                        "(fsynced, crash-recoverable) and drains "
+                        "oldest-first on reconnect, so a partition "
+                        "yields a late-but-complete record instead of a "
+                        "hole. Empty disables (offline ticks are "
+                        "dropped)")
+    p.add_argument("--hub-spill-max-bytes", type=int,
+                   default=int(_env("HUB_SPILL_MAX_BYTES",
+                                    str(64 * 1024 * 1024))),
+                   help="spill queue byte bound; past it the OLDEST "
+                        "frames are dropped, counted in "
+                        "kts_spill_dropped_total and journaled (bounded "
+                        "loss is accounted loss)")
+    p.add_argument("--hub-drain-rate", type=float,
+                   default=float(_env("HUB_DRAIN_RATE", "50")),
+                   help="max spooled frames/second sent while draining "
+                        "a backlog (token bucket) — the whole returning "
+                        "fleet must never stampede a recovering hub; "
+                        "429/503 + Retry-After from the hub pauses the "
+                        "drain on top of this")
+    p.add_argument("--hub-proto-max", type=int,
+                   default=int(_env("HUB_PROTO_MAX", "0")),
+                   help="highest delta wire-protocol version to "
+                        "negotiate up to against --hub-url (version "
+                        "skew): the publisher always OPENS "
+                        "at v1 and only raises to min(this, the hub's "
+                        "advertised max). 0 = this build's maximum; "
+                        "pin (e.g. 1) to hold a rollout wave on the "
+                        "old encoding")
+
+
+
+def validate_delta_push_args(args) -> str | None:
+    """Conflict rules for the shared delta-push transport flags; both
+    CLIs surface the string through their own parser.error."""
+    if bool(args.hub_auth_username) != bool(args.hub_auth_password_file):
+        return ("--hub-auth-username and --hub-auth-password-file must "
+                "be set together")
+    if args.hub_ca_file and args.hub_insecure_tls:
+        return "--hub-ca-file and --hub-insecure-tls are mutually exclusive"
+    if args.hub_push_interval <= 0:
+        return "--hub-push-interval must be > 0 seconds"
+    if args.hub_spill_max_bytes < 1 << 16:
+        return ("--hub-spill-max-bytes must be >= 65536 (a bound smaller "
+                "than one frame spools nothing)")
+    if args.hub_drain_rate <= 0:
+        return "--hub-drain-rate must be > 0 frames/second"
+    if args.hub_proto_max < 0:
+        return "--hub-proto-max must be >= 0 (0 = this build's maximum)"
+    return None
+
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -110,6 +301,65 @@ def build_parser() -> argparse.ArgumentParser:
                    default=int(_env("LISTEN_PORT", "9400")))
     p.add_argument("--textfile-dir", default=_env("TEXTFILE_DIR", ""),
                    help="node_exporter textfile dir; empty disables")
+    p.add_argument("--pushgateway-url", default=_env("PUSHGATEWAY_URL", ""),
+                   help="Prometheus Pushgateway base URL; empty disables")
+    p.add_argument("--pushgateway-job",
+                   default=_env("PUSHGATEWAY_JOB", "kube-tpu-stats"))
+    p.add_argument("--remote-write-url",
+                   default=_env("REMOTE_WRITE_URL", ""),
+                   help="Prometheus remote_write receiver endpoint "
+                        "(Mimir/Thanos/GMP); empty disables; see "
+                        "--remote-write-protocol")
+    p.add_argument("--remote-write-job",
+                   default=_env("REMOTE_WRITE_JOB", "kube-tpu-stats"),
+                   help="job label stamped on every remote-written series")
+    p.add_argument("--remote-write-interval", type=float,
+                   default=float(_env("REMOTE_WRITE_INTERVAL", "15.0")),
+                   help="minimum seconds between remote-write pushes")
+    p.add_argument("--remote-write-bearer-token-file",
+                   default=_env("REMOTE_WRITE_BEARER_TOKEN_FILE", ""),
+                   help="file with a bearer token for the receiver "
+                        "(re-read per push; rotating tokens work)")
+    p.add_argument("--remote-write-extra-labels",
+                   default=_env("REMOTE_WRITE_EXTRA_LABELS", ""),
+                   help="comma-separated name=value labels stamped on "
+                        "every remote-written series (the Prometheus "
+                        "external_labels analog for a push path that "
+                        "has no Prometheus to attach cluster/region "
+                        "identity, e.g. 'cluster=prod,region=us-east1')")
+    p.add_argument("--remote-write-protocol", choices=("1.0", "2.0"),
+                   default=_env("REMOTE_WRITE_PROTOCOL", "1.0"),
+                   help="remote-write wire protocol; 2.0 interns label "
+                        "strings and sends typed metadata, and falls "
+                        "back to 1.0 if the receiver answers 415")
+    p.add_argument("--remote-write-wal-dir",
+                   default=_env("REMOTE_WRITE_WAL_DIR", ""),
+                   help="directory for the durable exporter's per-shard "
+                        "write-ahead segment rings: snapshots are "
+                        "journaled to disk BEFORE sending and drained "
+                        "oldest-first with retry classification "
+                        "(5xx/timeout retried, poison 4xx parked, "
+                        "Retry-After honored), so a receiver outage is "
+                        "late delivery, not a hole in the TSDB. Empty = "
+                        "legacy best-effort (failures drop the snapshot)")
+    p.add_argument("--remote-write-shards", type=int,
+                   default=int(_env("REMOTE_WRITE_SHARDS", "1")),
+                   help="send shards for the durable exporter (series "
+                        "hash to a shard by identity; each shard has "
+                        "its own WAL ring, backoff and parked ring). "
+                        "Needs --remote-write-wal-dir when > 1")
+    p.add_argument("--remote-write-wal-max-bytes", type=int,
+                   default=int(_env("REMOTE_WRITE_WAL_MAX_BYTES",
+                                    str(64 * 1024 * 1024))),
+                   help="per-shard WAL byte bound; past it the OLDEST "
+                        "segment is evicted whole, counted in "
+                        "kts_remote_write_dropped_total and journaled")
+    p.add_argument("--remote-write-drain-max", type=int,
+                   default=int(_env("REMOTE_WRITE_DRAIN_MAX", "64")),
+                   help="max backlogged requests one shard sends per "
+                        "push cycle while catching up after an outage "
+                        "(bounds the catch-up burst a recovering "
+                        "receiver absorbs)")
     p.add_argument("--sysfs-root", default=_env("SYSFS_ROOT", "/sys"))
     p.add_argument("--proc-root", default=_env("PROC_ROOT", "/proc"))
     p.add_argument("--device-processes", choices=("on", "off"),
@@ -185,6 +435,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="CA bundle; set = require and verify a client "
                         "certificate on every connection (mTLS). Needs "
                         "--tls-cert-file/--tls-key-file")
+    p.add_argument("--max-concurrent-scrapes", type=int,
+                   default=int(_env("MAX_CONCURRENT_SCRAPES", "16")),
+                   help="parallel /metrics renders before answering 503 "
+                        "(scrape-storm guard; probes exempt; 0 disables)")
     p.add_argument("--auth-username", default=_env("AUTH_USERNAME", ""),
                    help="basic-auth user for all endpoints except "
                         "/healthz and /readyz (kubelet probes)")
@@ -192,6 +446,7 @@ def build_parser() -> argparse.ArgumentParser:
                    default=_env("AUTH_PASSWORD_SHA256", ""),
                    help="hex sha256 of the basic-auth password (never the "
                         "plaintext)")
+    add_delta_push_flags(p)
     p.add_argument("--burst-mode", choices=("off", "auto", "continuous"),
                    default=_env("BURST_MODE", "auto"),
                    help="sub-tick power burst sampler (burstsampler.py): "
@@ -335,6 +590,11 @@ def from_args(argv: Sequence[str] | None = None) -> Config:
             metrics_include, metrics_exclude)
     except ValueError as exc:
         parser.error(str(exc))
+    try:
+        remote_write_extra_labels = parse_extra_labels(
+            args.remote_write_extra_labels)
+    except ValueError as exc:
+        parser.error(f"--remote-write-extra-labels: {exc}")
     if args.backend not in BACKENDS:
         # argparse `choices` only validates CLI-supplied values; a bad
         # KTS_BACKEND env default must fail as a usage error too.
@@ -360,6 +620,30 @@ def from_args(argv: Sequence[str] | None = None) -> Config:
         parser.error("--interval must be > 0 seconds")
     if args.deadline <= 0:
         parser.error("--deadline must be > 0 seconds")
+    if args.max_concurrent_scrapes < 0:
+        parser.error("--max-concurrent-scrapes must be >= 0 (0 disables)")
+    if args.remote_write_interval <= 0:
+        parser.error("--remote-write-interval must be > 0 seconds")
+    if not 1 <= args.remote_write_shards <= 64:
+        parser.error("--remote-write-shards must be 1..64")
+    if args.remote_write_shards > 1 and not args.remote_write_wal_dir:
+        parser.error("--remote-write-shards > 1 needs "
+                     "--remote-write-wal-dir (sharding exists for the "
+                     "durable exporter)")
+    if args.remote_write_wal_max_bytes < 1 << 16:
+        parser.error("--remote-write-wal-max-bytes must be >= 65536")
+    if args.remote_write_drain_max < 1:
+        parser.error("--remote-write-drain-max must be >= 1")
+    if args.remote_write_protocol not in ("1.0", "2.0"):
+        # argparse `choices` only validates CLI-supplied values; a bad
+        # KTS_REMOTE_WRITE_PROTOCOL env default would otherwise crash the
+        # daemon later with a traceback instead of a usage error.
+        parser.error(
+            f"--remote-write-protocol must be 1.0 or 2.0 "
+            f"(got {args.remote_write_protocol!r})")
+    push_error = validate_delta_push_args(args)
+    if push_error:
+        parser.error(push_error)
     if bool(args.tls_cert_file) != bool(args.tls_key_file):
         parser.error("--tls-cert-file and --tls-key-file must be set together")
     if args.tls_client_ca_file and not args.tls_cert_file:
@@ -386,7 +670,20 @@ def from_args(argv: Sequence[str] | None = None) -> Config:
         tls_client_ca_file=args.tls_client_ca_file,
         auth_username=args.auth_username,
         auth_password_sha256=args.auth_password_sha256,
+        max_concurrent_scrapes=args.max_concurrent_scrapes,
         textfile_dir=args.textfile_dir,
+        pushgateway_url=args.pushgateway_url,
+        pushgateway_job=args.pushgateway_job,
+        remote_write_url=args.remote_write_url,
+        remote_write_job=args.remote_write_job,
+        remote_write_interval=args.remote_write_interval,
+        remote_write_bearer_token_file=args.remote_write_bearer_token_file,
+        remote_write_protocol=args.remote_write_protocol,
+        remote_write_extra_labels=remote_write_extra_labels,
+        remote_write_shards=args.remote_write_shards,
+        remote_write_wal_dir=args.remote_write_wal_dir,
+        remote_write_wal_max_bytes=args.remote_write_wal_max_bytes,
+        remote_write_drain_max=args.remote_write_drain_max,
         sysfs_root=args.sysfs_root,
         proc_root=args.proc_root,
         device_processes=args.device_processes,
@@ -410,6 +707,17 @@ def from_args(argv: Sequence[str] | None = None) -> Config:
         energy_checkpoint=args.energy_checkpoint,
         energy_checkpoint_interval=args.energy_checkpoint_interval,
         energy_audit_key=args.energy_audit_key,
+        hub_url=args.hub_url,
+        hub_push_source=args.hub_push_source,
+        hub_push_interval=args.hub_push_interval,
+        hub_auth_username=args.hub_auth_username,
+        hub_auth_password_file=args.hub_auth_password_file,
+        hub_ca_file=args.hub_ca_file,
+        hub_insecure_tls=args.hub_insecure_tls,
+        hub_spill_dir=args.hub_spill_dir,
+        hub_spill_max_bytes=args.hub_spill_max_bytes,
+        hub_drain_rate=args.hub_drain_rate,
+        hub_proto_max=args.hub_proto_max,
         host_stats=not args.no_host_stats,
         cgroup_root=args.cgroup_root,
         mock_devices=args.mock_devices,

@@ -17,12 +17,18 @@ events, anomaly auto-arm), the WAL stores (disk faults and recoveries)
 and the HTTP server (``/debug/ticks|trace|events``). The server takes
 the TLS, mTLS and basic-auth flags, and serves ``/debug/burst`` (while
 ``--burst-mode`` is not off), ``/debug/energy`` (the energy accountant's
-signed digest), ``/debug/stores`` (every disk-backed store's health) and
-``/debug/host``.
+signed digest), ``/debug/stores`` (every disk-backed store's health),
+``/debug/host``, ``/debug/egress`` and ``/debug/skew``.
 
-Not wired here (the reference's, left for later): push egress
-(Pushgateway, remote write, delta push, spill queue) and
-``reconfigure``.
+Push egress: ``--pushgateway-url`` (:class:`PushgatewayPusher`),
+``--remote-write-url`` (``remote_write.RemoteWriter``, durable and
+sharded with ``--remote-write-wal-dir``) and ``--hub-url``
+(``delta.DeltaPublisher``, with a disk spill queue under
+``--hub-spill-dir``). Each sender runs on its own publish-following
+thread and reads the render cache of the published generation: none of
+them makes an NVML call or holds up a tick.
+
+Not wired here (the reference's, left for later): ``reconfigure``.
 """
 
 from __future__ import annotations
@@ -37,8 +43,10 @@ from .collectors import Collector
 from .collectors.mock import MockCollector, NullCollector
 from .burstsampler import BurstSampler
 from .config import Config
+from .delta import PROTO_MAX, PROTO_MIN
 from .energy import DEFAULT_COVER_GAP, EnergyAccountant
-from .exposition import MetricsServer, RenderStats, TextfileWriter
+from .exposition import (MetricsServer, PushgatewayPusher, RenderStats,
+                         TextfileWriter)
 from .hoststats import HostStats
 from .native.nvml import NvmlError
 from .poll import AttributionProvider, NullAttribution, PollLoop
@@ -254,6 +262,8 @@ class Daemon:
             drop_labels=cfg.drop_labels,
             disabled_metrics=cfg.disabled_metrics,
             process_openers=self.procwatch.lookup if self.procwatch else None,
+            push_stats=self._push_stats,
+            egress_stats=self._egress_stats,
             render_stats=self.render_stats.contribute,
             health_stats=self.supervisor.contribute,
             heartbeat=self.supervisor.beater("poll"),
@@ -278,6 +288,7 @@ class Daemon:
             tls_cert_file=cfg.tls_cert_file,
             tls_key_file=cfg.tls_key_file,
             tls_client_ca_file=cfg.tls_client_ca_file,
+            max_concurrent_scrapes=cfg.max_concurrent_scrapes,
             auth_username=cfg.auth_username,
             auth_password_sha256=cfg.auth_password_sha256,
             render_stats=self.render_stats,
@@ -286,12 +297,21 @@ class Daemon:
             burst_provider=self.burst,
             energy_provider=self.energy,
             host_provider=self.hoststats,
+            egress_provider=self._egress_payload,
+            skew_provider=self._skew_payload,
             stores_provider=self._stores_payload,
         )
         self.textfile = (
             TextfileWriter(self.registry, cfg.textfile_dir,
                            render_stats=self.render_stats)
             if cfg.textfile_enabled
+            else None
+        )
+        self.pusher = (
+            PushgatewayPusher(self.registry, cfg.pushgateway_url,
+                              job=cfg.pushgateway_job,
+                              render_stats=self.render_stats)
+            if cfg.pushgateway_url
             else None
         )
         self.upgrade_watcher = (
@@ -301,6 +321,58 @@ class Daemon:
             and cfg.rediscovery_interval > 0
             else None
         )
+        self.remote_writer = None
+        if cfg.remote_write_url:
+            from .remote_write import RemoteWriter
+
+            self.remote_writer = RemoteWriter(
+                self.registry, cfg.remote_write_url,
+                job=cfg.remote_write_job,
+                min_interval=cfg.remote_write_interval,
+                bearer_token_file=cfg.remote_write_bearer_token_file,
+                protocol=cfg.remote_write_protocol,
+                extra_labels=cfg.remote_write_extra_labels,
+                render_stats=self.render_stats,
+                shards=cfg.remote_write_shards,
+                wal_dir=cfg.remote_write_wal_dir,
+                wal_max_bytes=cfg.remote_write_wal_max_bytes,
+                drain_max_per_push=cfg.remote_write_drain_max,
+                tracer=self.tracer,
+            )
+        # Delta push to an upstream hub: each published snapshot ships
+        # as a changed-series delta. Source defaults to this node's own
+        # scrape URL so the hub's fallback pull lands here.
+        self.delta_pusher = None
+        if cfg.hub_url:
+            from .delta import DeltaPublisher, push_headers_provider
+
+            # Partition survival: with --hub-spill-dir, a down hub link
+            # spools every published snapshot to a bounded on-disk ring
+            # (drained oldest-first, rate-limited on reconnect) instead
+            # of dropping it to the backoff.
+            spill = None
+            if cfg.hub_spill_dir:
+                from .spillq import SpillQueue
+
+                spill = SpillQueue(cfg.hub_spill_dir,
+                                   max_bytes=cfg.hub_spill_max_bytes,
+                                   tracer=self.tracer)
+            self.delta_pusher = DeltaPublisher(
+                self.registry, cfg.hub_url,
+                source=cfg.hub_push_source or (
+                    f"http://{socket.gethostname()}:"
+                    f"{cfg.listen_port}/metrics"),
+                min_interval=cfg.hub_push_interval,
+                render_stats=self.render_stats,
+                headers_provider=push_headers_provider(
+                    cfg.hub_auth_username, cfg.hub_auth_password_file),
+                ca_file=cfg.hub_ca_file,
+                insecure_tls=cfg.hub_insecure_tls,
+                tracer=self.tracer,
+                spill=spill,
+                drain_rate=cfg.hub_drain_rate,
+                proto_max=cfg.hub_proto_max,
+            )
 
     def _pod_uid_map(self) -> dict[str, tuple[str, str]]:
         """pod UID -> (pod, namespace) for the host collector's cgroup
@@ -322,6 +394,102 @@ class Daemon:
                 if pod_uid:
                     out.setdefault(pod_uid, (pod, namespace))
         return out
+
+    def _push_stats(self) -> dict[str, dict[str, int]]:
+        """Shipping-health counters for the collector_push_* self metrics.
+        Wired into the poll loop at construction; the senders are created
+        after the loop, so this resolves them late (each tick)."""
+        stats: dict[str, dict[str, int]] = {}
+        for mode, sender in (("pushgateway", getattr(self, "pusher", None)),
+                             ("remote_write",
+                              getattr(self, "remote_writer", None)),
+                             ("delta",
+                              getattr(self, "delta_pusher", None))):
+            if sender is not None:
+                stats[mode] = {
+                    "pushes": sender.pushes_total,
+                    "failures": sender.failures_total,
+                    "dropped": sender.dropped_total,
+                }
+                if hasattr(sender, "shed_honored_total"):
+                    # Delta publishers only: hub-admission sheds this
+                    # publisher honored — their own class, deliberately
+                    # NOT in failures (the hub is shaping load, not
+                    # failing).
+                    stats[mode]["shed_honored"] = sender.shed_honored_total
+                if hasattr(sender, "skew_refused_total"):
+                    # Delta publishers only: pushes the upstream hub
+                    # refused for wire-version skew (426). Kept as the
+                    # reference keeps it, though contribute_push_stats
+                    # folds no family from it: the count reaches an
+                    # operator through /debug/skew, not this exposition.
+                    stats[mode]["skew_refused"] = sender.skew_refused_total
+        return stats
+
+    def _egress_stats(self) -> dict:
+        """Spill-queue + durable remote-write status for the
+        kts_spill_*/kts_remote_write_* fold and /debug/egress.
+        Late-bound like _push_stats — the senders are created after the
+        poll loop."""
+        out: dict = {}
+        pusher = getattr(self, "delta_pusher", None)
+        if pusher is not None:
+            status = pusher.spill_status()
+            if status is not None:
+                out["spill"] = status
+        writer = getattr(self, "remote_writer", None)
+        if writer is not None:
+            status = writer.egress_status()
+            if status is not None:
+                out["remote_write"] = status
+        return out
+
+    def _egress_payload(self) -> dict:
+        """/debug/egress: the egress-durability picture plus per-sender
+        shipping health — what `doctor --egress` summarizes. enabled
+        says whether ANY durability (spill queue / durable remote write)
+        is configured; sender rows appear for every configured sender
+        either way (their failure counters are the 'is the link down'
+        half of the triage)."""
+        payload: dict = dict(self._egress_stats())
+        payload["enabled"] = bool(payload)
+        senders: dict = {}
+        for mode, sender in (("delta", self.delta_pusher),
+                             ("remote_write", self.remote_writer),
+                             ("pushgateway", self.pusher)):
+            if sender is not None:
+                senders[mode] = {
+                    "pushes_total": sender.pushes_total,
+                    "failures_total": sender.failures_total,
+                    "dropped_total": sender.dropped_total,
+                    "consecutive_failures": sender.consecutive_failures,
+                }
+                if hasattr(sender, "skipped_total"):
+                    # The port's addition (the delta publisher): snapshots
+                    # published while a push lasted past the next publish,
+                    # which no receiver ever sees.
+                    senders[mode]["skipped_total"] = \
+                        sender.skipped_total
+        payload["senders"] = senders
+        return payload
+
+    def _skew_payload(self) -> dict:
+        """/debug/skew for a daemon: this build's version + wire-protocol
+        range, the delta publisher's negotiation state against its
+        upstream hub when one is configured, and any persisted-format
+        files quarantined at startup — the node-side evidence `doctor
+        --skew` reads."""
+        pusher = self.delta_pusher
+        return {
+            "role": "daemon",
+            "build": __version__,
+            "proto_min": PROTO_MIN,
+            "proto_max": PROTO_MAX,
+            "publisher": (pusher.skew_status()
+                          if pusher is not None else None),
+            "wal_quarantined": wal.quarantine_counts(),
+            "wal_quarantine_events": wal.quarantine_events(),
+        }
 
     def _stores_payload(self) -> dict:
         """/debug/stores: every disk-backed store's durability state
@@ -350,6 +518,12 @@ class Daemon:
         self.server.start()
         if self.textfile:
             self.textfile.start()
+        if self.pusher:
+            self.pusher.start()
+        if self.remote_writer:
+            self.remote_writer.start()
+        if self.delta_pusher:
+            self.delta_pusher.start()
         if self.upgrade_watcher:
             self.upgrade_watcher.start()
         if self.burst is not None:
@@ -364,14 +538,34 @@ class Daemon:
         # before its thread exists.
         for name, component in (
             ("attribution", self.attribution),
+            ("pushgateway", self.pusher),
+            ("remote_write", self.remote_writer),
+            ("delta_push", self.delta_pusher),
             ("textfile", self.textfile),
             ("procwatch", self.procwatch),
         ):
             alive = getattr(component, "thread_alive", None)
             starter = getattr(component, "start", None)
             if component is not None and callable(alive) and callable(starter):
+                # Publish-following senders beat once per loop pass: a
+                # sender wedged INSIDE a push — a hung socket, a stuck
+                # fsync on the spill drain — is detected as a hang, not
+                # only when the thread dies outright. 60 s covers the
+                # worst honest pass (several 10 s-timeout POSTs back to
+                # back).
+                heartbeat_timeout = 0.0
+                restart = starter
+                if hasattr(component, "heartbeat"):
+                    component.heartbeat = self.supervisor.beater(name)
+                    heartbeat_timeout = 60.0
+                    # Hang restarts must ABANDON the wedged thread
+                    # (PublishFollower.respawn; the old one retires at
+                    # its next superseded() check) — start() is a no-op
+                    # on a live thread, so it cannot recover a hang.
+                    restart = getattr(component, "respawn", starter)
                 self.supervisor.register(
-                    name, is_alive=alive, restart=starter,
+                    name, is_alive=alive, restart=restart,
+                    heartbeat_timeout=heartbeat_timeout,
                     breaker_prefixes=(("kubelet",)
                                       if name == "attribution" else ()))
         if self.burst is not None:
@@ -409,6 +603,15 @@ class Daemon:
             self.procwatch.stop()
         if self.textfile:
             self.textfile.stop()
+        # The senders' final flush runs in their stop(): after the last
+        # tick and the final energy checkpoint, so the last snapshot
+        # ships too.
+        if self.pusher:
+            self.pusher.stop()
+        if self.remote_writer:
+            self.remote_writer.stop()
+        if self.delta_pusher:
+            self.delta_pusher.stop()
         self.server.stop()
         stopper = getattr(self.attribution, "stop", None)
         if stopper:

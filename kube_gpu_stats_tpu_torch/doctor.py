@@ -34,9 +34,20 @@ Accepts the exporter's own flags (the same config surface) plus:
                  durability), the accept loop's fd fence and the
                  supervisor's thread restarts. Same server as --trace
 
-The reference's --fleet, --efficiency, --at, --egress, --cardinality and
---skew read modules the port has not ported yet; each exits 2 and says
-so.
+  --egress       read the RUNNING daemon's /debug/egress and summarize
+                 the push senders: spill depth/age/loss, the durable
+                 remote-write shards' WAL/lag/parked state, and which
+                 sender's link is down. Same server as --trace
+  --skew         read the RUNNING daemon's /debug/skew: this build's
+                 wire-protocol range, the delta publisher's negotiation
+                 with its hub, refusals (426) and downgrades, and
+                 quarantined persisted formats. Same server as --trace
+
+With --remote-write-url set, a ``remote-write`` row probes the receiver
+with an empty write request.
+
+The reference's --fleet, --efficiency, --at and --cardinality read
+modules the port has not ported yet; each exits 2 and says so.
 
 Exit code: 0 = no failures (warns allowed), 1 = at least one failure,
 2 = usage error. Every probe is time-bounded; the doctor never hangs on a
@@ -58,8 +69,7 @@ OK, WARN, FAIL, SKIP = "ok", "warn", "fail", "skip"
 _ORDER = {FAIL: 0, WARN: 1, OK: 2, SKIP: 3}
 
 # The reference's doctor flags whose rows read modules not ported yet.
-NOT_PORTED_FLAGS = ("--fleet", "--efficiency", "--at", "--egress",
-                    "--cardinality", "--skew")
+NOT_PORTED_FLAGS = ("--fleet", "--efficiency", "--at", "--cardinality")
 
 
 @dataclasses.dataclass
@@ -298,6 +308,78 @@ def check_poll(cfg: Config, ticks: int = 5) -> list[CheckResult]:
             collector.close()
         except Exception:
             pass
+
+
+def check_remote_write(cfg: Config) -> CheckResult:
+    """Probe the configured remote-write receiver with an EMPTY
+    WriteRequest (zero timeseries — nothing lands in storage): proves
+    reachability, TLS, auth token, and content negotiation without
+    polluting the receiver."""
+    import urllib.error
+    import urllib.request
+
+    from . import snappy
+    from .remote_write import build_headers
+
+    # Probe with the protocol the daemon will actually use: a 2.0 config
+    # must negotiate 2.0 here, or doctor proves the wrong content type.
+    headers = build_headers(cfg.remote_write_bearer_token_file,
+                            cfg.remote_write_protocol)
+    if headers is None:
+        return _result(
+            "remote-write", FAIL,
+            f"bearer token file {cfg.remote_write_bearer_token_file!r} "
+            f"unreadable",
+        )
+    request = urllib.request.Request(
+        cfg.remote_write_url, data=snappy.compress(b""), method="POST",
+        headers=headers)
+    try:
+        with urllib.request.urlopen(request, timeout=5):
+            pass
+        return _result("remote-write", OK,
+                       f"{cfg.remote_write_url}: receiver accepts writes")
+    except urllib.error.HTTPError as exc:
+        if exc.code == 400:
+            # Many receivers reject an empty write with 400 — which still
+            # proves endpoint, TLS, auth and content negotiation all work.
+            return _result(
+                "remote-write", OK,
+                f"{cfg.remote_write_url}: receiver answered 400 to the "
+                f"empty probe write (endpoint + auth OK)",
+            )
+        if exc.code in (401, 403):
+            return _result(
+                "remote-write", FAIL,
+                f"{cfg.remote_write_url}: auth rejected (HTTP {exc.code}) "
+                f"with the configured credentials",
+            )
+        if exc.code >= 500 or exc.code == 429:
+            return _result(
+                "remote-write", WARN,
+                f"{cfg.remote_write_url}: receiver unhealthy "
+                f"(HTTP {exc.code}); exporter will retry with backoff",
+            )
+        return _result("remote-write", FAIL,
+                       f"{cfg.remote_write_url}: HTTP {exc.code}")
+    except OSError as exc:
+        # URLError wraps BOTH transient network failures (reason is an
+        # OSError: refused/timeout/DNS) and permanent config errors
+        # (reason is a str, e.g. "unknown url type" for a scheme-less
+        # --remote-write-url). Only the former deserves "will retry".
+        if isinstance(getattr(exc, "reason", None), str):
+            return _result("remote-write", FAIL,
+                           f"{cfg.remote_write_url}: {exc.reason}")
+        return _result(
+            "remote-write", WARN,
+            f"{cfg.remote_write_url}: unreachable ({exc}); exporter will "
+            f"retry with backoff",
+        )
+    except Exception as exc:
+        # e.g. ValueError from a malformed URL that fails before urllib
+        # wraps it: a config error retrying can never fix.
+        return _result("remote-write", FAIL,
+                       f"{cfg.remote_write_url}: {exc}")
 
 
 def check_live_resilience(target: str,
@@ -576,6 +658,113 @@ _HOST_KIND_TEXT = {
 }
 
 
+def check_egress(base: str) -> CheckResult:
+    """--egress: read /debug/egress and summarize the durable-egress
+    picture — spill depth/age/loss, durable remote-write shard
+    WAL/lag/parked state, per-sender link health. Classified
+    401/404/disabled like --host: a WARN row diagnoses config, only a
+    broken surface FAILs."""
+    import urllib.error
+
+    try:
+        payload = _fetch_json(base + "/debug/egress")
+    except urllib.error.HTTPError as exc:
+        if exc.code in (401, 403):
+            return _result(
+                "egress", WARN,
+                f"{base}/debug/egress requires authentication "
+                f"(HTTP {exc.code}); the egress snapshot sits behind "
+                f"the exporter's basic-auth gate by design")
+        if exc.code == 404:
+            return _result(
+                "egress", WARN,
+                f"{base}: no /debug/egress (exporter predates the "
+                f"durable-egress layer, or this server has none wired)")
+        return _result("egress", FAIL,
+                       f"{base}/debug/egress: HTTP {exc.code}")
+    except Exception as exc:  # noqa: BLE001 - unreachable, bad JSON
+        return _result("egress", FAIL,
+                       f"{base}: egress snapshot unreadable ({exc})")
+    if not payload.get("enabled", True):
+        return _result(
+            "egress", WARN,
+            "no egress durability configured (--hub-spill-dir for the "
+            "delta publisher, --remote-write-wal-dir for the exporter); "
+            "a partition drops whatever it outlasts")
+    parts: list[str] = []
+    status = OK
+    spill = payload.get("spill")
+    if spill:
+        depth = spill.get("depth_frames", 0)
+        parts.append(
+            f"spill: {depth} frame(s) / {spill.get('bytes', 0)}B "
+            f"spooled, oldest {spill.get('oldest_age_seconds', 0):g}s")
+        if spill.get("dropped_total", 0):
+            status = WARN
+            parts.append(f"spill DROPPED {spill['dropped_total']} "
+                         f"frame(s) at the byte bound (data loss, "
+                         f"accounted — see kts_spill_dropped_total)")
+        if spill.get("undecodable_total", 0):
+            # Name what a nonzero count means and where to look next.
+            status = WARN
+            parts.append(
+                f"{spill['undecodable_total']} spooled frame(s) "
+                f"undecodable — version skew (a build this one can't "
+                f"read wrote them); see doctor --skew")
+        if spill.get("reencoded_total", 0):
+            parts.append(
+                f"{spill['reencoded_total']} old-format spooled "
+                f"frame(s) recovered by re-encoding at the negotiated "
+                f"wire version")
+        if spill.get("skew_segments_total", 0):
+            status = WARN
+            parts.append(
+                f"{spill['skew_segments_total']} future-format spill "
+                f"segment(s) quarantined intact (*.skew — a downgrade "
+                f"landed on a newer build's spool); see doctor --skew")
+        max_bytes = spill.get("max_bytes") or 0
+        if max_bytes and spill.get("bytes", 0) > 0.8 * max_bytes:
+            status = WARN
+            parts.append("spill near its byte bound (>80%)")
+    remote = payload.get("remote_write")
+    if remote:
+        shards = remote.get("shards") or []
+        wal_bytes = sum(s.get("wal_bytes", 0) for s in shards)
+        lag = max((s.get("lag_seconds", 0.0) for s in shards),
+                  default=0.0)
+        parked = sum(s.get("parked_total", 0) for s in shards)
+        dropped = sum(s.get("dropped_total", 0) for s in shards)
+        parts.append(f"remote-write: {len(shards)} shard(s), "
+                     f"{wal_bytes}B WAL pending, lag {lag:g}s")
+        if parked:
+            status = WARN
+            parts.append(f"{parked} poison request(s) parked (receiver "
+                         f"rejects the payload — schema mismatch, not "
+                         f"an outage)")
+        if dropped:
+            status = WARN
+            parts.append(f"remote-write DROPPED {dropped} request(s) at "
+                         f"the WAL bound (accounted loss)")
+    down = {mode for mode, s in (payload.get("senders") or {}).items()
+            if s.get("consecutive_failures", 0) > 0}
+    # The durable senders deliberately pin consecutive_failures to 0
+    # (the backoff belongs to the probe / shard loop, not the publish
+    # cadence) — their link state lives in the spill queue's
+    # link_failures and the shards' own failure counts.
+    if spill and spill.get("link_failures", 0) > 0:
+        down.add("delta")
+    if remote and any(s.get("consecutive_failures", 0) > 0
+                      for s in remote.get("shards") or []):
+        down.add("remote_write")
+    if down:
+        status = WARN
+        parts.append("link down: " + ", ".join(sorted(down)))
+    if not parts:
+        parts.append("egress healthy; no backlog")
+    return _result("egress", status, "; ".join(parts),
+                   data={"egress": payload})
+
+
 def stores_verdict(payload: dict) -> tuple[str, str]:
     """(status, detail) for a /debug/stores payload — every degraded
     store NAMED with its reason/errno/loss, every restarted thread
@@ -668,6 +857,127 @@ def check_stores(base: str) -> CheckResult:
                        f"{base}: stores snapshot unreadable ({exc})")
     status, detail = stores_verdict(payload)
     return _result("stores", status, detail, data={"stores": payload})
+
+
+def skew_verdict(payload: dict) -> tuple[str, str]:
+    """(status, detail) for a /debug/skew payload — the fleet version
+    census plus every refused/downgraded peer, named. Pure
+    so tests drive it on canned JSON; check_skew wraps it with the
+    fetch. WARN on anything an operator should act on mid-rollout:
+    refused peers (426s — a version outside the accepted window),
+    publisher-side refusals or forced downgrades, quarantined
+    persisted formats, or a mixed-version census (a rollout in flight
+    — or stuck)."""
+    parts: list[str] = []
+    status = OK
+    build = payload.get("build", "unknown")
+    parts.append(f"build {build} speaks wire "
+                 f"v{payload.get('proto_min', '?')}.."
+                 f"v{payload.get('proto_max', '?')}")
+    ingest = payload.get("ingest")
+    if ingest:
+        census = ingest.get("fleet_versions") or {}
+        if census:
+            parts.append("fleet census: " + ", ".join(
+                f"{version}={count}"
+                for version, count in sorted(census.items())))
+            if len(census) > 1:
+                status = WARN
+                parts.append("MIXED fleet (rollout in progress — "
+                             "census-gate the next wave on "
+                             "kts_fleet_version_count)")
+        refused = ingest.get("refused_peers") or {}
+        if refused or ingest.get("skew_refused_total", 0):
+            status = WARN
+            names = "; ".join(
+                f"{peer} offered v{record.get('version', '?')} "
+                f"(x{record.get('count', 0)})"
+                for peer, record in sorted(refused.items()))
+            parts.append(
+                f"REFUSED {ingest.get('skew_refused_total', 0)} "
+                f"frame(s) outside accepted "
+                f"v{ingest.get('proto_min', '?')}.."
+                f"v{ingest.get('proto_max', '?')}"
+                + (f": {names}" if names else ""))
+        downgraded = ingest.get("downgraded_sessions") or []
+        if downgraded:
+            extra = ingest.get("downgraded_sessions_truncated", 0)
+            names = ", ".join(
+                f"{row.get('source', '?')} (v{row.get('proto', '?')}"
+                + (f", {row['build']}" if row.get("build") else "")
+                + ")"
+                for row in downgraded)
+            parts.append(
+                f"{len(downgraded) + extra} session(s) below this "
+                f"hub's max: {names}"
+                + (f" … +{extra} more" if extra else ""))
+    publisher = payload.get("publisher")
+    if publisher:
+        hub_hello = publisher.get("hub")
+        negotiated = publisher.get("negotiated_proto", "?")
+        if hub_hello:
+            parts.append(
+                f"publisher negotiated v{negotiated} with hub "
+                f"{hub_hello.get('build') or 'unknown build'} "
+                f"(speaks {hub_hello.get('proto_min', '?')}.."
+                f"{hub_hello.get('proto_max', '?')})")
+        else:
+            parts.append(f"publisher at v{negotiated} (hub hello not "
+                         f"seen yet — pre-negotiation hub, or no push "
+                         f"landed)")
+        if publisher.get("skew_refused_total", 0):
+            status = WARN
+            parts.append(
+                f"upstream hub REFUSED {publisher['skew_refused_total']} "
+                f"push(es) for version skew (426) — disjoint ranges "
+                f"cannot self-heal; fix the rollout order")
+        if publisher.get("proto_downgrades_total", 0):
+            status = WARN
+            parts.append(
+                f"{publisher['proto_downgrades_total']} encoding "
+                f"downgrade(s) (hub rolled back or predates "
+                f"negotiation — data intact, features masked)")
+    quarantined = payload.get("wal_quarantined") or {}
+    if quarantined:
+        status = WARN
+        parts.append(
+            "QUARANTINED future-format file(s), byte-identical aside: "
+            + ", ".join(f"{store}={count}"
+                        for store, count in sorted(quarantined.items()))
+            + " — a downgrade landed on newer persisted state; "
+            "re-upgrade (or move the .skew file back) to replay")
+    return status, "; ".join(parts)
+
+
+def check_skew(base: str) -> CheckResult:
+    """--skew: read /debug/skew from the RUNNING daemon or hub and
+    print the rolling-upgrade picture — version census, refused and
+    downgraded peers, quarantined persisted formats. Classified
+    401/404 like --egress: a WARN row diagnoses config, only a broken
+    surface FAILs."""
+    import urllib.error
+
+    try:
+        payload = _fetch_json(base + "/debug/skew")
+    except urllib.error.HTTPError as exc:
+        if exc.code in (401, 403):
+            return _result(
+                "skew", WARN,
+                f"{base}/debug/skew requires authentication "
+                f"(HTTP {exc.code}); the skew snapshot sits behind "
+                f"the exporter's basic-auth gate by design")
+        if exc.code == 404:
+            return _result(
+                "skew", WARN,
+                f"{base}: no /debug/skew (exporter predates the "
+                f"version-skew layer — which is itself a version-skew "
+                f"data point: this build is newer than that one)")
+        return _result("skew", FAIL, f"{base}/debug/skew: HTTP {exc.code}")
+    except Exception as exc:  # noqa: BLE001 - unreachable, bad JSON
+        return _result("skew", FAIL,
+                       f"{base}: skew snapshot unreadable ({exc})")
+    status, detail = skew_verdict(payload)
+    return _result("skew", status, detail, data={"skew": payload})
 
 
 def check_url(target: str) -> list[CheckResult]:
@@ -838,6 +1148,7 @@ def check_embedded_viability(cfg: Config) -> CheckResult:
 
 def run_checks(cfg: Config, url: str = "", trace: bool = False,
                host: bool = False, energy: bool = False,
+               egress: bool = False, skew: bool = False,
                stores: bool = False) -> list[CheckResult]:
     probes: list[tuple[str, Callable[[], object]]] = [
         ("nvml", lambda: check_nvml(cfg)),
@@ -845,6 +1156,8 @@ def run_checks(cfg: Config, url: str = "", trace: bool = False,
         ("topology", lambda: check_topology(cfg)),
         ("poll", lambda: check_poll(cfg)),
     ]
+    if cfg.remote_write_url:
+        probes.append(("remote-write", lambda: check_remote_write(cfg)))
     if url:
         # One probe, one fetch, two rows (scrape + live-resilience).
         probes.append(("scrape", lambda: check_url(url)))
@@ -870,6 +1183,18 @@ def run_checks(cfg: Config, url: str = "", trace: bool = False,
                      if url.startswith(("http://", "https://"))
                      else f"http://127.0.0.1:{cfg.listen_port}")
         probes.append(("host", lambda: check_host(host_base)))
+    if egress:
+        # Same fallback: /debug/egress lives on the daemon's server.
+        egress_base = (trace_base(url)
+                       if url.startswith(("http://", "https://"))
+                       else f"http://127.0.0.1:{cfg.listen_port}")
+        probes.append(("egress", lambda: check_egress(egress_base)))
+    if skew:
+        # Same fallback: /debug/skew lives on the daemon's server.
+        skew_base = (trace_base(url)
+                     if url.startswith(("http://", "https://"))
+                     else f"http://127.0.0.1:{cfg.listen_port}")
+        probes.append(("skew", lambda: check_skew(skew_base)))
     if stores:
         # Same fallback: /debug/stores lives on the daemon's server.
         stores_base = (trace_base(url)
@@ -908,6 +1233,8 @@ def main(argv: Sequence[str] | None = None) -> int:
     trace = False
     host = False
     energy = False
+    egress = False
+    skew = False
     stores = False
     url = ""
     args: list[str] = []
@@ -922,6 +1249,10 @@ def main(argv: Sequence[str] | None = None) -> int:
             host = True
         elif token == "--energy":
             energy = True
+        elif token == "--egress":
+            egress = True
+        elif token == "--skew":
+            skew = True
         elif token == "--stores":
             stores = True
         elif token == "--url":
@@ -945,7 +1276,8 @@ def main(argv: Sequence[str] | None = None) -> int:
     cfg = from_args(args)
     started = time.monotonic()
     results = run_checks(cfg, url=url, trace=trace, host=host,
-                         energy=energy, stores=stores)
+                         energy=energy, egress=egress, skew=skew,
+                         stores=stores)
     results.sort(key=lambda r: _ORDER[r.status])
     if as_json:
         print(json.dumps({

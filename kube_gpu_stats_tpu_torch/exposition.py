@@ -13,18 +13,20 @@
   ``/debug/burst`` (the burst sampler's status, ``?arm=N`` and
   ``?disarm``), ``/debug/energy`` (the energy accountant's signed
   digest), ``/debug/stores`` (every disk-backed store's health, the
-  accept fence, thread restarts) and ``/debug/host`` (the host-signals
-  snapshot) when those are wired.
+  accept fence, thread restarts), ``/debug/host`` (the host-signals
+  snapshot), ``/debug/egress`` (the push senders' backlog, lag and loss)
+  and ``/debug/skew`` (build and wire-protocol negotiation) when those
+  are wired.
 - TLS (``tls_cert_file``/``tls_key_file``), mTLS (``tls_client_ca_file``)
   and basic auth (``auth_username`` + ``auth_password_sha256``) on every
   path but the kubelet probes ``/healthz`` and ``/readyz``.
 - node_exporter textfile — ``<dir>/accelerator.prom`` rewritten atomically
   (tmp + rename) after each poll tick.
+- Pushgateway — :class:`PushgatewayPusher` PUTs each published snapshot.
 
 The port's copy of the reference's exposition layer without delta
-ingest, ``/query``, the Pushgateway sender and the ``/debug/*`` endpoints
-of modules not ported yet (egress, skew, cardinality, fleet,
-efficiency).
+ingest, ``/query`` and the ``/debug/*`` endpoints of modules not ported
+yet (cardinality, fleet, efficiency).
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from .history import etag_match
 from .registry import HistogramState, Registry
 from .resilience import BackoffPolicy
 from .supervisor import spawn
+from .workers import PublishFollower, push_opener
 from .wal import store_health
 
 log = logging.getLogger(__name__)
@@ -290,18 +293,18 @@ class MetricsServer:
 
     # Bodies below this size aren't worth the gzip header overhead.
     GZIP_MIN_BYTES = 256
-    # Renders in flight at once; more scrapes get 503 (Retry-After: 1).
-    MAX_CONCURRENT_SCRAPES = 16
 
     def __init__(self, registry: Registry, host: str = "0.0.0.0",
                  port: int = 9400, healthz_max_age: float = 0.0,
                  tls_cert_file: str = "", tls_key_file: str = "",
                  tls_client_ca_file: str = "",
                  auth_username: str = "", auth_password_sha256: str = "",
+                 max_concurrent_scrapes: int = 16,
                  render_stats: RenderStats | None = None,
                  health_provider=None, trace_provider=None,
                  burst_provider=None, energy_provider=None,
-                 host_provider=None, stores_provider=None):
+                 host_provider=None, egress_provider=None,
+                 skew_provider=None, stores_provider=None):
         self._registry = registry
         # Flight recorder (tracing.Tracer): serves /debug/ticks,
         # /debug/trace and /debug/events behind the same auth gate as
@@ -315,6 +318,15 @@ class MetricsServer:
         self._energy = energy_provider
         self._host = host_provider
         self._stores = stores_provider
+        # Egress durability, () -> dict (/debug/egress: spill-queue
+        # depth/age, durable remote-write shard WAL/lag/parked state,
+        # sender health — what `doctor --egress` reads; a daemon with no
+        # sender configured answers enabled:false) and version skew,
+        # () -> dict (/debug/skew: build, wire-protocol range, the
+        # publisher's negotiation state, quarantined persisted formats —
+        # what `doctor --skew` reads). None = that path 404s.
+        self._egress = egress_provider
+        self._skew = skew_provider
         # (user, lower-case sha256 hex of the password), or None = open.
         self._auth = (
             (auth_username, auth_password_sha256.lower())
@@ -342,9 +354,11 @@ class MetricsServer:
         # ceiling, so N misbehaving scrapers = N concurrent renders.
         # Renders beyond the cap get an immediate 503 (Retry-After: 1)
         # instead of queueing; /healthz and /readyz stay exempt so
-        # kubelet probes always land.
-        self._scrape_slots = threading.BoundedSemaphore(
-            self.MAX_CONCURRENT_SCRAPES)
+        # kubelet probes always land. 0 disables the cap.
+        self._scrape_slots = (
+            threading.BoundedSemaphore(max_concurrent_scrapes)
+            if max_concurrent_scrapes > 0 else None
+        )
 
         outer = self
 
@@ -462,7 +476,7 @@ class MetricsServer:
                                 {"ETag": etag, "Vary": "Accept-Encoding"})
                             return
                     slots = outer._scrape_slots
-                    if not slots.acquire(blocking=False):
+                    if slots is not None and not slots.acquire(blocking=False):
                         if outer._render_stats is not None:
                             outer._render_stats.reject()
                         self._send_plain(503, b"too many concurrent scrapes\n",
@@ -496,7 +510,8 @@ class MetricsServer:
                                 len(body))
                             outer._render_stats.observe_cache(cache_hit)
                     finally:
-                        slots.release()
+                        if slots is not None:
+                            slots.release()
                     self.send_response(200)
                     self.send_header(
                         "Content-Type",
@@ -668,6 +683,36 @@ class MetricsServer:
                                        sort_keys=True) + "\n").encode()
                     self.send_response(200)
                     self.send_header("Content-Type", "application/json")
+                elif path == "/debug/egress" and outer._egress is not None:
+                    # Egress durability: the spill queue's and durable
+                    # remote-write shards' backlog/lag/loss accounting,
+                    # behind the same auth gate as every non-probe path.
+                    # A provider with nothing configured answers
+                    # enabled:false so a fetch diagnoses config, not
+                    # absence.
+                    try:
+                        payload = outer._egress()
+                    except Exception as exc:  # noqa: BLE001 - a status
+                        # walk must not 500 the whole debug surface.
+                        payload = {"enabled": False, "error": str(exc)}
+                    body = (json.dumps(payload, sort_keys=True)
+                            + "\n").encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "application/json")
+                elif path == "/debug/skew" and outer._skew is not None:
+                    # Version-skew picture: this process's build +
+                    # wire-protocol range, the publisher's negotiation
+                    # state, and any quarantined persisted formats — the
+                    # payload doctor --skew reads.
+                    try:
+                        payload = outer._skew()
+                    except Exception as exc:  # noqa: BLE001 - a status
+                        # walk must not 500 the whole debug surface.
+                        payload = {"error": str(exc)}
+                    body = (json.dumps(payload, sort_keys=True)
+                            + "\n").encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "application/json")
                 elif path == "/debug/threads":
                     # Live stack dump of every thread: enough to diagnose
                     # a wedged sampler or a stuck attribution refresh from
@@ -700,6 +745,10 @@ class MetricsServer:
                         links += ["/debug/stores"]
                     if outer._host is not None:
                         links += ["/debug/host"]
+                    if outer._egress is not None:
+                        links += ["/debug/egress"]
+                    if outer._skew is not None:
+                        links += ["/debug/skew"]
                     body = ("<html><body>kube-tpu-stats " + " ".join(
                         f'<a href="{link}">{link.partition("?")[0]}</a>'
                         for link in links) + "</body></html>").encode()
@@ -817,6 +866,59 @@ class MetricsServer:
             self._thread.join(timeout=5)
         if self._warm_thread:
             self._warm_thread.join(timeout=5)
+
+
+class PushgatewayPusher(PublishFollower):
+    """Pushes each published snapshot to a Prometheus Pushgateway
+    (PUT <url>/metrics/job/<job>/instance/<instance>) — exposition mode #3
+    for nodes/jobs that Prometheus can't scrape directly. Push failures
+    are logged and retried with the scaffold's capped backoff (never
+    fatal)."""
+
+    def __init__(self, registry: Registry, url: str, job: str = "kube-tpu-stats",
+                 instance: str = "", min_interval: float = 1.0,
+                 render_stats: RenderStats | None = None) -> None:
+        import socket
+        import urllib.parse
+
+        super().__init__(registry, min_interval, thread_name="pushgateway")
+        self._render_stats = render_stats
+        instance = instance or socket.gethostname()
+        self._target = (
+            url.rstrip("/")
+            + "/metrics/job/" + urllib.parse.quote(job, safe="")
+            + "/instance/" + urllib.parse.quote(instance, safe="")
+        )
+
+    def push_once(self) -> None:
+        import urllib.request
+
+        render_start = time.monotonic()
+        # Shares the per-generation render cache with the scrape path:
+        # a scrape and a push of the same publish serialize once.
+        body, cache_hit = self._registry.rendered()
+        if self._render_stats is not None:
+            self._render_stats.observe(
+                "pushgateway", time.monotonic() - render_start, len(body))
+            self._render_stats.observe_cache(cache_hit)
+        request = urllib.request.Request(
+            self._target, data=body, method="PUT",
+            headers={"Content-Type": CONTENT_TYPE},
+        )
+        try:
+            # No-redirect opener: a 302 must surface as a failure, not
+            # degrade the PUT into a body-less GET (see workers.push_opener).
+            with push_opener().open(request, timeout=10):
+                pass
+            self.consecutive_failures = 0
+            self.pushes_total += 1
+        except Exception as exc:
+            self.consecutive_failures += 1
+            self.failures_total += 1
+            log.warning("pushgateway push failed (%d consecutive): %s",
+                        self.consecutive_failures, exc)
+
+
 
 
 class TextfileWriter:

@@ -36,9 +36,10 @@ health self-metrics and heartbeat, label dropping, backend replacement
 between ticks, crash-only respawn, the sub-tick power burst sampler's
 per-tick fold (``burstsampler.py``), the per-pod energy accountant
 (``energy.py``: each device-tick integrated and attributed, its
-checkpoint written on the pool) and host signals read on the pool
-(``hoststats.py``). Not ported: push/egress self-metrics and
-``reconfigure``. The reference's pre-plan emit path is not copied
+checkpoint written on the pool), host signals read on the pool
+(``hoststats.py``) and the push senders' shipping health and egress
+durability (``collector_push_*``, ``kts_spill_*``, ``kts_remote_write_*``).
+Not ported: ``reconfigure``. The reference's pre-plan emit path is not copied
 either: the reference itself is this loop's oracle
 (``tests/test_torch_poll.py``, ``tests/test_torch_pipeline.py``,
 ``tests/test_torch_daemon.py``).
@@ -60,6 +61,7 @@ from .fleetlens import contribute_trace_digest
 from .ici import RateTracker
 from .registry import (FilteredSnapshotBuilder, HistogramState, Registry,
                        Series, SnapshotBuilder, _series_prefix,
+                       contribute_egress_stats, contribute_push_stats,
                        contribute_store_metrics)
 from .resilience import DeadlineBudget
 from .supervisor import spawn
@@ -278,6 +280,8 @@ class PollLoop:
         drop_labels: Sequence[str] = (),
         disabled_metrics: frozenset[str] = frozenset(),
         process_openers: Callable[[str], Sequence[tuple[str, str, str, float]]] | None = None,
+        push_stats: Callable[[], Mapping[str, Mapping[str, int]]] | None = None,
+        egress_stats: Callable[[], Mapping] | None = None,
         render_stats: Callable[[SnapshotBuilder], None] | None = None,
         health_stats: Callable[[SnapshotBuilder], None] | None = None,
         heartbeat: Callable[[], None] | None = None,
@@ -310,6 +314,13 @@ class PollLoop:
         # Cached device→holding-process map (procopen.py); a dict read,
         # same off-hot-path contract as attribution. None = disabled.
         self._process_openers = process_openers
+        # Shipping-health counters from the push senders (daemon-wired
+        # callable; reads plain ints, safe from this thread).
+        self._push_stats = push_stats
+        # Egress-durability status from the spill queue / durable
+        # remote-write exporter (daemon-wired callable returning
+        # {"spill": ..., "remote_write": ...} status dicts).
+        self._egress_stats = egress_stats
         # Scrape/render self-observability contributor (RenderStats.
         # contribute): folds scrape-duration histograms and rendered-bytes
         # counters into each snapshot.
@@ -1359,6 +1370,15 @@ class PollLoop:
         # recorded (this tick's own trace ends after the build, so tick N
         # exports ticks 1..N-1's fold).
         contribute_trace_digest(builder, self.tracer)
+        push_stats = (self._push_stats()
+                      if self._push_stats is not None else None)
+        if push_stats is not None:
+            contribute_push_stats(builder, push_stats)
+        if self._egress_stats is not None:
+            # Spill / durable remote-write health: the kts_spill_* and
+            # kts_remote_write_* families ride every snapshot where the
+            # features are on.
+            contribute_egress_stats(builder, self._egress_stats())
         # Render-lock contention: cumulative seconds readers waited to
         # enter Registry.rendered().
         builder.add(schema.RENDER_PREWARM_WAIT,

@@ -1,9 +1,11 @@
-"""Protobuf wire-format decoding (proto3 subset).
+"""Protobuf wire-format primitives (proto3 subset).
 
-The decode half of the reference's codec: varint (0), 64-bit fixed (1),
-length-delimited (2) and 32-bit fixed (5). Unknown fields are yielded and
-skipped by the callers, which is what makes the client tolerant of
-server-side proto evolution.
+The port's copy of the reference's codec: varint (0), 64-bit fixed (1),
+length-delimited (2) and 32-bit fixed (5). The decode half serves the
+PodResources client; the encode half serves the remote-write messages
+(``prompb``, ``prompb2``). Unknown fields are yielded and skipped by the
+callers, which is what makes the client tolerant of server-side proto
+evolution.
 """
 
 from __future__ import annotations
@@ -15,6 +17,25 @@ VARINT = 0
 FIXED64 = 1
 LENGTH = 2
 FIXED32 = 5
+
+_SINGLE_BYTE = [bytes((i,)) for i in range(128)]
+
+
+def encode_varint(value: int) -> bytes:
+    if value < 128:
+        if value >= 0:
+            return _SINGLE_BYTE[value]  # hot path: tags + small ints
+        # Negative int32/int64 are encoded as 10-byte two's-complement varints.
+        value += 1 << 64
+    out = bytearray()
+    while True:
+        bits = value & 0x7F
+        value >>= 7
+        if value:
+            out.append(bits | 0x80)
+        else:
+            out.append(bits)
+            return bytes(out)
 
 
 def decode_varint(data: bytes, pos: int) -> tuple[int, int]:
@@ -69,3 +90,28 @@ def iter_fields(data: bytes) -> Iterator[tuple[int, int, object]]:
         else:
             raise ValueError(f"unsupported wire type {wire_type}")
         yield field, wire_type, value
+
+
+def signed(value: int) -> int:
+    """Interpret a decoded varint as int64."""
+    return value - (1 << 64) if value >= 1 << 63 else value
+
+
+def tag(field: int, wire_type: int) -> bytes:
+    return encode_varint((field << 3) | wire_type)
+
+
+def field_varint(field: int, value: int) -> bytes:
+    return tag(field, VARINT) + encode_varint(value)
+
+
+def field_double(field: int, value: float) -> bytes:
+    return tag(field, FIXED64) + struct.pack("<d", value)
+
+
+def field_bytes(field: int, value: bytes) -> bytes:
+    return tag(field, LENGTH) + encode_varint(len(value)) + value
+
+
+def field_string(field: int, value: str) -> bytes:
+    return field_bytes(field, value.encode("utf-8"))

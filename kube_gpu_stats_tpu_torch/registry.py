@@ -380,6 +380,76 @@ def contribute_store_metrics(builder: SnapshotBuilder) -> None:
         builder.add(spec, value, labels)
 
 
+def contribute_push_stats(builder: SnapshotBuilder, stats) -> None:
+    """Fold push-sender shipping-health counters (mode ->
+    {pushes, failures, dropped}) into a snapshot as the collector_push_*
+    families. One definition for every exposition that ships them, so
+    the families cannot drift."""
+    for mode in sorted(stats):
+        entry = stats[mode]
+        mode_label = (("mode", mode),)
+        builder.add(schema.SELF_PUSH_TOTAL,
+                    float(entry.get("pushes", 0)), mode_label)
+        builder.add(schema.SELF_PUSH_FAILURES,
+                    float(entry.get("failures", 0)), mode_label)
+        builder.add(schema.SELF_PUSH_DROPPED,
+                    float(entry.get("dropped", 0)), mode_label)
+        if "shed_honored" in entry:
+            # Delta publishers only: frames the
+            # hub refused at admission that this publisher deferred
+            # per the Retry-After instead of retrying or FULL-resyncing.
+            builder.add(schema.DELTA_SHED_HONORED,
+                        float(entry.get("shed_honored", 0)), mode_label)
+
+
+def contribute_egress_stats(builder: SnapshotBuilder, stats) -> None:
+    """Fold the egress-durability self-metrics into a
+    snapshot: the delta publisher's spill-queue status under "spill"
+    (DeltaPublisher.spill_status()) and the durable remote-write
+    exporter's per-shard status under "remote_write"
+    (RemoteWriter.egress_status()). One definition for every
+    exposition that ships them, so the families cannot drift; absent/None
+    sections contribute nothing (the families only exist where the
+    feature is on — enabling it is a deliberate series-set change)."""
+    spill = (stats or {}).get("spill")
+    if spill:
+        builder.add(schema.SPILL_FRAMES,
+                    float(spill.get("spooled_total", 0)),
+                    (("state", "spooled"),))
+        builder.add(schema.SPILL_FRAMES,
+                    float(spill.get("drained_total", 0)),
+                    (("state", "drained"),))
+        builder.add(schema.SPILL_FRAMES,
+                    float(spill.get("reencoded_total", 0)),
+                    (("state", "reencoded"),))
+        builder.add(schema.SPILL_FRAMES,
+                    float(spill.get("undecodable_total", 0)),
+                    (("state", "undecodable"),))
+        builder.add(schema.SPILL_DROPPED,
+                    float(spill.get("dropped_total", 0)))
+        builder.add(schema.SPILL_DEPTH,
+                    float(spill.get("depth_frames", 0)))
+        builder.add(schema.SPILL_BYTES, float(spill.get("bytes", 0)))
+        builder.add(schema.SPILL_OLDEST,
+                    float(spill.get("oldest_age_seconds", 0.0)))
+    remote = (stats or {}).get("remote_write")
+    if remote:
+        shards = remote.get("shards") or []
+        builder.add(schema.REMOTE_WRITE_SHARDS, float(len(shards)))
+        for shard in shards:
+            label = (("shard", str(shard.get("shard", 0))),)
+            builder.add(schema.REMOTE_WRITE_WAL_BYTES,
+                        float(shard.get("wal_bytes", 0)), label)
+            builder.add(schema.REMOTE_WRITE_LAG,
+                        float(shard.get("lag_seconds", 0.0)), label)
+            builder.add(schema.REMOTE_WRITE_PARKED,
+                        float(shard.get("parked_total", 0)), label)
+            builder.add(schema.REMOTE_WRITE_DROPPED,
+                        float(shard.get("dropped_total", 0)), label)
+
+
+
+
 class FilteredSnapshotBuilder(SnapshotBuilder):
     """SnapshotBuilder that drops families the operator disabled
     (``--metrics-include``/``--metrics-exclude``, schema.FILTERABLE_METRICS).

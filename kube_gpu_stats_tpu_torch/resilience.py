@@ -12,6 +12,8 @@ embedded exporter and the daemon use:
   admission, tripped by consecutive failures.
   Wired into the kubelet PodResources client; its state is exported as
   ``kts_breaker_state``;
+- :class:`TokenBucket` — a rate limiter that refuses without blocking:
+  the delta publisher's spill-drain rate;
 - :class:`DeadlineBudget` — a per-tick wall-time budget that child calls
   draw down, so one slow device can't blow the whole tick's deadline.
 """
@@ -246,6 +248,58 @@ class CircuitBreaker:
             hook(self, old, new)
         except Exception:  # noqa: BLE001 - observer must not break the edge
             pass
+
+
+class TokenBucket:
+    """Thread-safe token bucket: ``rate`` tokens/second refill up to a
+    ``burst`` ceiling; :meth:`try_take` either debits and admits or
+    refuses without blocking. The delta publisher's drain limiter (a
+    recovering hub is never stampeded by a node's backlog) and the
+    admission primitive of the reference hub's ingest shed path, where a
+    refusal answers 429/503 with :meth:`retry_after` as the Retry-After
+    hint.
+
+    Same injectable-clock discipline as CircuitBreaker (tests never
+    sleep); the lock guards only the counter math."""
+
+    def __init__(self, rate: float, burst: float,
+                 clock: Callable[[], float] = time.monotonic) -> None:
+        if rate <= 0 or burst <= 0:
+            raise ValueError(f"need rate > 0 and burst > 0 "
+                             f"(got {rate}, {burst})")
+        self.rate = rate
+        self.burst = burst
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._tokens = burst
+        self._stamp = clock()
+
+    def _refill(self, now: float) -> None:
+        elapsed = now - self._stamp
+        if elapsed > 0:
+            self._tokens = min(self.burst, self._tokens + elapsed * self.rate)
+        self._stamp = now
+
+    def try_take(self, tokens: float = 1.0) -> bool:
+        with self._lock:
+            self._refill(self._clock())
+            if self._tokens >= tokens:
+                self._tokens -= tokens
+                return True
+            return False
+
+    def retry_after(self, tokens: float = 1.0) -> float:
+        """Seconds until ``tokens`` will have refilled — the honest
+        Retry-After value for a refused caller (a floor, not a
+        guarantee: other callers drain the bucket too, which is why the
+        shed path pairs this with decorrelated-jitter backoff on the
+        publisher side)."""
+        with self._lock:
+            self._refill(self._clock())
+            deficit = tokens - self._tokens
+        return max(0.0, deficit / self.rate)
+
+
 
 
 class DeadlineBudget:

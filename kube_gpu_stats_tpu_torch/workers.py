@@ -1,10 +1,16 @@
 """Worker scaffolds: the refresh loop behind the daemon's caches, the
-daemon-thread sampler pool, and the redirect refusal of authed requests.
+push loop behind the senders, the daemon-thread sampler pool, and the
+redirect refusal of authed requests and pushes.
 
 :class:`PeriodicRefresher` runs ``refresh_once()`` on its own daemon
 thread at a fixed cadence, with capped exponential backoff on persistent
 failure: the pod-attribution cache, the device-process watcher and the
 backend-upgrade watcher build on it.
+
+:class:`PublishFollower` runs ``push_once()`` after each registry publish,
+rate-limited and backed off under failure: the Pushgateway pusher, the
+remote writer and the delta publisher build on it, and
+:func:`push_opener` is the no-redirect opener they send through.
 
 :class:`DaemonSamplerPool`:
 
@@ -36,6 +42,8 @@ from .resilience import BackoffPolicy
 from .supervisor import spawn
 
 log = logging.getLogger(__name__)
+
+_PUSH_OPENER = None
 
 
 class PeriodicRefresher:
@@ -106,6 +114,137 @@ class NoRedirectHandler(urllib.request.HTTPRedirectHandler):
 
     def redirect_request(self, req, fp, code, msg, headers, newurl):
         return None
+
+
+def push_opener():
+    """urllib opener for the push senders that REFUSES redirects. The
+    default handler converts a redirected POST/PUT into a body-less GET
+    (RFC-sanctioned for 301/302), so an auth proxy answering 302 would
+    make every push "succeed" while writing nothing — silent total data
+    loss counted as pushes_total. A 3xx now raises HTTPError and lands
+    in the senders' retryable-failure accounting, where a misconfigured
+    receiver is visible. Built once (OpenerDirector.open is safe for
+    this concurrent use); both senders push every interval forever."""
+    global _PUSH_OPENER
+    if _PUSH_OPENER is None:
+        _PUSH_OPENER = urllib.request.build_opener(NoRedirectHandler)
+    return _PUSH_OPENER
+
+
+class PublishFollower:
+    """Publish-following push scaffold shared by the Pushgateway,
+    remote-write and delta senders: wait for a snapshot publish, rate-limit to
+    ``min_interval`` (scaled up under consecutive failures via the
+    shared resilience.BackoffPolicy, capped — a down receiver is not
+    hammered), push, and flush the final snapshot on
+    shutdown so stopping isn't a data gap. Defer-never-drop: a publish
+    landing inside the interval window is pushed when the window elapses.
+
+    Subclasses implement ``push_once()`` (which must never raise — but a
+    bug in it is contained anyway) and maintain ``consecutive_failures``
+    — kept as a plain exported counter (the collector_push_* health
+    surface reads it) with the interval math delegated to the policy.
+    """
+
+    BACKOFF_CAP_FACTOR = 6.0  # max push interval = min_interval * this
+
+    def __init__(self, registry, min_interval: float, thread_name: str) -> None:
+        self._registry = registry
+        self._min_interval = min_interval
+        self._thread_name = thread_name
+        self._stop_event = threading.Event()
+        self._thread: threading.Thread | None = None
+        self.consecutive_failures = 0
+        self.backoff = BackoffPolicy(
+            base=max(min_interval, 1e-6),
+            cap=max(min_interval, 1e-6) * self.BACKOFF_CAP_FACTOR)
+        # Shipping-health counters, exported as collector_push_* self
+        # metrics: subclasses bump pushes_total on success and
+        # failures_total on retryable failure; dropped_total counts
+        # non-retryable payload rejections (remote-write 4xx).
+        self.pushes_total = 0
+        self.failures_total = 0
+        self.dropped_total = 0
+        # Optional supervisor heartbeat: the
+        # owner sets this to Supervisor.beater(<component>) so a wedge
+        # INSIDE push_once (a hung socket no timeout covers) is
+        # detected as a hang, not just thread death. Called once per
+        # loop iteration, between pushes.
+        self.heartbeat: Callable[[], None] | None = None
+
+    def push_once(self) -> None:
+        raise NotImplementedError
+
+    def _guarded_push(self) -> None:
+        import logging
+
+        try:
+            self.push_once()
+        except Exception:  # a push bug must not kill the shipping thread
+            self.consecutive_failures += 1
+            self.failures_total += 1
+            logging.getLogger(__name__).exception(
+                "%s push crashed; continuing", self._thread_name)
+
+    def superseded(self) -> bool:
+        """True when the calling thread is no longer this follower's
+        live thread — a respawn replaced it while it was wedged. A
+        superseded thread must retire WITHOUT touching
+        shared send state again: two loops draining one at-least-once
+        cursor (spill queue, remote-write WAL) would race peek/commit
+        and skip records. Never-started followers (tests/bench drive
+        push_once inline) have no thread and are never superseded."""
+        thread = self._thread
+        return (thread is not None
+                and thread is not threading.current_thread())
+
+    def run_forever(self) -> None:
+        import time
+
+        generation = self._registry.generation
+        last_push = float("-inf")
+        dirty = False
+        while not self._stop_event.is_set():
+            if self.superseded():
+                log.info("%s thread superseded by respawn; retiring",
+                         self._thread_name)
+                return
+            if self.heartbeat is not None:
+                self.heartbeat()
+            if self._registry.wait_for_publish(generation, timeout=0.2):
+                generation = self._registry.generation
+                dirty = True
+            interval = self.backoff.interval_for(self.consecutive_failures)
+            if dirty and time.monotonic() - last_push >= interval:
+                self._guarded_push()
+                last_push = time.monotonic()
+                dirty = False
+        if dirty and not self.superseded():
+            self._guarded_push()
+
+    def start(self) -> None:
+        """Start the push thread (idempotent: a live thread is left
+        alone — double-starting would double-drain)."""
+        if self.thread_alive():
+            return
+        self.respawn()
+
+    def respawn(self) -> None:
+        """The supervisor's crash-only restart closure: ALWAYS spawns
+        a fresh thread — a hung one (the hang the heartbeat detected)
+        is abandoned and retires itself at its next superseded() check
+        instead of being waited on."""
+        self._thread = spawn(self.run_forever, name=self._thread_name)
+        self._thread.start()
+
+    def thread_alive(self) -> bool:
+        """Liveness probe for the supervisor."""
+        return self._thread is not None and self._thread.is_alive()
+
+    def stop(self) -> None:
+        self._stop_event.set()
+        if self._thread:
+            self._thread.join(timeout=5)
 
 
 class DaemonSamplerPool:

@@ -316,13 +316,13 @@ def test_backend_nvml_failure_exits_non_zero(monkeypatch, caplog):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--pushgateway-url", "http://gw:9091"],
-    ["--remote-write-url", "http://rw"],
-    ["--hub-url", "http://hub:9401"],
+    ["--passthrough-unknown", "on"],
+    ["--libtpu-addr", "127.0.0.2"],
+    ["--slo-freshness-target", "0.9"],
     ["--no-native"],
-    ["--max-concurrent-scrapes", "8"],
-    ["--remote-write-wal-dir", "/var/lib/kts/rw"],
-    ["--hub-spill-dir", "/var/lib/kts/spill"],
+    ["--slo-straggler-target", "0.9"],
+    ["--slo-straggler-ratio", "0.5"],
+    ["--libtpu-ports", "8431,8432"],
     ["--libtpu-ports", "8431"],
     ["--no-fleet-lens"],
     ["--backend", "tpu"],
@@ -364,7 +364,7 @@ def test_config_file_layers_under_flags(tmp_path):
     cfg = config.from_args(["--config", str(path), "--interval", "0.5"])
     assert (cfg.interval, cfg.backend, cfg.device_processes) == \
         (0.5, "mock", "off")
-    path.write_text("pushgateway_url: http://gw\n")
+    path.write_text("libtpu_addr: 127.0.0.2\n")
     with pytest.raises(SystemExit):
         config.from_args(["--config", str(path)])
 

@@ -601,16 +601,16 @@ def test_doctor_host_reads_a_running_daemon(capsys):
 
 
 def test_doctor_energy_still_exits_2(capsys):
-    """``--energy`` and ``--stores`` are ported now: with no daemon
-    listening they run their rows (FAIL: unreachable) and exit 1, never
-    2; the flags still to come exit 2."""
-    for flag in ("--energy", "--stores"):
+    """``--energy``, ``--stores``, ``--egress`` and ``--skew`` are ported
+    now: with no daemon listening they run their rows (FAIL:
+    unreachable) and exit 1, never 2; the flags still to come exit 2."""
+    for flag in ("--energy", "--stores", "--egress", "--skew"):
         assert flag not in doctor.NOT_PORTED_FLAGS
         assert doctor.main(["--backend", "mock", "--json", flag,
                             "--listen-port", "9"]) == 1
         payload = json.loads(capsys.readouterr().out)
         rows = {row["name"]: row for row in payload["checks"]}
         assert rows[flag[2:]]["status"] == "fail"
-    assert doctor.main(["--backend", "mock", "--egress"]) == 2
-    assert "doctor --egress: not ported yet" in capsys.readouterr().err
+    assert doctor.main(["--backend", "mock", "--fleet"]) == 2
+    assert "doctor --fleet: not ported yet" in capsys.readouterr().err
     assert "--host" not in doctor.NOT_PORTED_FLAGS

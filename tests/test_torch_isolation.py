@@ -57,7 +57,9 @@ def test_importing_the_port_loads_no_jax():
     for module in ("loadgen.tiled_burn", "loadgen.mesh", "loadgen.ici_burn",
                    "validate", "testing.ranks", "doctor", "profiler",
                    "hoststats", "burstsampler", "energy", "wal",
-                   "testing.faultfs"):
+                   "testing.faultfs", "snappy", "spillq", "remote_write",
+                   "proto.prompb", "proto.prompb2", "delta",
+                   "testing.egress_sink"):
         assert f"kube_gpu_stats_tpu_torch.{module}" in report["imported"]
     assert [m for m in report["loaded"] if _forbidden(m)] == []
 
@@ -78,8 +80,12 @@ def test_no_import_statement_names_jax_or_the_reference(path):
     assert [m for m in _imported_modules(path) if _forbidden(m)] == []
 
 
+# The daemon path's modules, then a daemon (mock backend) with all three
+# push senders on — the delta publisher with a spill dir, the durable
+# remote writer, the Pushgateway pusher — shipping into the egress sink
+# until every path has delivered.
 _IMPORT_DAEMON_PATH = """
-import json, sys
+import json, sys, tempfile, time
 import kube_gpu_stats_tpu_torch.cli
 import kube_gpu_stats_tpu_torch.collectors.nvml
 import kube_gpu_stats_tpu_torch.burstsampler
@@ -91,7 +97,31 @@ import kube_gpu_stats_tpu_torch.profiler
 import kube_gpu_stats_tpu_torch.testing.fake_nvml
 import kube_gpu_stats_tpu_torch.testing.faultfs
 import kube_gpu_stats_tpu_torch.wal
-print(json.dumps(sorted(sys.modules)))
+from kube_gpu_stats_tpu_torch import config, daemon
+from kube_gpu_stats_tpu_torch.testing.egress_sink import EgressSink
+sink = EgressSink().start()
+work = tempfile.mkdtemp()
+d = daemon.Daemon(config.from_args([
+    "--backend", "mock", "--mock-devices", "1", "--listen-host",
+    "127.0.0.1", "--listen-port", "0", "--interval", "0.1",
+    "--attribution", "off", "--hub-url", sink.url, "--hub-spill-dir",
+    work + "/spill", "--remote-write-url", sink.url + "/api/v1/write",
+    "--remote-write-wal-dir", work + "/rw", "--remote-write-shards", "2",
+    "--remote-write-protocol", "2.0", "--remote-write-interval", "0.2",
+    "--pushgateway-url", sink.url]))
+d.start()
+try:
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline and not (
+            sink.applied() and sink.writes() and sink.pushes()):
+        time.sleep(0.05)
+    senders = sorted(d._egress_payload()["senders"])
+finally:
+    d.stop()
+    sink.stop()
+shipped = [bool(sink.applied()), bool(sink.writes()), bool(sink.pushes())]
+print(json.dumps({"senders": senders, "shipped": shipped,
+                  "loaded": sorted(sys.modules)}))
 """
 
 # A whole doctor pass on the mock backend, every row that runs without a
@@ -150,14 +180,17 @@ def _no_torch(loaded: list[str]) -> list[str]:
 
 def test_the_daemon_path_imports_no_torch():
     """The DaemonSet image carries no CUDA userspace beyond NVML: the
-    daemon, its CLI, its NVML backend, the doctor and the profiler must
-    not pull torch in (nor, as everywhere, JAX or the reference)."""
+    daemon, its CLI, its NVML backend, its push senders, the doctor and
+    the profiler must not pull torch in (nor, as everywhere, JAX or the
+    reference)."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_DAEMON_PATH],
                           cwd=ROOT, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
-    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert _no_torch(loaded) == []
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["senders"] == ["delta", "pushgateway", "remote_write"]
+    assert report["shipped"] == [True, True, True]
+    assert _no_torch(report["loaded"]) == []
 
 
 def test_a_doctor_pass_imports_no_torch():
