@@ -123,6 +123,28 @@ prints its result line after one):
    naming the refusal; tick p50 under 50 ms in each window; frame
    bytes, the publisher's render and encode ms, the writer's serialize
    ms and a shard WAL append's ms;
+8g. ``hub``: the hub core over a 64-node H100 cluster as one hub sees
+   it. ``python -m kube_gpu_stats_tpu_torch hub --interval 1
+   --ingest-checkpoint <tmp> --expect-workers 64 --targets-file <tmp>`` as
+   a subprocess; the NVML daemon at 10 Hz (``KTS_SLICE=h100-a
+   KTS_WORKER=node-00``) pushing to it with ``--hub-url``; the ``cuda``
+   burn on card 0 in this process with its embedded exporter, named in
+   the targets file (pulled); 63 synthetic 8-card nodes, the port's
+   ``DeltaPublisher`` on threads here, each republishing the daemon's
+   newest scrape every second relabelled per card. A live window, a
+   SIGTERM and restart of the hub on the same port and checkpoint, a
+   second live window. Within 3 refreshes of the start and of the
+   restart: 65 targets all up, 64 push-served, the daemon's and the
+   embedded exporter's per-card series in the hub's ``/metrics`` equal
+   to their own scrapes (the daemon's series both serve counted as
+   duplicates instead), the slice rollups equal to what this script
+   folds from the same refresh's inputs, 64 workers; node-00's step
+   rate within 5% of the burn's own; the warm restart: 95% of sessions
+   continue their delta chains, ``/readyz`` 200 only after the replay,
+   the rollup whole within one refresh of it; ``top --once --json``
+   rows equal the hub's merged rows, the table shows every worker and
+   the footer; ``doctor --cardinality --skew --stores`` against the
+   hub OK; refresh, ingest apply, RSS and series costs;
 9. time the kernel, its plain version and one library call
    (``torch.mm`` with f32 out) at the main path's and the sweep's sizes,
    each as the median of batches of back-to-back calls;
@@ -139,6 +161,7 @@ Exits non-zero, printing no result, when CUDA is unavailable.
 from __future__ import annotations
 
 import base64
+import bisect
 import collections
 import ctypes
 import gzip
@@ -306,6 +329,23 @@ EGRESS_BLACKOUT_S = 6.0
 EGRESS_RECOVERY_MAX_S = 20.0
 EGRESS_BURN_CHUNK_S = 2.0
 EGRESS_WAL_WRITES = 20
+# The hub phase: one hub over a 64-node H100 cluster — the real node (the
+# NVML daemon, pushing) plus 63 synthetic 8-card nodes (pushing) and the
+# burn's embedded exporter (pulled from the targets file).
+HUB_INTERVAL_S = 1.0
+HUB_NODES = 64
+HUB_CARDS = 8
+HUB_SLICE = "h100-a"
+HUB_DAEMON_INTERVAL_S = 0.1
+HUB_EMBEDDED_INTERVAL_S = 0.05
+HUB_LIVE_S = 10.0
+HUB_LIVE2_S = 5.0
+HUB_BURN_CHUNK_S = 2.0
+HUB_CONVERGE_REFRESHES = 3
+HUB_RATE_TOL = 0.05
+HUB_RATE_REFRESHES = 8
+HUB_WARM_MIN = 0.95
+STOP_GRACE_HUB_S = 15.0
 MIB = 1024**2
 ROOT = pathlib.Path(__file__).resolve().parent
 KERNEL_NAME = "tiled_gemm_bf16_f32"
@@ -1235,6 +1275,26 @@ def check_burn_row(row: dict, card: dict, gpm_on: bool,
                 f"memory bandwidth utilization {bandwidth}")
 
 
+def card_down_evidence(port: int, ticks: list[int],
+                       around: int = 10) -> None:
+    """Diagnostics only, printed before the burn row check fails: the
+    daemon's fence events from ``/debug/events`` and the recorder's
+    ticks within ``around`` of each read that served the card down."""
+    _, body, _ = fetch(f"http://127.0.0.1:{port}/debug/events")
+    events = json.loads(body).get("events", [])
+    _, body, _ = fetch(f"http://127.0.0.1:{port}/debug/trace?last=128")
+    recorded = trace_ticks(json.loads(body))
+    emit("daemon_card_down", {
+        "read_ticks": ticks,
+        "fence_events": [e for e in events if "fence" in e["kind"]
+                         or "resume" in e["kind"]],
+        "ticks": {seq: {k: row[k] for k in ("tick", "env_round",
+                                            "pipelined", "reads")
+                        if k in row}
+                  for seq, row in sorted(recorded.items())
+                  if any(abs(seq - t) <= around for t in ticks)}})
+
+
 def gpm_probe(nvml, handle: int) -> dict:
     """Whether this card gives GPM in this container: the support query,
     then one sample, as the daemon's collector tries them."""
@@ -1380,6 +1440,10 @@ def phase_daemon(card_line: str, embedded_paths: dict) -> int:
             "at_s": [at - seen[0][0] for at, *_ in seen],
             "nvml_energy_mj": [e for _, _, e, _, _ in seen],
             "rows": burn_rows})
+        down = [int(poll_count(series)) for (_, series, *_), row
+                in zip(seen, burn_rows) if row["up"] != 1.0]
+        if down:
+            card_down_evidence(port, down)
         for row in burn_rows:
             check_burn_row(row, card, gpm_on, idle_tensor)
         for before, after in zip([idle_text] + texts, texts):
@@ -2599,15 +2663,29 @@ def check_remote_write_records(writes: list, watch: DaemonWatcher,
         require(len(stamps) == 1, f"egress: a request with {len(stamps)} "
                                   f"timestamps")
         by_ts.setdefault(stamps.pop(), []).append(index)
-    # Shard identity: routing is stable, so the series of the first
-    # request's first row always rides the same shard.
-    marker = requests[0].series[0][0]
-    shard_of = [0 if any(labels == marker for labels, _, _ in write.series)
-                else 1 for write in requests]
-    bad = {ts: len(idx) for ts, idx in by_ts.items()
+    # Shard identity: routing is stable, so a series always rides the
+    # same shard. A request belongs to the shard whose series it shares,
+    # seeded by the first request (shard 0) and the other request of its
+    # snapshot (shard 1), and grown by every request classified since:
+    # one marker series would misfile a snapshot that lacks it.
+    ids = [frozenset(tuple(sorted(labels.items()))
+                     for labels, _, _ in write.series)
+           for write in requests]
+    first = by_ts[min(by_ts, key=lambda ts: min(by_ts[ts]))]
+    known = [set(ids[first[0]]), set().union(*(ids[i] for i in first[1:]))]
+    shard_of = []
+    for request_ids in ids:
+        hits = [bool(request_ids & known[k]) for k in (0, 1)]
+        shard = hits.index(True) if hits.count(True) == 1 else -1
+        if shard >= 0:
+            known[shard] |= request_ids
+        shard_of.append(shard)
+    bad = {ts: [(shard_of[i], len(requests[i].series)) for i in idx]
+           for ts, idx in by_ts.items()
            if sorted(shard_of[i] for i in idx) != [0, 1]}
     require(not bad, f"egress: remote-write snapshots not delivered exactly "
-                     f"once per shard: {dict(list(bad.items())[:10])}")
+                     f"once per shard (shard, series) per request: "
+                     f"{dict(list(bad.items())[:10])}")
     for shard in (0, 1):
         stamps = [ts for ts, idx in sorted(by_ts.items(),
                                            key=lambda kv: min(kv[1]))
@@ -2973,6 +3051,903 @@ def phase_egress(card_line: str, c5_tick_ms: dict) -> int:
     return launches
 
 
+# -- the hub (a 64-node H100 cluster as one hub sees it) ----------------------
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def start_hub(args: list[str], port: int = 0
+              ) -> tuple[subprocess.Popen, int, list]:
+    """``python -m kube_gpu_stats_tpu_torch hub`` on ``port`` (0 = any);
+    returns it, the port its log names, and its log lines."""
+    cmd = [sys.executable, "-X", "faulthandler", "-m",
+           "kube_gpu_stats_tpu_torch", "hub", "--listen-host", "127.0.0.1",
+           "--listen-port", str(port), *args]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stderr=subprocess.PIPE,
+                            stdout=subprocess.DEVNULL, text=True)
+    lines: queue.Queue = queue.Queue()
+    log: list[str] = []
+
+    def read() -> None:
+        for line in proc.stderr:
+            log.append(line.rstrip("\n"))
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=read, daemon=True).start()
+    deadline = time.monotonic() + CLI_START_S
+    try:
+        while True:
+            line = lines.get(timeout=max(0.0, deadline - time.monotonic()))
+            require(line is not None, f"the hub exited before serving: {log}")
+            match = re.search(r"hub serving .* on \S+:(\d+)", line)
+            if match:
+                return proc, int(match.group(1)), log
+    except BaseException:
+        proc.kill()
+        proc.wait(timeout=30)
+        raise
+
+
+def stop_with_stacks(proc: subprocess.Popen, log: list
+                     ) -> tuple[int | None, float]:
+    """SIGTERM, then (exit code, seconds to exit). A process still
+    running after STOP_GRACE_HUB_S gets SIGABRT, so faulthandler prints
+    every thread's stack into its log (printed here), then it is killed:
+    (None, ...)."""
+    t0 = time.monotonic()
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+    try:
+        return proc.wait(timeout=STOP_GRACE_HUB_S), time.monotonic() - t0
+    except subprocess.TimeoutExpired:
+        proc.send_signal(signal.SIGABRT)
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+        time.sleep(0.5)
+        print("\n".join(log[-200:]), file=sys.stderr, flush=True)
+        return None, time.monotonic() - t0
+
+
+def value_strings(text: str) -> list[tuple[str, dict, str]]:
+    """(name, labels, value as rendered) of every sample line."""
+    out = []
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        head, _, value = line.rpartition(" ")
+        name, _, raw = head.partition("{")
+        labels = dict(validate._tokenize_labels(raw[:-1])) if raw else {}
+        out.append((name, labels, value))
+    return out
+
+
+def chip_keys(series) -> dict[tuple, float]:
+    """(family, sorted labels) -> value of the per-card series the hub
+    re-exports; the key is the hub's own dedup identity."""
+    from kube_gpu_stats_tpu_torch.hub import PER_CHIP_SPECS
+
+    return {(name, tuple(sorted(labels.items()))): value
+            for name, labels, value in series if name in PER_CHIP_SPECS}
+
+
+class PublishRecorder:
+    """Keeps the newest ``keep`` snapshots an in-process registry
+    publishes (every one: the registry's own publish is wrapped)."""
+
+    def __init__(self, registry, keep: int = 400) -> None:
+        self.snapshots: collections.deque = collections.deque(maxlen=keep)
+        publish = registry.publish
+
+        def recorded(snapshot) -> None:
+            publish(snapshot)
+            self.snapshots.append(snapshot)
+
+        registry.publish = recorded
+
+    def texts(self) -> list[str]:
+        return [snapshot.render() for snapshot in list(self.snapshots)]
+
+
+class SyntheticFleet:
+    """HUB_NODES - 1 synthetic nodes of HUB_CARDS cards each, as the
+    port's DeltaPublishers on threads of this process: each republishes
+    the real daemon's newest scrape after every hub refresh (every
+    second), its card 0's series relabelled per card (uuid, minor, chip,
+    device_path, worker)."""
+
+    def __init__(self, hub_url: str, watch: "DaemonWatcher",
+                 uuid: str) -> None:
+        from kube_gpu_stats_tpu_torch.registry import Registry
+
+        self.hub_url, self.watch, self.uuid = hub_url, watch, uuid
+        self._etag = ""
+        self.nodes = list(range(1, HUB_NODES))
+        self.registries = {n: Registry() for n in self.nodes}
+        self.publishers = {n: delta.DeltaPublisher(
+            self.registries[n], hub_url, source=self.source(n),
+            min_interval=0.2, timeout=10.0) for n in self.nodes}
+        self.specs = {m.name: m for m in schema.PER_DEVICE_METRICS
+                      if m.type is not schema.MetricType.HISTOGRAM}
+        self.paused = threading.Event()
+        self.failure: list = []
+        self.rounds = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    @staticmethod
+    def source(n: int) -> str:
+        return f"http://node-{n:02d}.synthetic:9400/metrics"
+
+    def templates(self, mine: list) -> dict[int, list]:
+        """node -> [(spec, relabelled labels)] per series, in the
+        daemon's order: built once per series shape, so a republish
+        only pairs new values with prebuilt Series identities."""
+        out = {}
+        for n in self.nodes:
+            rows = []
+            for card in range(HUB_CARDS):
+                swap = {"uuid": f"GPU-synthetic-{n:02d}-{card}",
+                        "minor": str(card), "chip": str(card),
+                        "device_path": f"/dev/nvidia{card}",
+                        "worker": f"node-{n:02d}"}
+                for name, labels, _ in mine:
+                    rows.append((self.specs[name], tuple(
+                        (k, swap.get(k, v)) for k, v in labels.items())))
+            out[n] = rows
+        return out
+
+    def publish_newest(self) -> None:
+        from kube_gpu_stats_tpu_torch.registry import Series, SnapshotBuilder
+
+        newest = max(self.watch.texts)
+        mine = [(name, labels, value) for name, labels, value
+                in validate.parse_exposition(self.watch.texts[newest])
+                if labels.get("uuid") == self.uuid and name in self.specs]
+        shape = [(name, tuple(labels.items())) for name, labels, _ in mine]
+        if shape != getattr(self, "_shape", None):
+            self._shape, self._templates = shape, self.templates(mine)
+        values = [value for _, _, value in mine] * HUB_CARDS
+        for n, rows in self._templates.items():
+            builder = SnapshotBuilder()
+            builder.extend_series(Series(spec, labels, value) for
+                                  (spec, labels), value in zip(rows, values))
+            self.registries[n].publish(builder.build())
+        self.rounds += 1
+
+    def hub_refreshed(self) -> bool:
+        """True once per hub publish: /metrics answers 200 for a new
+        generation and 304 (If-None-Match) for the one already seen."""
+        request = urllib.request.Request(
+            self.hub_url + "/metrics", headers={"If-None-Match": self._etag}
+            if self._etag else {})
+        try:
+            with urllib.request.urlopen(request, timeout=10) as resp:
+                resp.read()
+                self._etag = resp.headers.get("ETag", "")
+                return True
+        except urllib.error.HTTPError as exc:
+            if exc.code == 304:
+                return False
+            raise
+        except OSError:
+            return False             # the hub restarting
+
+    def _run(self) -> None:
+        """Republish right after each hub refresh publishes (about once a
+        second): the frames land mid-interval, never inside a refresh,
+        so one refresh folds and merges the same frame of each node."""
+        try:
+            while not self._stop.is_set():
+                if self.hub_refreshed() and not self.paused.is_set():
+                    self.publish_newest()
+                self._stop.wait(0.05)
+        except Exception as exc:  # noqa: BLE001 - re-raised by stop()
+            self.failure.append(exc)
+
+    def start(self) -> float:
+        """Start every node and wait until each one's first frame (its
+        FULL) has landed; returns the seconds that took."""
+        t0 = time.monotonic()
+        self.hub_refreshed()        # the generation already published
+        for publisher in self.publishers.values():
+            publisher.start()       # each pushes the publishes after this
+        self.publish_newest()
+        while not all(p.pushes_total for p in self.publishers.values()):
+            require(time.monotonic() - t0 < 60,
+                    "hub: the synthetic nodes' first frames did not land "
+                    "in 60 s")
+            time.sleep(0.05)
+        self._thread.start()
+        return time.monotonic() - t0
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread.is_alive():
+            self._thread.join(timeout=30)
+        for publisher in self.publishers.values():
+            publisher.stop()
+        require(not self.failure, f"the synthetic fleet: {self.failure}")
+
+    def frames(self) -> dict:
+        full = sum(p._encoder.full_frames for p in self.publishers.values())
+        deltas = sum(p._encoder.delta_frames
+                     for p in self.publishers.values())
+        return {"full": full, "delta": deltas,
+                "failures": sum(p.failures_total
+                                for p in self.publishers.values())}
+
+
+def fold_rows(inputs: list[tuple[str, list]]) -> dict[str, dict]:
+    """The slice rollups of one refresh, computed here from its inputs —
+    (target, parsed series) in the hub's target order — by the rollup
+    definitions: one row per (target, slice, worker, chip) that carries
+    a row family, summed, averaged and counted per slice in that
+    order."""
+    gauges = {schema.DUTY_CYCLE.name: "duty", schema.MEMORY_USED.name: "used",
+              schema.MEMORY_TOTAL.name: "total", schema.POWER.name: "power",
+              schema.DEVICE_UP.name: "up", schema.ENERGY.name: "energy"}
+    row_families = set(gauges) | {
+        schema.MEMORY_PEAK.name, schema.TEMPERATURE.name,
+        schema.WORKLOAD_MFU.name, schema.WORKLOAD_STEPS.name,
+        schema.WORKLOAD_BUSY_SECONDS.name, schema.RUNTIME_RESTARTS.name,
+        schema.ICI_BANDWIDTH.name, schema.PROCESS_OPEN.name}
+    rows: dict[tuple, dict] = {}
+    for target, series in inputs:
+        for name, labels, value in series:
+            if name not in row_families or (
+                    name == schema.PROCESS_OPEN.name
+                    and labels.get("comm") == "_overflow"):
+                continue
+            key = (target, labels.get("slice", ""), labels.get("worker", ""),
+                   labels.get("chip", ""))
+            row = rows.setdefault(key, {})
+            if name in gauges:
+                row[gauges[name]] = value
+    out: dict[str, dict] = {}
+    for key, row in rows.items():
+        out.setdefault(key[1], {"rows": [], "workers": set()})
+        out[key[1]]["rows"].append(row)
+        out[key[1]]["workers"].add(key[2] or key[0])
+    fmt = registry_format_value
+    rollups = {}
+    for slice_name, got in out.items():
+        rws = got["rows"]
+        duties = [r["duty"] for r in rws if "duty" in r]
+        values = {
+            "slice_chips": fmt(float(len(rws))),
+            "slice_chips_up": fmt(float(sum(1 for r in rws
+                                            if r.get("up") == 1.0))),
+            "slice_workers": fmt(float(len(got["workers"]))),
+            "slice_duty_cycle_mean": fmt(sum(duties) / len(duties)),
+            "slice_duty_cycle_min": fmt(min(duties)),
+            "slice_duty_cycle_max": fmt(max(duties)),
+        }
+        for family, column in (("slice_memory_used_bytes", "used"),
+                               ("slice_memory_total_bytes", "total"),
+                               ("slice_power_watts", "power"),
+                               ("slice_energy_joules", "energy")):
+            present = [r[column] for r in rws if column in r]
+            if present:
+                values[family] = fmt(sum(present))
+        rollups[slice_name] = values
+    return rollups
+
+
+def registry_format_value(value: float) -> str:
+    from kube_gpu_stats_tpu_torch.registry import format_value
+
+    return format_value(value)
+
+
+def next_hub_text(port: int, etag: str = "", timeout: float = 60.0
+                  ) -> tuple[str, str]:
+    """The hub's /metrics once its generation's ETag differs from
+    ``etag``, and the new ETag. Waits with If-None-Match (a 304 costs
+    neither side a render or a parse: parsing the whole exposition in
+    a loop here would take the GIL from the burn and the publishers)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        request = urllib.request.Request(
+            f"http://127.0.0.1:{port}/metrics",
+            headers={"If-None-Match": etag} if etag else {})
+        try:
+            with urllib.request.urlopen(request, timeout=10) as resp:
+                return resp.read().decode(), resp.headers.get("ETag", "")
+        except urllib.error.HTTPError as exc:
+            if exc.code != 304:
+                raise
+        require(time.monotonic() < deadline,
+                f"hub: no refresh published in {timeout:g} s")
+        time.sleep(0.05)
+
+
+def hub_view(port: int, text: str | None = None) -> dict:
+    """One read of the hub: /metrics parsed, with the rendered values."""
+    if text is None:
+        text = scrape(port)
+    series = validate.parse_exposition(text)
+    rendered = value_strings(text)
+
+    def one_value(name: str, **labels) -> float | None:
+        hits = [v for n, lab, v in series if n == name
+                and all(lab.get(k) == w for k, w in labels.items())]
+        return hits[0] if hits else None
+
+    return {
+        "text": text, "series": series, "rendered": rendered,
+        "targets": [lab["target"] for n, lab, _ in series
+                    if n == schema.HUB_TARGET_UP.name],
+        "up": {lab["target"]: v for n, lab, v in series
+               if n == schema.HUB_TARGET_UP.name},
+        "refreshes": one_value(schema.HUB_REFRESH_DURATION.name + "_count")
+        or 0.0,
+        "one": one_value,
+        "chips": chip_keys(series)}
+
+
+def match_inputs(view: dict, embedded_texts, daemon_texts: dict,
+                 embedded_url: str, daemon_source: str) -> dict:
+    """Which embedded scrape and which daemon ticks this refresh merged.
+    Every per-card series of one embedded scrape (pulled: one body) is
+    in the hub's exposition with the same labels and value. The daemon
+    pushes every tick, and a frame that lands while the hub folds or
+    merges can hand that refresh two adjacent ticks of its values (the
+    reference's contract, each series from one of them): every daemon
+    series no earlier target claimed carries tick t's value or tick
+    t+1's, and the rollups fold tick t-1, t or t+1. Returns the matches
+    and the daemon series the first-wins dedup dropped."""
+    hub_chips = view["chips"]
+    order = view["targets"]
+    require(embedded_url in order and daemon_source in order,
+            f"hub: {len(order)} targets, the embedded exporter or the "
+            f"daemon not among them")
+    embedded = None
+    for text in reversed(embedded_texts):
+        keys = chip_keys(validate.parse_exposition(text))
+        if keys and all(hub_chips.get(k) == v for k, v in keys.items()):
+            embedded = (text, keys)
+            break
+    if embedded is None and embedded_texts:
+        keys = chip_keys(validate.parse_exposition(embedded_texts[-1]))
+        off = {k: (v, hub_chips.get(k)) for k, v in keys.items()
+               if hub_chips.get(k) != v}
+        require(False, f"hub: no embedded scrape matches the hub's merged "
+                       f"series; the newest differs in {len(off)} of "
+                       f"{len(keys)}: {dict(list(off.items())[:3])}")
+    embedded_first = order.index(embedded_url) < order.index(daemon_source)
+    ticks = sorted(daemon_texts, reverse=True)
+    parsed = {t: chip_keys(validate.parse_exposition(daemon_texts[t]))
+              for t in ticks[:60]}
+    daemon = None
+    for tick in ticks[:60]:
+        keys, after = parsed[tick], parsed.get(tick + 1, {})
+        claimed = ({k for k in keys if k in embedded[1]}
+                   if embedded_first else set())
+        if all(hub_chips.get(k) in (v, after.get(k, v))
+               for k, v in keys.items() if k not in claimed):
+            # The rows may lag the merged series by one frame: a frame
+            # landing while the hub folds a fresh entry's rows.
+            texts = [daemon_texts[t] for t in (tick, tick - 1, tick + 1)
+                     if t in daemon_texts]
+            daemon = (tick, texts, keys, claimed)
+            break
+    require(daemon is not None,
+            "hub: no daemon tick matches the hub's merged series")
+    return {"embedded": embedded, "daemon": daemon}
+
+
+def check_hub_view(view: dict, matched: dict, fleet: SyntheticFleet,
+                   embedded_url: str, daemon_source: str) -> dict:
+    """Convergence, same numbers as the node, and the rollups of one
+    hub refresh; returns what it read."""
+    one = view["one"]
+    targets = view["targets"]
+    want_targets = {embedded_url, daemon_source} | {
+        fleet.source(n) for n in fleet.nodes}
+    require(set(targets) == want_targets and len(targets) == HUB_NODES + 1,
+            f"hub: {len(targets)} targets, missing "
+            f"{sorted(want_targets - set(targets))[:5]}")
+    require(all(v == 1.0 for v in view["up"].values()),
+            f"hub: targets down "
+            f"{[t for t, v in view['up'].items() if v != 1]}")
+    require(one(schema.HUB_TARGETS.name) == HUB_NODES + 1,
+            f"hub: slice_targets {one(schema.HUB_TARGETS.name)}")
+    require(one(schema.DELTA_PUSH_TARGETS.name) == HUB_NODES,
+            f"hub: push-served {one(schema.DELTA_PUSH_TARGETS.name)}")
+    tick, daemon_texts, _, claimed = matched["daemon"]
+    embedded_text = matched["embedded"][0]
+    # The synthetic nodes' inputs: the version each session carries.
+    by_worker: dict[str, list] = {}
+    for name, labels, value in view["series"]:
+        if labels.get("worker", "").startswith("node-") \
+                and labels["worker"] != "node-00":
+            by_worker.setdefault(labels["worker"], []).append(
+                (name, labels, value))
+    # One expectation per daemon tick the refresh may have folded; each
+    # rollup family must equal one of them exactly.
+    expectations = []
+    for daemon_text in daemon_texts:
+        inputs = []
+        for target in targets:
+            if target == embedded_url:
+                inputs.append((target,
+                               validate.parse_exposition(embedded_text)))
+            elif target == daemon_source:
+                inputs.append((target,
+                               validate.parse_exposition(daemon_text)))
+            else:
+                worker = target.split("//", 1)[1].split(".", 1)[0]
+                inputs.append((target, by_worker.get(worker, [])))
+        expectations.append(fold_rows(inputs))
+    expected = expectations[0]
+    rendered = {(name, labels.get("slice")): value
+                for name, labels, value in view["rendered"]
+                if name.startswith("slice_") and set(labels) == {"slice"}}
+    require(set(expected) == {HUB_SLICE}, f"hub: slices {sorted(expected)}")
+    require(expected[HUB_SLICE]["slice_workers"]
+            == registry_format_value(float(HUB_NODES)),
+            f"hub: {expected[HUB_SLICE]['slice_workers']} workers present")
+    mismatched = {family: ([e[HUB_SLICE].get(family) for e in expectations],
+                           rendered.get((family, HUB_SLICE)))
+                  for family in expected[HUB_SLICE]
+                  if rendered.get((family, HUB_SLICE)) not in
+                  [e[HUB_SLICE].get(family) for e in expectations]}
+    require(not mismatched, f"hub: rollups differ from their inputs: "
+                            f"{mismatched}")
+    require(one(schema.HUB_DUPLICATE_SERIES.name) == len(claimed),
+            f"hub: slice_duplicate_series "
+            f"{one(schema.HUB_DUPLICATE_SERIES.name)} != {len(claimed)} "
+            f"series both the embedded exporter and the daemon serve")
+    ratio = one(schema.HUB_STRAGGLER_RATIO.name, slice=HUB_SLICE)
+    require(ratio is not None and 0 < ratio <= 1,
+            f"hub: slice_straggler_ratio {ratio}")
+    return {"daemon_tick": tick, "duplicates": len(claimed),
+            "duplicate_families": sorted({k[0] for k in claimed}),
+            "rollups": expected[HUB_SLICE],
+            "steps_per_s": one(schema.HUB_WORKER_STEPS.name,
+                               slice=HUB_SLICE, worker="node-00"),
+            "straggler_ratio": ratio,
+            "refreshes": view["refreshes"]}
+
+
+def wait_converged(port: int, from_refresh: float, what: str, match
+                   ) -> tuple[dict, dict]:
+    """The first hub refresh after ``from_refresh`` whose view passes
+    every check; fails when none of the next HUB_CONVERGE_REFRESHES
+    refreshes does."""
+    last_error = None
+    etag = ""
+    while True:
+        text, etag = next_hub_text(port, etag)
+        view = hub_view(port, text)
+        require(view["refreshes"] - from_refresh <= HUB_CONVERGE_REFRESHES,
+                f"hub: {what} not converged within "
+                f"{HUB_CONVERGE_REFRESHES} refreshes: {last_error}")
+        try:
+            return view, match(view)
+        except RuntimeError as exc:
+            last_error = exc
+
+
+def hub_cycles_ms(port: int) -> list[float]:
+    """Every recorded refresh's whole-cycle ms (the hub's /debug/trace)."""
+    status, body, _ = fetch(f"http://127.0.0.1:{port}/debug/trace?last=128")
+    require(status == 200, f"hub /debug/trace answered {status}")
+    return [event["dur"] / 1e3 for event in json.loads(body)["traceEvents"]
+            if event["cat"] == "cycle"]
+
+
+def lane_apply(view: dict) -> tuple[float, float, float]:
+    """(apply seconds, FULL frames, DELTA frames) from the ingest's own
+    counters."""
+    seconds = sum(v for n, _, v in view["series"]
+                  if n == schema.INGEST_LANE_APPLY_SECONDS.name)
+    one = view["one"]
+    return (seconds, one(schema.DELTA_FRAMES.name, kind="full") or 0.0,
+            one(schema.DELTA_FRAMES.name, kind="delta") or 0.0)
+
+
+def run_hub_doctor(port: int) -> tuple[int, dict]:
+    proc = subprocess.run(
+        [sys.executable, "-m", "kube_gpu_stats_tpu_torch", "doctor",
+         "--backend", "nvml", "--attribution", "off", "--json", "--url",
+         f"http://127.0.0.1:{port}/metrics", "--cardinality", "--skew",
+         "--stores"], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    payload = json.loads(proc.stdout)
+    return proc.returncode, {row["name"]: row for row in payload["checks"]}
+
+
+def check_top(port: int) -> dict:
+    """``top --once --json`` against the hub: exit 0 and its rows equal
+    the hub's merged rows (the hub read just before or just after it);
+    the table form: a row for every worker and the rollup footer."""
+    from kube_gpu_stats_tpu_torch import top
+
+    url = f"http://127.0.0.1:{port}/metrics"
+    for _ in range(5):
+        before = scrape(port)
+        proc = subprocess.run(
+            [sys.executable, "-m", "kube_gpu_stats_tpu_torch", "top",
+             "--once", "--json", url], cwd=ROOT, capture_output=True,
+            text=True, timeout=60)
+        after = scrape(port)
+        require(proc.returncode == 0, f"top --json exited "
+                                      f"{proc.returncode}: {proc.stderr}")
+        got = json.loads(proc.stdout)["chips"]
+        candidates = []
+        for text in (before, after):
+            frame = top.build_frame([text], [], [0.0], targets=[url])
+            candidates.append(json.loads(top.render_json(frame))["chips"])
+        if got in candidates:
+            break
+    else:
+        require(False, "top --json rows never equal the hub's merged rows")
+    table = subprocess.run(
+        [sys.executable, "-m", "kube_gpu_stats_tpu_torch", "top", "--once",
+         url], cwd=ROOT, capture_output=True, text=True, timeout=60)
+    require(table.returncode == 0, f"top exited {table.returncode}")
+    lines = table.stdout.splitlines()
+    workers = {f"node-{n:02d}" for n in range(HUB_NODES)}
+    shown = {w for w in workers
+             if any(f"/w{w} " in line or line.rstrip().endswith(f"/w{w}")
+                    or f"/w{w}" in line for line in lines)}
+    footer = [line for line in lines if HUB_SLICE in line
+              and "workers" in line]
+    require(shown == workers, f"top table: workers missing "
+                              f"{sorted(workers - shown)[:5]}")
+    require(footer, f"top table: no rollup footer: {lines[-3:]}")
+    return {"rows": len(got), "workers": len(shown), "footer": footer[0],
+            "lines": len(lines)}
+
+
+def phase_hub(card_line: str, c5_tick_ms: dict,
+              main_cuda_steps_per_s: float) -> int:
+    """The hub core over a 64-node H100 cluster on card 0: the hub as a
+    subprocess over a targets file naming the embedded exporter of a
+    ``cuda`` burn in this process (pulled); the NVML daemon at 10 Hz
+    pushing to it; 63 synthetic nodes of 8 cards each as delta
+    publishers on threads of this process (pushed). A live window, a
+    warm restart from the ingest checkpoint, a second live window.
+    Returns the kernel launches."""
+    workdir = tempfile.mkdtemp(prefix="kts-hub-")
+    targets_file = os.path.join(workdir, "targets.txt")
+    checkpoint = os.path.join(workdir, "ingest.json")
+    hub_args = ["--interval", str(HUB_INTERVAL_S), "--ingest-checkpoint",
+                checkpoint, "--expect-workers", str(HUB_NODES),
+                "--targets-file", targets_file]
+    saved_env = {k: os.environ.get(k) for k in ("KTS_SLICE", "KTS_WORKER")}
+    os.environ["KTS_SLICE"], os.environ["KTS_WORKER"] = HUB_SLICE, "node-00"
+    exporter = embedded.start(0, interval=HUB_EMBEDDED_INTERVAL_S)
+    recorder = PublishRecorder(exporter.registry)
+    embedded_url = f"http://127.0.0.1:{exporter.port}/metrics"
+    with open(targets_file, "w") as handle:
+        handle.write(f"# the embedded exporter of the cuda burn\n"
+                     f"{embedded_url}\n")
+    daemon_port = free_port()
+    daemon_source = f"http://127.0.0.1:{daemon_port}/metrics"
+    hub_proc = daemon_proc = fleet = None
+    out: dict = {}
+    failure: list = []
+    steps_log: list = []
+    try:
+        hub_proc, hub_port, hub_log = start_hub(hub_args)
+        hub_url = f"http://127.0.0.1:{hub_port}"
+        daemon_proc, port, log = start_daemon(workdir, (
+            "--interval", str(HUB_DAEMON_INTERVAL_S), "--textfile-dir", "",
+            "--listen-port", str(daemon_port), "--hub-url", hub_url,
+            "--hub-push-source", daemon_source, "--hub-push-interval",
+            "0.01", "--hub-spill-dir", os.path.join(workdir, "spill")))
+        with DaemonWatcher(daemon_proc, port, log, conform=True,
+                           keep_texts=True) as watch:
+
+            def match(view: dict) -> dict:
+                matched = match_inputs(view, recorder.texts(),
+                                       dict(watch.texts), embedded_url,
+                                       daemon_source)
+                return check_hub_view(view, matched, fleet, embedded_url,
+                                      daemon_source)
+
+            def controller() -> None:
+                nonlocal fleet
+                try:
+                    uuid = ""
+                    deadline = time.monotonic() + 30
+                    while not uuid:
+                        require(time.monotonic() < deadline,
+                                "hub: the daemon served no card")
+                        texts = dict(watch.texts)
+                        if texts:
+                            uuid = next((
+                                labels["uuid"] for name, labels, _ in
+                                validate.parse_exposition(texts[max(texts)])
+                                if name == schema.DEVICE_UP.name
+                                and labels.get("chip") == "0"), "")
+                        time.sleep(0.1)
+                    fleet = SyntheticFleet(hub_url, watch, uuid)
+                    # The start: every node has announced itself (its
+                    # first FULL landed); the hub converges from there.
+                    out["fleet_start_s"] = fleet.start()
+                    start_view = hub_view(hub_port)
+                    out["start"] = wait_converged(
+                        hub_port, start_view["refreshes"], "the start",
+                        match)
+                    out["start_refreshes"] = (out["start"][1]["refreshes"]
+                                              - start_view["refreshes"])
+                    t0 = time.monotonic()
+                    out["start_apply"] = lane_apply(out["start"][0])
+                    time.sleep(HUB_LIVE_S)
+                    out["live"] = wait_converged(
+                        hub_port, hub_view(hub_port)["refreshes"],
+                        "the live window", match)
+                    out["live_apply"] = lane_apply(out["live"][0])
+                    out["live_window"] = (t0, time.monotonic())
+                    out["live_rates"] = rates_in(hub_port, HUB_RATE_REFRESHES)
+                    out["cycles_live"] = hub_cycles_ms(hub_port)
+                    out["rss"] = out["live"][0]["one"](
+                        "process_resident_memory_bytes")
+                    out["series"] = len(out["live"][0]["series"])
+                    out["top"] = check_top(hub_port)
+                    out["doctor"] = run_hub_doctor(hub_port)
+                    # The warm restart: quiesce the synthetic pushes, so
+                    # no frame lands after the final checkpoint.
+                    fleet.paused.set()
+                    time.sleep(1.0)
+                    before = hub_view(hub_port)
+                    out["before_restart"] = lane_apply(before)
+                    out["fleet_before"] = fleet.frames()
+                    out["hub_rc"], out["hub_stop_s"] = stop_with_stacks(
+                        hub_proc, hub_log)
+                    t_down = time.monotonic()
+                    new_proc, new_port, new_log = start_hub(hub_args,
+                                                            hub_port)
+                    out["new_hub"] = (new_proc, new_log)
+                    require(new_port == hub_port, "hub: restarted on "
+                                                  f"{new_port}")
+                    readyz = []
+                    while True:
+                        status, body, _ = fetch(f"{hub_url}/readyz")
+                        readyz.append((status, body.decode().strip()))
+                        if status == 200:
+                            break
+                        require(time.monotonic() - t_down < 60,
+                                f"hub: /readyz never 200: {readyz[-3:]}")
+                        time.sleep(0.02)
+                    # The snapshot that shows the state /readyz judged:
+                    # the first refresh after it turned 200.
+                    text, etag = next_hub_text(hub_port)
+                    first = hub_view(hub_port, text)["refreshes"]
+                    ready_view = hub_view(hub_port,
+                                          next_hub_text(hub_port, etag)[0])
+                    out["readyz"] = readyz
+                    out["ready_view"] = {
+                        "pending": ready_view["one"](
+                            schema.HUB_WARM_RESTART_PENDING.name),
+                        "sessions": ready_view["one"](
+                            schema.HUB_WARM_RESTART_SESSIONS.name),
+                        "refreshes": ready_view["refreshes"]}
+                    # The synthetic nodes were paused through the
+                    # restart: their sessions serve the checkpoint until
+                    # their next frames, which continue the chains.
+                    fleet.paused.clear()
+                    out["restart"] = wait_converged(
+                        hub_port, 0.0, "the warm restart", match)
+                    out["recovered_refreshes"] = (
+                        out["restart"][1]["refreshes"] - first)
+                    time.sleep(HUB_LIVE2_S)
+                    out["live2"] = wait_converged(
+                        hub_port, hub_view(hub_port)["refreshes"],
+                        "the second live window", match)
+                    out["after_restart"] = lane_apply(out["live2"][0])
+                    out["fleet_after"] = fleet.frames()
+                    out["cycles_live2"] = hub_cycles_ms(hub_port)
+                except Exception as exc:  # noqa: BLE001 - re-raised
+                    failure.append(exc)
+
+            def rates_in(hub_port_: int, refreshes: int) -> list:
+                """slice_worker_steps_per_second for node-00 at each of
+                the next ``refreshes`` refreshes, beside the burn's own
+                steps/s between the moments this script saw the refresh
+                before it and that refresh published. Polls the raw text
+                with two regexes: parsing the whole exposition here
+                would take the GIL from the burn's launches."""
+                count_re = re.compile(
+                    r"^hub_refresh_duration_seconds_count (\S+)$", re.M)
+                rate_re = re.compile(
+                    r'^slice_worker_steps_per_second\{slice="'
+                    + HUB_SLICE + r'",worker="node-00"\} (\S+)$', re.M)
+                # The generation published now is not timed: only a
+                # publish seen as it happens starts a window.
+                text, etag = next_hub_text(hub_port_)
+                last = float(count_re.search(text).group(1))
+                samples, t_last = [], None
+                while len(samples) < refreshes:
+                    text, etag = next_hub_text(hub_port_, etag)
+                    t = time.monotonic()
+                    count = float(count_re.search(text).group(1))
+                    if count != last:
+                        rate = rate_re.search(text)
+                        if (t_last is not None and last == count - 1
+                                and rate is not None):
+                            samples.append((t_last, t,
+                                            float(rate.group(1))))
+                        last, t_last = count, t
+                span = samples[-1][1] - samples[0][0]
+                return {
+                    "per_refresh": [(hub, steps_between(t0, t1)
+                                     / (t1 - t0))
+                                    for t0, t1, hub in samples],
+                    # Over the whole span, each refresh's rate weighted
+                    # by its window: the exporter's publish lag and this
+                    # poll's jitter cancel but at the two ends.
+                    "hub": sum(hub * (t1 - t0) for t0, t1, hub in samples)
+                    / span,
+                    "burn": steps_between(samples[0][0], samples[-1][1])
+                    / span}
+
+            def steps_between(t0: float, t1: float) -> float:
+                log_ = list(steps_log)
+                times = [t for t, _ in log_]
+
+                def at(t: float) -> float:
+                    i = bisect.bisect_right(times, t)
+                    return log_[max(0, i - 1)][1]
+
+                return at(t1) - at(t0)
+
+            hook = StepCounter()
+
+            def tee(n: int, *, seconds: float, flops: float) -> None:
+                hook(n, seconds=seconds, flops=flops)
+                exporter.record_step(n, seconds=seconds, flops=flops)
+                steps_log.append((time.monotonic(), hook.steps))
+
+            thread = threading.Thread(target=controller, daemon=True)
+            tiled_burn.launches = 0
+            steps_log.append((time.monotonic(), 0))
+            thread.start()
+            steps = chunks = 0
+            while thread.is_alive():
+                chunks += 1
+                steps += run_burn(seconds=HUB_BURN_CHUNK_S, size=MAIN_SIZE,
+                                  report_every=1e9, kernel="cuda",
+                                  device="cuda:0", step_hook=tee)
+                require(chunks * HUB_BURN_CHUNK_S < 300,
+                        "the hub phase did not end in 300 s")
+            launches = tiled_burn.launches
+            thread.join(timeout=30)
+            require(not failure, f"the hub phase failed: {failure}")
+            tick_window = window_p50(watch.traced, min(watch.traced),
+                                     max(watch.traced))
+    finally:
+        # Pushers first, into a live hub (their final flush lands), then
+        # the hub, then the burn's exporter.
+        if fleet is not None:
+            fleet.stop()
+        if daemon_proc is not None:
+            out["daemon_rc"], out["daemon_stop_s"] = stop_with_stacks(
+                daemon_proc, log)
+        new_hub = out.get("new_hub")
+        if new_hub is not None:
+            out["new_hub_rc"], out["new_hub_stop_s"] = stop_with_stacks(
+                *new_hub)
+        if hub_proc is not None and hub_proc.poll() is None:
+            stop_with_stacks(hub_proc, hub_log)
+        exporter.stop()
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    require(launches == steps + chunks,
+            f"{launches} launches for {steps} steps in {chunks} chunks")
+    require(out.get("hub_rc") == 0, f"the hub exited {out.get('hub_rc')} "
+                                    f"on SIGTERM: {hub_log[-20:]}")
+    require(out.get("new_hub_rc") == 0,
+            f"the restarted hub exited {out.get('new_hub_rc')}: "
+            f"{out['new_hub'][1][-20:]}")
+    require(out.get("daemon_rc") == 0,
+            f"the hub phase's daemon exited {out.get('daemon_rc')}")
+    # Warm restart, by the reference's contract.
+    fulls_after = out["after_restart"][1]
+    sessions = HUB_NODES
+    continued = sessions - fulls_after
+    ready_view = out["ready_view"]
+    saw_gate = [body for status, body in out["readyz"] if status == 503]
+    rc_doc, rows = out["doctor"]
+    skew = rows["skew"]["data"]["skew"] if "data" in rows["skew"] else {}
+    census = (skew.get("ingest") or {}).get("fleet_versions", {})
+    downgraded = (skew.get("ingest") or {}).get("downgraded_sessions", [])
+    card_rows = rows["cardinality"].get("data", {}).get("cardinality", {})
+    live_rates = out["live_rates"]
+    hub_rate, burn_rate = live_rates["hub"], live_rates["burn"]
+    start_apply, live_apply = out["start_apply"], out["live_apply"]
+    per_delta_s = ((live_apply[0] - start_apply[0])
+                   / max(1.0, live_apply[2] - start_apply[2]))
+    per_full_s = ((start_apply[0] - per_delta_s * start_apply[2])
+                  / max(1.0, start_apply[1]))
+    cycles = out["cycles_live"] + out["cycles_live2"]
+    row = {
+        "card": card_line, "interval_s": HUB_INTERVAL_S,
+        "nodes": HUB_NODES, "targets": HUB_NODES + 1,
+        "cards": float(out["live"][1]["rollups"]["slice_chips"]),
+        "fleet_start_s": out["fleet_start_s"],
+        "convergence_refreshes": {
+            "start": out["start_refreshes"],
+            "restart": out["restart"][1]["refreshes"]},
+        "same_numbers": {"daemon_tick": out["live"][1]["daemon_tick"],
+                         "duplicates": out["live"][1]["duplicates"],
+                         "duplicate_families":
+                         out["live"][1]["duplicate_families"]},
+        "rollups": out["live"][1]["rollups"],
+        "steps_per_s": {"hub": hub_rate, "burn": burn_rate,
+                        "refreshes": HUB_RATE_REFRESHES,
+                        "per_refresh": live_rates["per_refresh"],
+                        "main_path_phase": main_cuda_steps_per_s},
+        "straggler_ratio": out["live"][1]["straggler_ratio"],
+        "warm_restart": {
+            "sessions": sessions, "fulls_after": fulls_after,
+            "continued_share": continued / sessions,
+            "readyz_503s": len(saw_gate), "readyz_503_reasons":
+            sorted(set(saw_gate)), "ready_view": ready_view,
+            "recovered_refreshes": out["recovered_refreshes"],
+            "fleet_frames_before": out["fleet_before"],
+            "fleet_frames_after": out["fleet_after"]},
+        "top": out["top"],
+        "doctor": {name: [rows[name]["status"], rows[name]["detail"]]
+                   for name in ("cardinality", "skew", "stores")},
+        "doctor_rc": rc_doc,
+        "census": census,
+        "refresh_ms": {"p50": statistics.median(cycles), "max": max(cycles),
+                       "cycles": len(cycles)},
+        "ingest_apply_ms": {"per_full": per_full_s * 1e3,
+                            "per_delta": per_delta_s * 1e3,
+                            "fulls": start_apply[1],
+                            "deltas_live": live_apply[2] - start_apply[2]},
+        "hub_rss_mib": (out["rss"] or 0) / MIB,
+        "hub_series": out["series"],
+        "daemon_tick_ms": tick_window["tick"],
+        "c5_pipelined_tick_ms": c5_tick_ms,
+        "scrapes_validated": watch.scrapes,
+        "burn": {"steps": steps, "chunks": chunks, "launches": launches}}
+    emit("hub", row)
+    require(abs(hub_rate - burn_rate) <= HUB_RATE_TOL * burn_rate,
+            f"hub: node-00 steps/s {hub_rate} vs the burn's {burn_rate}")
+    require(continued / sessions >= HUB_WARM_MIN,
+            f"hub: {fulls_after} of {sessions} sessions resynced with a "
+            f"FULL after the restart")
+    require(ready_view["pending"] == 0
+            and ready_view["sessions"] >= continued,
+            f"hub: /readyz turned 200 before the replay: {ready_view}")
+    require(out["recovered_refreshes"] <= 1,
+            f"hub: rollup recovered {out['recovered_refreshes']} refreshes "
+            f"after /readyz turned 200")
+    require(rows["cardinality"]["status"] == "ok"
+            and len(card_rows.get("top_sources", [])) >= 10,
+            f"hub: doctor --cardinality {row['doctor']['cardinality']}")
+    require(rows["skew"]["status"] == "ok"
+            and sum(census.values()) == HUB_NODES and not downgraded,
+            f"hub: doctor --skew {row['doctor']['skew']} census {census}")
+    stores = rows["stores"].get("data", {}).get("stores", {})
+    require(rows["stores"]["status"] == "ok"
+            and (stores.get("stores") or {}).get("ingest", {}).get("state")
+            == "healthy",
+            f"hub: doctor --stores {row['doctor']['stores']} "
+            f"{stores.get('stores')}")
+    require(tick_window["tick"]["p50_ms"] < TICK_BUDGET_MS,
+            f"hub: daemon tick p50 {tick_window['tick']}")
+    require(max(cycles) < HUB_INTERVAL_S * 1e3,
+            f"hub: a refresh took {max(cycles)} ms of a "
+            f"{HUB_INTERVAL_S} s interval")
+    return launches
+
+
 def library_call():
     """The yardstick: one PyTorch call computing the same function. Returns
     (name, fn(a, b))."""
@@ -3104,6 +4079,7 @@ def phases() -> None:
     launches += phase_burst(card)
     launches += phase_energy(card, c5_tick_ms)
     launches += phase_egress(card, c5_tick_ms)
+    launches += phase_hub(card, c5_tick_ms, cuda_steps_per_s)
     t = phase_timing(card)
     emit("kernels", [{
         "name": KERNEL_NAME, "route": "cuda", "source": KERNEL_SOURCE,

@@ -22,18 +22,26 @@ sampling, host signals (``hoststats.py``) and sub-tick power burst
 sampler (``burstsampler.py``); the per-pod energy accountant
 (``energy.py``) on the write-ahead stores (``wal.py``); push egress
 (the delta publisher with its disk spill queue, durable remote write
-1.0/2.0, the Pushgateway pusher); the H100 deploy assets
-(``deploy/``); and the entry points (``entry.py``). The hub and top
-come in later slices. The daemon and doctor paths import no torch.
+1.0/2.0, the Pushgateway pusher); the slice hub (``hub.py``: delta
+ingest with its lanes, admission guards and warm-restart checkpoint,
+the series accountant, the merged exposition with slice rollups) and
+``top``; the H100 deploy assets (``deploy/``); and the entry points
+(``entry.py``). The daemon, hub, top and doctor paths import no torch.
 
 Layer map:
 
     cli.py, __main__.py  the daemon's command line (bare flags); the
-                      loadgen, validate and doctor subcommands
+                      loadgen, validate, doctor, hub and top subcommands
+    hub.py            Hub: push sessions and pulled targets merged into
+                      one exposition with slice_* rollups; main()
+    top.py            the live per-card table over exporters or a hub
+    cardinality.py    SeriesAccountant (the hub's series ledger),
+                      LabelFence (the daemon's label-churn fence)
     doctor.py         node preflight: nvml, attribution, topology, poll,
                       --url scrape and live breakers, --trace post-mortem,
                       --host summary, --energy digest, --stores health,
-                      --egress and --skew, the remote-write probe
+                      --egress and --skew, the remote-write probe, a
+                      hub's --cardinality
     daemon.py         Daemon: backend choice, watchers, supervisor, server
     config.py         its flags and KTS_* environment
     collectors/nvml.py  NvmlCollector over native/nvml.py (ctypes NVML)
@@ -56,7 +64,8 @@ Layer map:
     exposition.py     MetricsServer (/metrics, /healthz, /readyz, /debug/*;
                       TLS, mTLS, basic auth), textfile, PushgatewayPusher
     delta.py          the push-delta frame codec, DeltaEncoder and
-                      DeltaPublisher (node -> hub)
+                      DeltaPublisher (node -> hub), DeltaIngest (the hub's
+                      sessions, lanes, sheds, quarantine, checkpoint)
     spillq.py         the publisher's disk spill queue (a wal.SegmentRing)
     remote_write.py   RemoteWriter: remote write 1.0/2.0, durable shards
     snappy.py         snappy block codec (remote write, delta frames)
@@ -75,7 +84,7 @@ Layer map:
     schema.py         the metric families (the reference's, unchanged)
     validate.py       the accelerator_* contract checker and its parsers
     collectors/       the collector trait; workers, resilience,
-                      cardinality, procstats, ici, history, fleetlens,
+                      procstats, ici, history, fleetlens,
                       topology: the parts of them the stack uses
     kinds.py          accel_type and the per-kind datasheet tables
     device.py         device resolution and the Hopper probe

@@ -3,9 +3,10 @@
 Bare flags run the exporter daemon (the DaemonSet entry point).
 ``loadgen …`` runs the load generator (``loadgen/burn.py``'s ``main``:
 the matmul burn, ``--mode ici`` the NVLink ring), ``validate …`` the
-exposition-contract checker (``validate.py``) and ``doctor …`` the node
-preflight (``doctor.py``). The reference's other operational subcommands
-(``top``, ``hub``) are not ported yet: each exits 2 and says so.
+exposition-contract checker (``validate.py``), ``doctor …`` the node
+preflight (``doctor.py``), ``hub …`` the slice aggregation service
+(``hub.py``) and ``top …`` the live per-card view (``top.py``). Every
+subcommand but ``loadgen`` runs without importing torch.
 """
 
 from __future__ import annotations
@@ -13,16 +14,9 @@ from __future__ import annotations
 import sys
 from typing import Sequence
 
-NOT_PORTED = ("top", "hub")
-
 
 def main(argv: Sequence[str] | None = None) -> int:
     args = list(sys.argv[1:] if argv is None else argv)
-    if args and args[0] in NOT_PORTED:
-        print(f"kube_gpu_stats_tpu_torch: '{args[0]}' is not ported yet; "
-              f"the daemon (bare flags), loadgen, validate and doctor run",
-              file=sys.stderr)
-        return 2
     if args and args[0] == "loadgen":
         from .loadgen.burn import main as loadgen_main
 
@@ -35,6 +29,14 @@ def main(argv: Sequence[str] | None = None) -> int:
         from .doctor import main as doctor_main
 
         return doctor_main(args[1:])
+    if args and args[0] == "top":
+        from .top import main as top_main
+
+        return top_main(args[1:])
+    if args and args[0] == "hub":
+        from .hub import main as hub_main
+
+        return hub_main(args[1:])
     from .config import from_args
     from .daemon import run
 

@@ -1,4 +1,4 @@
-"""Configuration of the daemon: CLI flags + environment.
+"""Configuration of the daemon and the hub: CLI flags + environment.
 
 The port's copy of the reference's ``Config``, ``build_parser`` and
 ``from_args``, cut to the flags this package wires. Each flag keeps the
@@ -8,7 +8,10 @@ reference flag that is not wired here is rejected by argparse, not
 accepted and ignored. The push-egress flags (``--pushgateway-*``,
 ``--remote-write-*``, ``--hub-*``) come from the reference whole:
 :func:`add_delta_push_flags` and :func:`validate_delta_push_args` keep
-its shape so the hub can share them when it is ported. ``nvml`` takes the place of the reference's ``tpu``
+its shape, and the hub (``hub.main``) shares them with the daemon, beside
+its own groups: :func:`add_ingest_guard_flags` (``--ingest-*``),
+:func:`add_cardinality_flags` (``--series-*``) and
+:func:`add_hub_noop_flags`. ``nvml`` takes the place of the reference's ``tpu``
 backend; the reference's ``gpu`` (drm sysfs) backend is not offered on an
 NVIDIA node.
 """
@@ -254,6 +257,196 @@ def add_delta_push_flags(p: argparse.ArgumentParser) -> None:
                         "pin (e.g. 1) to hold a rollout wave on the "
                         "old encoding")
 
+
+
+def add_ingest_guard_flags(p: argparse.ArgumentParser) -> None:
+    """The hub's ingest survival knobs: admission control,
+    hostile-pusher quarantine, and the warm-restart checkpoint. Defined
+    here (not inline in hub.main) so spellings/env vars stay in one
+    place alongside the delta-push flag surface they pair with."""
+    p.add_argument("--ingest-delta-rate", type=float,
+                   default=float(_env("INGEST_DELTA_RATE", "0")),
+                   help="max DELTA frames/second PER INGEST LANE before "
+                        "the hub sheds with 429 + Retry-After (chatty "
+                        "sources lose deltas first; 409-recovery FULLs "
+                        "are never rate-shed). 0 = unlimited")
+    p.add_argument("--ingest-max-inflight", type=int,
+                   default=int(_env("INGEST_MAX_INFLIGHT", "256")),
+                   help="max frames in concurrent apply before the hub "
+                        "sheds (deltas at 3/4 of the budget with 429, "
+                        "FULLs only at the hard cap with 503, so "
+                        "session recovery always finds headroom). "
+                        "0 = unlimited")
+    p.add_argument("--ingest-max-sessions", type=int,
+                   default=int(_env("INGEST_MAX_SESSIONS", "0")),
+                   help="memory fence over the session table: a FULL "
+                        "from a NEW source is refused with 503 + "
+                        "Retry-After once this many sessions are live "
+                        "(established sessions keep being served and "
+                        "resynced). 0 = unlimited")
+    p.add_argument("--ingest-quarantine-threshold", type=int,
+                   default=int(_env("INGEST_QUARANTINE_THRESHOLD", "5")),
+                   help="consecutive malformed frames from one "
+                        "peer/source before it is quarantined (frames "
+                        "answered 429 before any decode work)")
+    p.add_argument("--ingest-quarantine-window", type=float,
+                   default=float(_env("INGEST_QUARANTINE_WINDOW", "60")),
+                   help="seconds a quarantined peer/source stays "
+                        "refused before one probe frame is admitted")
+    p.add_argument("--ingest-checkpoint", default=_env(
+                       "INGEST_CHECKPOINT", ""),
+                   help="path for the warm-restart session checkpoint "
+                        "(.wal + fsync + atomic rename, written off "
+                        "the handler path): a restarted hub replays "
+                        "it and resumes delta chains instead of "
+                        "409ing the fleet into a FULL-resync "
+                        "stampede. Empty disables (cold restarts)")
+    p.add_argument("--ingest-checkpoint-interval", type=float,
+                   default=float(_env("INGEST_CHECKPOINT_INTERVAL", "10")),
+                   help="minimum seconds between checkpoint writes "
+                        "(the crash-tail bound: sessions whose deltas "
+                        "landed after the last write pay one FULL "
+                        "resync on restart)")
+    p.add_argument("--ingest-proto-min", type=int,
+                   default=int(_env("INGEST_PROTO_MIN", "0")),
+                   help="lowest delta wire-protocol version this hub "
+                        "accepts (version skew): frames "
+                        "below it draw a 426 refusal + this hub's "
+                        "advertised range, counted in "
+                        "kts_skew_refused_total and named by doctor "
+                        "--skew. Raise it AFTER kts_fleet_version_count "
+                        "shows the old version at 0 (census-gated "
+                        "rollout); 0 = everything this build decodes")
+    p.add_argument("--ingest-proto-max", type=int,
+                   default=int(_env("INGEST_PROTO_MAX", "0")),
+                   help="highest delta wire-protocol version this hub "
+                        "accepts; 0 = this build's maximum. Mostly a "
+                        "test/sim knob (play an old hub); production "
+                        "rollouts leave it 0")
+
+
+def add_cardinality_flags(p: argparse.ArgumentParser) -> None:
+    """The hub's cardinality & memory admission knobs: the
+    series ledger's budgets, hard cap and eviction watermarks. All 0 by
+    default = accounting only (kts_series_live/kts_source_series still
+    export), no admission — the same off-by-default contract as the
+    ingest guards."""
+    p.add_argument("--series-budget-per-source", type=int,
+                   default=int(_env("SERIES_BUDGET_PER_SOURCE", "0")),
+                   help="max series one source (push session or pull "
+                        "target) may install: a FULL over it lands "
+                        "clamped to the admitted prefix — existing "
+                        "series keep updating, only the NEW series are "
+                        "dropped and counted "
+                        "(kts_cardinality_shed_total{reason="
+                        "\"source_budget\"}). Size from the honest "
+                        "fleet's max(kts_source_series). 0 = unlimited")
+    p.add_argument("--series-hard-cap", type=int,
+                   default=int(_env("SERIES_HARD_CAP", "0")),
+                   help="global live-series hard cap across every "
+                        "source: frames that would grow a full ledger "
+                        "draw a 413-style shed the publisher defers on "
+                        "like a 429 (no FULL promotion, no resync "
+                        "storm). The hub's last line against OOM; "
+                        "0 = unlimited")
+    p.add_argument("--series-high-watermark", type=int,
+                   default=int(_env("SERIES_HIGH_WATERMARK", "0")),
+                   help="live-series level above which the accountant "
+                        "LRU-evicts IDLE sources (no update for "
+                        "--series-idle-refreshes refreshes) through the "
+                        "hub's churn path, counted as "
+                        "kts_cardinality_evicted_total{reason=\"idle\"}. "
+                        "Set below --series-hard-cap so idle state "
+                        "yields before live traffic sheds. 0 = never "
+                        "evict")
+    p.add_argument("--series-low-watermark", type=int,
+                   default=int(_env("SERIES_LOW_WATERMARK", "0")),
+                   help="eviction target: once above the high "
+                        "watermark, idle sources are evicted until the "
+                        "ledger is back under this (hysteresis — "
+                        "without it the ledger oscillates across the "
+                        "watermark every refresh). 0 = 90%% of the "
+                        "high watermark")
+    p.add_argument("--series-idle-refreshes", type=int,
+                   default=int(_env("SERIES_IDLE_REFRESHES", "5")),
+                   help="refreshes without an update before a source "
+                        "counts as idle and becomes evictable above "
+                        "the high watermark (a source still pushing or "
+                        "being pulled is never evicted for pressure)")
+
+
+def add_hub_noop_flags(p: argparse.ArgumentParser) -> None:
+    """The reference hub's switches that only turn OFF a part the port's
+    hub does not run yet: accepted, so a manifest written for either hub
+    parses, and they change nothing here. The parts' other flags
+    (``--slo-*``, ``--waste-*``, ``--history-*``,
+    ``--energy-audit-key``, ``--ingest-procs``) configure what is not
+    ported and are refused by argparse."""
+    p.add_argument("--no-native-ingest", action="store_true",
+                   help="accepted for the reference hub's manifests: the "
+                        "port always applies delta frames on the Python "
+                        "per-slot path")
+    p.add_argument("--no-fleet-lens", action="store_true",
+                   default=_env_bool("NO_FLEET_LENS"),
+                   help="accepted for the reference hub's manifests: the "
+                        "port's hub runs no fleet lens yet (no "
+                        "/debug/fleet, no kts_fleet_* gauges)")
+    p.add_argument("--no-history", action="store_true",
+                   default=_env("NO_HISTORY", "") == "1",
+                   help="accepted for the reference hub's manifests: the "
+                        "port's hub keeps no history ring yet (/query "
+                        "answers 404)")
+    p.add_argument("--no-efficiency", action="store_true",
+                   default=_env("NO_EFFICIENCY", "") == "1",
+                   help="accepted for the reference hub's manifests: the "
+                        "port's hub scores no efficiency yet "
+                        "(/debug/efficiency answers 404)")
+
+
+def validate_cardinality_args(args) -> str | None:
+    """Range rules for the cardinality admission flags; the hub parser
+    surfaces the string through parser.error."""
+    for name in ("series_budget_per_source", "series_hard_cap",
+                 "series_high_watermark", "series_low_watermark"):
+        if getattr(args, name) < 0:
+            return (f"--{name.replace('_', '-')} must be >= 0 "
+                    f"(0 disables)")
+    if args.series_idle_refreshes < 1:
+        return "--series-idle-refreshes must be >= 1"
+    if (args.series_high_watermark and args.series_hard_cap
+            and args.series_high_watermark > args.series_hard_cap):
+        return "--series-high-watermark must be <= --series-hard-cap"
+    if (args.series_low_watermark and args.series_high_watermark
+            and args.series_low_watermark > args.series_high_watermark):
+        return "--series-low-watermark must be <= --series-high-watermark"
+    if args.series_low_watermark and not args.series_high_watermark:
+        return ("--series-low-watermark needs --series-high-watermark "
+                "(eviction is watermark-driven)")
+    return None
+
+
+def validate_ingest_guard_args(args) -> str | None:
+    """Range rules for the ingest survival flags; the hub parser
+    surfaces the string through parser.error."""
+    if args.ingest_delta_rate < 0:
+        return "--ingest-delta-rate must be >= 0 (0 disables)"
+    if args.ingest_max_inflight < 0:
+        return "--ingest-max-inflight must be >= 0 (0 disables)"
+    if args.ingest_max_sessions < 0:
+        return "--ingest-max-sessions must be >= 0 (0 disables)"
+    if args.ingest_quarantine_threshold < 1:
+        return "--ingest-quarantine-threshold must be >= 1"
+    if args.ingest_quarantine_window <= 0:
+        return "--ingest-quarantine-window must be > 0 seconds"
+    if args.ingest_checkpoint_interval <= 0:
+        return "--ingest-checkpoint-interval must be > 0 seconds"
+    if args.ingest_proto_min < 0 or args.ingest_proto_max < 0:
+        return ("--ingest-proto-min/--ingest-proto-max must be >= 0 "
+                "(0 = this build's bound)")
+    if (args.ingest_proto_min and args.ingest_proto_max
+            and args.ingest_proto_min > args.ingest_proto_max):
+        return "--ingest-proto-min must be <= --ingest-proto-max"
+    return None
 
 
 def validate_delta_push_args(args) -> str | None:

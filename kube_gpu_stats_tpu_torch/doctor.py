@@ -41,13 +41,18 @@ Accepts the exporter's own flags (the same config surface) plus:
   --skew         read the RUNNING daemon's /debug/skew: this build's
                  wire-protocol range, the delta publisher's negotiation
                  with its hub, refusals (426) and downgrades, and
-                 quarantined persisted formats. Same server as --trace
+                 quarantined persisted formats. Same server as --trace;
+                 against a hub, its ingest's fleet version census
+  --cardinality  read a RUNNING hub's /debug/cardinality: live series
+                 against the limits, clamped sources, sheds, evictions
+                 and the largest sources. Uses the --url target's server
+                 (default http://127.0.0.1:9401, the hub's port)
 
 With --remote-write-url set, a ``remote-write`` row probes the receiver
 with an empty write request.
 
-The reference's --fleet, --efficiency, --at and --cardinality read
-modules the port has not ported yet; each exits 2 and says so.
+The reference's --fleet, --efficiency and --at read modules the port
+has not ported yet; each exits 2 and says so.
 
 Exit code: 0 = no failures (warns allowed), 1 = at least one failure,
 2 = usage error. Every probe is time-bounded; the doctor never hangs on a
@@ -69,7 +74,7 @@ OK, WARN, FAIL, SKIP = "ok", "warn", "fail", "skip"
 _ORDER = {FAIL: 0, WARN: 1, OK: 2, SKIP: 3}
 
 # The reference's doctor flags whose rows read modules not ported yet.
-NOT_PORTED_FLAGS = ("--fleet", "--efficiency", "--at", "--cardinality")
+NOT_PORTED_FLAGS = ("--fleet", "--efficiency", "--at")
 
 
 @dataclasses.dataclass
@@ -859,6 +864,103 @@ def check_stores(base: str) -> CheckResult:
     return _result("stores", status, detail, data={"stores": payload})
 
 
+def cardinality_verdict(payload: dict) -> tuple[str, str]:
+    """(status, detail) for a /debug/cardinality payload — live series
+    vs limits, every clamped source NAMED, shed/evicted totals with
+    the top offenders. Pure so tests drive it on canned JSON;
+    check_cardinality wraps it with the fetch."""
+    parts: list[str] = []
+    status = OK
+    live = payload.get("live_series", 0)
+    sources = payload.get("sources", 0)
+    limits = payload.get("limits") or {}
+    head = f"{live} series live across {sources} source(s)"
+    hard_cap = limits.get("hard_cap", 0)
+    high = limits.get("high_watermark", 0)
+    if hard_cap:
+        head += f" (hard cap {hard_cap})"
+    parts.append(head)
+    if not payload.get("enabled", True):
+        parts.append("admission off (all limits 0) — accounting only; "
+                     "set --series-budget-per-source / --series-hard-cap "
+                     "to enforce")
+    if hard_cap and live >= hard_cap:
+        status = WARN
+        parts.append("AT HARD CAP — new series are being refused "
+                     "(413); find the offender in top_sources and "
+                     "raise its budget or fix its labels")
+    elif high and live >= high:
+        status = WARN
+        parts.append(f"above high watermark {high} — idle-source "
+                     f"eviction active")
+    clamped = payload.get("clamped_sources") or []
+    if clamped:
+        status = WARN
+        shown = ", ".join(sorted(clamped)[:5])
+        more = f" (+{len(clamped) - 5} more)" if len(clamped) > 5 else ""
+        parts.append(f"clamped source(s) over per-source budget: "
+                     f"{shown}{more} — their newest series are being "
+                     f"dropped and counted "
+                     f"(kts_cardinality_shed_total)")
+    shed_total = payload.get("shed_total", 0)
+    if shed_total:
+        if not clamped:
+            status = WARN
+        offenders = sorted(
+            ((sum((row.get("reasons") or {}).values()), row.get("source"))
+             for row in (payload.get("shed") or [])),
+            reverse=True)
+        named = ", ".join(f"{src} x{n}" for n, src in offenders[:3] if n)
+        parts.append(f"{shed_total} series shed"
+                     + (f" (top: {named})" if named else ""))
+    evicted = payload.get("evicted") or {}
+    evicted_total = sum(evicted.values())
+    if evicted_total:
+        parts.append(f"{evicted_total} idle source(s) evicted to stay "
+                     f"under the watermark "
+                     f"(kts_cardinality_evicted_total)")
+    top = payload.get("top_sources") or []
+    if top and (clamped or shed_total or (high and live >= high)):
+        biggest = top[0]
+        parts.append(f"largest source: {biggest.get('source')} "
+                     f"({biggest.get('series', 0)} series)")
+    if len(parts) == 1 and status == OK:
+        parts.append("no sheds, no evictions")
+    return status, "; ".join(parts)
+
+
+def check_cardinality(base: str) -> CheckResult:
+    """--cardinality: read /debug/cardinality and summarize the series
+    admission picture. Classified 401/404 like --stores: a WARN row
+    diagnoses config, only a broken surface FAILs."""
+    import urllib.error
+
+    try:
+        payload = _fetch_json(base + "/debug/cardinality")
+    except urllib.error.HTTPError as exc:
+        if exc.code in (401, 403):
+            return _result(
+                "cardinality", WARN,
+                f"{base}/debug/cardinality requires authentication "
+                f"(HTTP {exc.code}); the cardinality ledger sits "
+                f"behind the exporter's basic-auth gate by design")
+        if exc.code == 404:
+            return _result(
+                "cardinality", WARN,
+                f"{base}: no /debug/cardinality (server predates the "
+                f"cardinality admission layer, or this server has "
+                f"none wired)")
+        return _result("cardinality", FAIL,
+                       f"{base}/debug/cardinality: HTTP {exc.code}")
+    except Exception as exc:  # noqa: BLE001 - unreachable, bad JSON
+        return _result("cardinality", FAIL,
+                       f"{base}: cardinality snapshot unreadable "
+                       f"({exc})")
+    status, detail = cardinality_verdict(payload)
+    return _result("cardinality", status, detail,
+                   data={"cardinality": payload})
+
+
 def skew_verdict(payload: dict) -> tuple[str, str]:
     """(status, detail) for a /debug/skew payload — the fleet version
     census plus every refused/downgraded peer, named. Pure
@@ -1149,7 +1251,8 @@ def check_embedded_viability(cfg: Config) -> CheckResult:
 def run_checks(cfg: Config, url: str = "", trace: bool = False,
                host: bool = False, energy: bool = False,
                egress: bool = False, skew: bool = False,
-               stores: bool = False) -> list[CheckResult]:
+               stores: bool = False,
+               cardinality: bool = False) -> list[CheckResult]:
     probes: list[tuple[str, Callable[[], object]]] = [
         ("nvml", lambda: check_nvml(cfg)),
         ("attribution", lambda: check_attribution(cfg)),
@@ -1201,6 +1304,17 @@ def run_checks(cfg: Config, url: str = "", trace: bool = False,
                        if url.startswith(("http://", "https://"))
                        else f"http://127.0.0.1:{cfg.listen_port}")
         probes.append(("stores", lambda: check_stores(stores_base)))
+    if cardinality:
+        # /debug/cardinality lives on the HUB (the admission layer
+        # guards hub-side state); an http(s) --url names the hub,
+        # otherwise fall back to a local hub on its default port.
+        from .hub import DEFAULT_PORT as _HUB_PORT
+
+        card_base = (trace_base(url)
+                     if url.startswith(("http://", "https://"))
+                     else f"http://127.0.0.1:{_HUB_PORT}")
+        probes.append(("cardinality",
+                       lambda: check_cardinality(card_base)))
     results: list[CheckResult] = []
     for name, probe in probes:
         results.extend(_bounded(name, probe))
@@ -1236,6 +1350,7 @@ def main(argv: Sequence[str] | None = None) -> int:
     egress = False
     skew = False
     stores = False
+    cardinality = False
     url = ""
     args: list[str] = []
     it = iter(raw)
@@ -1255,6 +1370,8 @@ def main(argv: Sequence[str] | None = None) -> int:
             skew = True
         elif token == "--stores":
             stores = True
+        elif token == "--cardinality":
+            cardinality = True
         elif token == "--url":
             url = next(it, "")
             if not url or url.startswith("--"):
@@ -1277,7 +1394,7 @@ def main(argv: Sequence[str] | None = None) -> int:
     started = time.monotonic()
     results = run_checks(cfg, url=url, trace=trace, host=host,
                          energy=energy, egress=egress, skew=skew,
-                         stores=stores)
+                         stores=stores, cardinality=cardinality)
     results.sort(key=lambda r: _ORDER[r.status])
     if as_json:
         print(json.dumps({

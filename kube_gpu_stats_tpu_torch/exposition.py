@@ -5,7 +5,11 @@
   Renders the last published snapshot; never touches collector state, so
   a scrape storm cannot perturb the poll budget. ``/healthz`` fails when
   no snapshot was published for ``healthz_max_age`` seconds; ``/readyz``
-  passes once one was.
+  passes once one was, or as the owner's ``ready_check`` says.
+- HTTP ``POST /ingest/delta`` — the hub's delta-push receiver, when an
+  ``ingest_provider`` is wired: behind the same auth gate as
+  ``/metrics``, with a Content-Length fence (413) and a body read
+  deadline (408).
 - HTTP ``GET /debug/ticks|trace|events`` — the flight recorder's read
   side (``tracing.Tracer``), when one is wired; ``/debug/threads`` (a
   stack dump of every thread) and ``/debug/profile?seconds=N`` (folded
@@ -15,8 +19,8 @@
   digest), ``/debug/stores`` (every disk-backed store's health, the
   accept fence, thread restarts), ``/debug/host`` (the host-signals
   snapshot), ``/debug/egress`` (the push senders' backlog, lag and loss)
-  and ``/debug/skew`` (build and wire-protocol negotiation) when those
-  are wired.
+  ``/debug/skew`` (build and wire-protocol negotiation) and
+  ``/debug/cardinality`` (the hub's series ledger) when those are wired.
 - TLS (``tls_cert_file``/``tls_key_file``), mTLS (``tls_client_ca_file``)
   and basic auth (``auth_username`` + ``auth_password_sha256``) on every
   path but the kubelet probes ``/healthz`` and ``/readyz``.
@@ -24,9 +28,9 @@
   (tmp + rename) after each poll tick.
 - Pushgateway — :class:`PushgatewayPusher` PUTs each published snapshot.
 
-The port's copy of the reference's exposition layer without delta
-ingest, ``/query`` and the ``/debug/*`` endpoints of modules not ported
-yet (cardinality, fleet, efficiency).
+The port's copy of the reference's exposition layer without ``/query``
+and the ``/debug/*`` endpoints of modules not ported yet (fleet,
+efficiency): those paths answer 404.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import http.server
 import json
 import logging
 import os
+import socket
 import ssl
 import sys
 import threading
@@ -304,8 +309,31 @@ class MetricsServer:
                  health_provider=None, trace_provider=None,
                  burst_provider=None, energy_provider=None,
                  host_provider=None, egress_provider=None,
-                 skew_provider=None, stores_provider=None):
+                 skew_provider=None, stores_provider=None,
+                 ready_check=None, ingest_provider=None,
+                 cardinality_provider=None,
+                 ingest_read_deadline: float = 10.0):
         self._registry = registry
+        # Delta-push ingest (delta.DeltaIngest.handle, duck-typed:
+        # (bytes, peer) -> (status, body, headers)): serves POST
+        # /ingest/delta behind the same auth gate as /metrics. None =
+        # POSTs answer 404 (daemons and bare test servers don't
+        # ingest). ingest_read_deadline is the slow-loris fence: a POST
+        # body that dribbles in slower than this is cut off with 408 —
+        # without it, ThreadingHTTPServer donates one thread per loris
+        # until the default socket timeout (None: forever).
+        self._ingest = ingest_provider
+        self._ingest_read_deadline = ingest_read_deadline
+        # Optional () -> (ok, reason) overriding /readyz's default
+        # "a snapshot exists" test — the hub gates readiness on having
+        # targets and on a finished warm-restart replay, so scrapers
+        # drain from a blind hub without tripping the liveness probe.
+        self._ready_check = ready_check
+        # Cardinality admission, () -> dict (/debug/cardinality: the
+        # series ledger against its limits, top offenders by series and
+        # by shed — what `doctor --cardinality` reads). None (daemons,
+        # bare test servers) 404s.
+        self._cardinality = cardinality_provider
         # Flight recorder (tracing.Tracer): serves /debug/ticks,
         # /debug/trace and /debug/events behind the same auth gate as
         # /metrics. None = those paths 404.
@@ -436,6 +464,59 @@ class MetricsServer:
                 self.end_headers()
                 self.wfile.write(body)
 
+            def do_POST(self) -> None:
+                path = self.path.split("?", 1)[0]
+                if outer._auth is not None and not self._authorized():
+                    self._send_plain(
+                        401, b"unauthorized\n",
+                        {"WWW-Authenticate": 'Basic realm="kube-tpu-stats"'})
+                    return
+                if path != "/ingest/delta" or outer._ingest is None:
+                    self._send_plain(404, b"not found\n")
+                    return
+                # Content-Length fence BEFORE any body read: cap the
+                # COMPRESSED read; the decoder separately bounds the
+                # decompressed size (delta.MAX_FRAME_BYTES). Absent,
+                # garbage or oversized answers without touching the
+                # socket again — the frame is never buffered.
+                try:
+                    length = int(self.headers.get("Content-Length", "0"))
+                except ValueError:
+                    length = -1
+                if length <= 0 or length > 64 * 1024 * 1024:
+                    self._send_plain(
+                        413, b"delta frame missing or oversized\n")
+                    return
+                # Body-level slow-loris fence: the read deadline bounds
+                # how long a declared-but-dribbled body can hold this
+                # handler thread. 408 + connection close — a loris gets
+                # no second request on the wedged socket.
+                previous_timeout = self.connection.gettimeout()
+                self.connection.settimeout(outer._ingest_read_deadline)
+                try:
+                    wire = self.rfile.read(length)
+                except (socket.timeout, TimeoutError):
+                    self.close_connection = True
+                    self._send_plain(
+                        408, b"request body read timed out\n")
+                    return
+                finally:
+                    self.connection.settimeout(previous_timeout)
+                if len(wire) < length:
+                    # Short read (peer closed mid-body): not a frame.
+                    self._send_plain(400, b"truncated request body\n")
+                    return
+                try:
+                    code, body, headers = outer._ingest(
+                        wire, peer=self.client_address[0])
+                except Exception:  # noqa: BLE001 - a frame must not
+                    # kill the connection thread with a stack trace as
+                    # the only evidence; the publisher sees a 500 and
+                    # resyncs.
+                    log.exception("delta ingest crashed")
+                    code, body, headers = 500, b"ingest error\n", {}
+                self._send_plain(code, body, headers or None)
+
             def do_GET(self) -> None:
                 path = self.path.split("?", 1)[0]
                 encoding = ""
@@ -559,9 +640,17 @@ class MetricsServer:
                     self.send_header("Content-Type", "text/plain")
                 elif path == "/readyz":
                     # Readiness = at least one snapshot has been published
-                    # (liveness/staleness is /healthz's job).
-                    ok = outer._registry.snapshot().timestamp > 0
-                    reason = "ready" if ok else "no snapshot published yet"
+                    # (liveness/staleness is /healthz's job), unless the
+                    # owner installed a stricter ready_check.
+                    if outer._ready_check is not None:
+                        try:
+                            ok, reason = outer._ready_check()
+                        except Exception as exc:  # noqa: BLE001 - probe-safe
+                            ok, reason = False, f"ready_check: {exc}"
+                    else:
+                        ok = outer._registry.snapshot().timestamp > 0
+                        reason = ("ready" if ok
+                                  else "no snapshot published yet")
                     if ok:
                         body = b"ready\n"
                         self.send_response(200)
@@ -713,6 +802,20 @@ class MetricsServer:
                             + "\n").encode()
                     self.send_response(200)
                     self.send_header("Content-Type", "application/json")
+                elif (path == "/debug/cardinality"
+                        and outer._cardinality is not None):
+                    # Cardinality admission: the series ledger vs its
+                    # limits + top offenders — the payload doctor
+                    # --cardinality reads.
+                    try:
+                        payload = outer._cardinality()
+                    except Exception as exc:  # noqa: BLE001 - a status
+                        # walk must not 500 the whole debug surface.
+                        payload = {"enabled": False, "error": str(exc)}
+                    body = (json.dumps(payload, sort_keys=True)
+                            + "\n").encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "application/json")
                 elif path == "/debug/threads":
                     # Live stack dump of every thread: enough to diagnose
                     # a wedged sampler or a stuck attribution refresh from
@@ -749,6 +852,8 @@ class MetricsServer:
                         links += ["/debug/egress"]
                     if outer._skew is not None:
                         links += ["/debug/skew"]
+                    if outer._cardinality is not None:
+                        links += ["/debug/cardinality"]
                     body = ("<html><body>kube-tpu-stats " + " ".join(
                         f'<a href="{link}">{link.partition("?")[0]}</a>'
                         for link in links) + "</body></html>").encode()

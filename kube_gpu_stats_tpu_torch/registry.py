@@ -327,6 +327,11 @@ class SnapshotBuilder:
         normalization that add() pays."""
         self._series.append(series)
 
+    def extend_series(self, series: Iterable[Series]) -> None:
+        """Bulk add_series — one C-level extend for the hub's replayed
+        merge plan instead of a method call per series."""
+        self._series.extend(series)
+
     def add_histogram(self, state: HistogramState) -> None:
         self._histograms.append(state)
 
@@ -450,6 +455,39 @@ def contribute_egress_stats(builder: SnapshotBuilder, stats) -> None:
 
 
 
+def contribute_cardinality(builder: SnapshotBuilder, accountant,
+                           exposition_series: int | None = None,
+                           top_k: int = 10) -> None:
+    """Fold the cardinality-admission ledger into a snapshot: the
+    live-series gauge, per-source/per-reason shed counters (reasons
+    born at 0 under source="other" so increase()-based alerting sees
+    the first shed), eviction counters, and the top-K offenders as
+    kts_source_series. One definition for every accountant owner, so
+    the exported ledger cannot drift from the in-process one."""
+    from .cardinality import EVICT_REASONS, SHED_REASONS
+
+    builder.add(schema.SERIES_LIVE, float(accountant.live_series()),
+                (("component", "entries"),))
+    if exposition_series is not None:
+        builder.add(schema.SERIES_LIVE, float(exposition_series),
+                    (("component", "exposition"),))
+    shed = accountant.shed_totals()
+    for reason in SHED_REASONS:
+        shed.setdefault(("other", reason), 0)
+    for source, reason in sorted(shed):
+        builder.add(schema.CARDINALITY_SHED,
+                    float(shed[(source, reason)]),
+                    (("source", source), ("reason", reason)))
+    evicted = accountant.evicted_totals()
+    for reason in EVICT_REASONS:
+        builder.add(schema.CARDINALITY_EVICTED,
+                    float(evicted.get(reason, 0)),
+                    (("reason", reason),))
+    for source, live in accountant.top_sources(top_k):
+        builder.add(schema.SOURCE_SERIES, float(live),
+                    (("source", source),))
+
+
 class FilteredSnapshotBuilder(SnapshotBuilder):
     """SnapshotBuilder that drops families the operator disabled
     (``--metrics-include``/``--metrics-exclude``, schema.FILTERABLE_METRICS).
@@ -468,6 +506,10 @@ class FilteredSnapshotBuilder(SnapshotBuilder):
     def add_series(self, series: Series) -> None:
         if series.spec.name not in self._disabled:
             super().add_series(series)
+
+    def extend_series(self, series: Iterable[Series]) -> None:
+        super().extend_series(
+            s for s in series if s.spec.name not in self._disabled)
 
     def add_histogram(self, state: HistogramState) -> None:
         if state.spec.name not in self._disabled:

@@ -9,9 +9,10 @@ embedded exporter and the daemon use:
   statelessly (``interval_for``) by the refresh loops that track their
   own consecutive-failure counters;
 - :class:`CircuitBreaker` — closed / open / half-open with single-probe
-  admission, tripped by consecutive failures.
-  Wired into the kubelet PodResources client; its state is exported as
-  ``kts_breaker_state``;
+  admission, tripped by consecutive failures or (optionally) by the
+  failure rate over a window of outcomes. Wired into the kubelet
+  PodResources client and the hub's per-target scrape loop; its state is
+  exported as ``kts_breaker_state``;
 - :class:`TokenBucket` — a rate limiter that refuses without blocking:
   the delta publisher's spill-drain rate;
 - :class:`DeadlineBudget` — a per-tick wall-time budget that child calls
@@ -106,8 +107,11 @@ class BackoffPolicy:
 class CircuitBreaker:
     """Closed / open / half-open circuit breaker with probe admission.
 
-    - CLOSED: every call admitted. Trips to OPEN after
-      ``failure_threshold`` consecutive failures.
+    - CLOSED: every call admitted. Trips to OPEN when either condition
+      holds: ``failure_threshold`` consecutive failures, or — when
+      ``failure_rate_threshold`` is set — the failure rate over the last
+      ``window`` outcomes reaches it (with at least ``window`` outcomes
+      observed, so a single early failure can't trip a fresh breaker).
     - OPEN: calls refused (``allow()`` False) until ``recovery_time``
       has elapsed, then ONE probe is admitted (transition to HALF_OPEN).
     - HALF_OPEN: the probe's outcome decides — success closes the
@@ -117,30 +121,35 @@ class CircuitBreaker:
     Thread-safe; the lock guards only the counters, never the guarded
     call. ``clock`` is injectable so tests drive recovery without
     sleeping. ``trips_total``, ``last_error`` and ``state`` feed the
-    kts_breaker_state and /healthz surfaces.
+    kts_breaker_state / doctor-resilience surfaces.
 
-    ``on_transition`` (optional, assigned after construction) is called
-    as ``hook(breaker, old_state, new_state)`` on every state change — the
-    flight recorder's journal feed (``Tracer.breaker_listener``, which the
-    supervisor attaches to every breaker it can see). It fires after the
-    lock is released, so a hook may read breaker state; a hook's exception
-    is swallowed (an observer must never break the guarded edge).
+    ``on_transition`` (optional, assigned post-construction) is called
+    as ``hook(breaker, old_state, new_state)`` on every state change —
+    the flight recorder's journal feed (tracing.Tracer.breaker_listener;
+    the supervisor attaches it to every breaker it can see, the hub to
+    its per-target breakers). Fired AFTER the lock is released so a
+    hook may read breaker state freely; a hook exception is swallowed
+    (observer must never break the guarded edge).
     """
 
     def __init__(self, name: str = "", *, failure_threshold: int = 3,
-                 recovery_time: float = 5.0,
+                 recovery_time: float = 5.0, window: int = 20,
+                 failure_rate_threshold: float | None = None,
                  clock: Callable[[], float] = time.monotonic) -> None:
         if failure_threshold < 1:
             raise ValueError("failure_threshold must be >= 1")
         self.name = name
         self._failure_threshold = failure_threshold
         self._recovery_time = recovery_time
+        self._window = max(1, window)
+        self._rate_threshold = failure_rate_threshold
         self._clock = clock
         self._lock = threading.Lock()
         self._state = CLOSED
         self._opened_at = 0.0
         self._probe_inflight = False
         self._probe_started_at = 0.0
+        self._outcomes: list[bool] = []  # rolling window, True = failure
         self.consecutive_failures = 0
         self.trips_total = 0
         self.last_error: BaseException | str | None = None
@@ -161,7 +170,7 @@ class CircuitBreaker:
         return STATE_VALUES[self.state]
 
     def describe(self) -> str:
-        """One-line human summary for /healthz reasons."""
+        """One-line human summary for doctor / /healthz reasons."""
         with self._lock:
             parts = [self._state]
             if self.trips_total:
@@ -177,31 +186,40 @@ class CircuitBreaker:
         """May a call proceed now? OPEN past recovery_time admits exactly
         one probe (HALF_OPEN); further calls are refused until the probe's
         outcome is recorded."""
+        fire: tuple[str, str] | None = None
         with self._lock:
             if self._state == CLOSED:
                 return True
             now = self._clock()
-            if self._state == HALF_OPEN:
-                # One probe at a time — but a probe whose outcome was
-                # never recorded must not wedge the breaker here forever:
-                # reclaim the slot after a recovery window.
-                if (self._probe_inflight and now - self._probe_started_at
-                        < self._recovery_time):
-                    return False
+            if self._state == OPEN:
+                if now - self._opened_at >= self._recovery_time:
+                    self._state = HALF_OPEN
+                    self._probe_inflight = True
+                    self._probe_started_at = now
+                    fire = (OPEN, HALF_OPEN)
+                    allowed = True
+                else:
+                    allowed = False
+            # HALF_OPEN: one probe at a time — but a probe whose outcome
+            # was never recorded (admitted call abandoned before running,
+            # e.g. a queued fetch dropped at a deadline) must not wedge
+            # the breaker here forever: reclaim the slot after a
+            # recovery window and admit a fresh probe.
+            elif (not self._probe_inflight
+                    or now - self._probe_started_at >= self._recovery_time):
                 self._probe_inflight = True
                 self._probe_started_at = now
-                return True
-            if now - self._opened_at < self._recovery_time:
-                return False
-            self._state = HALF_OPEN
-            self._probe_inflight = True
-            self._probe_started_at = now
-        self._fire(OPEN, HALF_OPEN)
-        return True
+                allowed = True
+            else:
+                allowed = False
+        if fire is not None:
+            self._fire(*fire)
+        return allowed
 
     def guard(self) -> None:
         """``allow()`` or raise :class:`BreakerOpenError` naming the
-        breaker."""
+        breaker — the refuse-fast shape for call sites that propagate
+        exceptions anyway."""
         if not self.allow():
             raise BreakerOpenError(
                 f"circuit breaker {self.name or '<anonymous>'} is open "
@@ -210,35 +228,51 @@ class CircuitBreaker:
     # -- outcomes ------------------------------------------------------------
 
     def record_success(self) -> None:
+        fire: tuple[str, str] | None = None
         with self._lock:
-            old = self._state
             self.consecutive_failures = 0
-            self._state = CLOSED
+            self._push_outcome(False)
+            if self._state != CLOSED:
+                fire = (self._state, CLOSED)
+                self._state = CLOSED
+                self._outcomes.clear()
             self._probe_inflight = False
             self.last_error = None
-        if old != CLOSED:
-            self._fire(old, CLOSED)
+        if fire is not None:
+            self._fire(*fire)
 
     def record_failure(self, error: BaseException | str | None = None) -> None:
+        fire: tuple[str, str] | None = None
         with self._lock:
-            old = self._state
             self.consecutive_failures += 1
+            self._push_outcome(True)
             self.last_error = error if error is not None else self.last_error
-            # HALF_OPEN: the probe failed, back to OPEN (the recovery clock
-            # restarts). CLOSED: trip at the threshold.
-            tripped = old == HALF_OPEN or (
-                old == CLOSED
-                and self.consecutive_failures >= self._failure_threshold)
-            if tripped:
-                self._trip()
-        if tripped:
-            self._fire(old, OPEN)
+            if self._state == HALF_OPEN:
+                # The probe failed: back to OPEN, recovery clock restarts.
+                fire = self._trip()
+            elif self._state != OPEN:
+                if self.consecutive_failures >= self._failure_threshold:
+                    fire = self._trip()
+                elif (self._rate_threshold is not None
+                      and len(self._outcomes) >= self._window
+                      and (sum(self._outcomes) / len(self._outcomes)
+                           >= self._rate_threshold)):
+                    fire = self._trip()
+        if fire is not None:
+            self._fire(*fire)
 
-    def _trip(self) -> None:
+    def _push_outcome(self, failed: bool) -> None:
+        self._outcomes.append(failed)
+        if len(self._outcomes) > self._window:
+            del self._outcomes[0]
+
+    def _trip(self) -> tuple[str, str]:
+        old = self._state
         self._state = OPEN
         self._opened_at = self._clock()
         self._probe_inflight = False
         self.trips_total += 1
+        return (old, OPEN)
 
     def _fire(self, old: str, new: str) -> None:
         hook = self.on_transition

@@ -47,7 +47,8 @@ def test_every_manifest_parses(name):
 
 def test_kustomization_lists_the_exporter_manifests():
     (kustomization,) = load_yaml_docs("kustomization.yaml")
-    assert kustomization["resources"] == ["rbac.yaml", "daemonset.yaml"]
+    assert kustomization["resources"] == ["rbac.yaml", "daemonset.yaml",
+                                          "hub.yaml"]
     for resource in kustomization["resources"]:
         assert (DEPLOY / resource).is_file()
 
@@ -187,10 +188,64 @@ def test_loadgen_job_burns_one_card_with_the_cuda_kernel():
 
 
 def test_no_asset_names_a_feature_the_port_lacks():
-    """Flags and paths of the reference's push egress, hub and TPU
-    runtime appear nowhere in the port's assets."""
+    """Flags and paths of the reference's push egress and TPU runtime
+    appear nowhere in the port's assets (the hub is ported: its own
+    manifest is held to the port's hub parser below)."""
     for name in MANIFESTS + ("Dockerfile", "Dockerfile.loadgen"):
         functional = _functional(name).lower()
-        for needle in ("hub", "pushgateway", "remote-write", "spill",
+        for needle in ("pushgateway", "remote-write", "spill",
                        "libtpu", "tpu_runtime", "gke-tpu", "google.com/tpu"):
             assert needle not in functional, (name, needle)
+
+
+# -- the hub ---------------------------------------------------------------------
+
+def _hub_docs():
+    docs = load_yaml_docs("hub.yaml")
+    return {doc["kind"]: doc for doc in docs}
+
+
+def test_hub_manifest_parses_with_a_deployment_service_and_targets():
+    docs = _hub_docs()
+    assert set(docs) == {"ConfigMap", "Deployment", "Service"}
+    assert "targets.txt" in docs["ConfigMap"]["data"]
+    spec = docs["Deployment"]["spec"]["template"]["spec"]
+    container = spec["containers"][0]
+    assert container["image"] == _daemonset_spec()[1]["containers"][0][
+        "image"]          # the DaemonSet image: the hub path has no torch
+    assert container["livenessProbe"]["httpGet"]["path"] == "/healthz"
+    assert container["readinessProbe"]["httpGet"]["path"] == "/readyz"
+    assert docs["Service"]["spec"]["ports"][0]["port"] == 9401
+    assert docs["Service"]["spec"]["publishNotReadyAddresses"] is True
+
+
+def test_every_hub_argument_parses_through_the_ports_hub(monkeypatch):
+    from kube_gpu_stats_tpu_torch import hub
+
+    container = _hub_docs()["Deployment"]["spec"]["template"]["spec"][
+        "containers"][0]
+    args = container["args"]
+    assert args[0] == "hub"
+    for flag in ("--targets-file", "--listen-port", "--interval",
+                 "--ingest-checkpoint"):
+        assert flag in args
+    mounts = {m["mountPath"] for m in container["volumeMounts"]}
+    assert args[args.index("--targets-file") + 1].rsplit("/", 1)[0] in mounts
+    assert args[args.index("--ingest-checkpoint") + 1].rsplit("/", 1)[0] \
+        in mounts
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def fake_hub(targets, **kwargs):
+        seen.update(kwargs)
+        raise Stop
+
+    monkeypatch.setattr(hub, "file_targets_provider",
+                        lambda path, static=(): lambda: [])
+    monkeypatch.setattr(hub, "Hub", fake_hub)
+    with pytest.raises(Stop):
+        hub.main(args[1:])
+    assert seen["interval"] == 10.0
+    assert seen["ingest_checkpoint"] == "/var/lib/kube-tpu-stats/ingest.ckpt"

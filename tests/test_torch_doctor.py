@@ -601,13 +601,16 @@ def test_doctor_host_reads_a_running_daemon(capsys):
 
 
 def test_doctor_energy_still_exits_2(capsys):
-    """``--energy``, ``--stores``, ``--egress`` and ``--skew`` are ported
-    now: with no daemon listening they run their rows (FAIL:
-    unreachable) and exit 1, never 2; the flags still to come exit 2."""
-    for flag in ("--energy", "--stores", "--egress", "--skew"):
+    """``--energy``, ``--stores``, ``--egress``, ``--skew`` and
+    ``--cardinality`` are ported now: with no server listening they run
+    their rows (FAIL: unreachable) and exit 1, never 2; the flags still
+    to come exit 2."""
+    for flag in ("--energy", "--stores", "--egress", "--skew",
+                 "--cardinality"):
         assert flag not in doctor.NOT_PORTED_FLAGS
         assert doctor.main(["--backend", "mock", "--json", flag,
-                            "--listen-port", "9"]) == 1
+                            "--listen-port", "9", "--url",
+                            "http://127.0.0.1:9/metrics"]) == 1
         payload = json.loads(capsys.readouterr().out)
         rows = {row["name"]: row for row in payload["checks"]}
         assert rows[flag[2:]]["status"] == "fail"

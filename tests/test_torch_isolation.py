@@ -59,7 +59,8 @@ def test_importing_the_port_loads_no_jax():
                    "hoststats", "burstsampler", "energy", "wal",
                    "testing.faultfs", "snappy", "spillq", "remote_write",
                    "proto.prompb", "proto.prompb2", "delta",
-                   "testing.egress_sink"):
+                   "testing.egress_sink", "hub", "top", "cardinality",
+                   "fleetlens"):
         assert f"kube_gpu_stats_tpu_torch.{module}" in report["imported"]
     assert [m for m in report["loaded"] if _forbidden(m)] == []
 
@@ -209,4 +210,39 @@ def test_the_burst_sampler_and_host_signals_import_no_torch():
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["burst"] and report["host"] and report["enabled"]
+    assert _no_torch(report["loaded"]) == []
+
+
+# The hub and top, each run once through the CLI over a saved exposition
+# (the hub with its ingest checkpoint and a push session too).
+_RUN_HUB_AND_TOP = """
+import contextlib, io, json, os, sys, tempfile
+from kube_gpu_stats_tpu_torch import cli, delta, hub
+work = tempfile.mkdtemp()
+target = os.path.join(work, "node.prom")
+with open(target, "w") as handle:
+    handle.write('accelerator_up{chip="0",slice="s",worker="w"} 1\\n')
+out = io.StringIO()
+with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+    rc_hub = cli.main(["hub", "--once", target, "--ingest-checkpoint",
+                       os.path.join(work, "ingest.json")])
+    rc_top = cli.main(["top", "--once", "--json", target])
+h = hub.Hub([target], interval=1.0)
+pushed = h.delta.handle(delta.encode_full("n", 1, 1, "a 1\\n"))[0]
+h.refresh_once()
+h.stop()
+print(json.dumps({"rc": [rc_hub, rc_top, pushed],
+                  "loaded": sorted(sys.modules)}))
+"""
+
+
+def test_the_hub_and_top_import_no_torch():
+    """The hub runs from the DaemonSet image, which has no torch; so
+    does top."""
+    proc = subprocess.run([sys.executable, "-c", _RUN_HUB_AND_TOP],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["rc"] == [0, 0, 200]
     assert _no_torch(report["loaded"]) == []
