@@ -5,6 +5,12 @@ Run from the repository root on a machine with one H100:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py egress:3 hub:2`` instead builds the kernel and
+runs only the named host-side phases (``doctor``, ``c5``, ``burst``,
+``energy``, ``egress``, ``hub``), each the given number of times, and
+prints one ``phases_alone`` line with each run's outcome: the way to
+measure how often a phase's check fails.
+
 Phases, each raising on failure (so the script exits non-zero and never
 prints its result line after one):
 
@@ -144,7 +150,27 @@ prints its result line after one):
    the rollup whole within one refresh of it; ``top --once --json``
    rows equal the hub's merged rows, the table shows every worker and
    the footer; ``doctor --cardinality --skew --stores`` against the
-   hub OK; refresh, ingest apply, RSS and series costs;
+   hub OK; refresh, ingest apply, RSS and series costs. The history
+   ring: every generation the hub publishes read as it is published;
+   ``kts_history_series`` + shed equal to the ring identities the hub
+   served (the rollup series and 65 ``slice_target_up``), the slab bytes
+   series x 16,320, ``/query`` listing exactly those identities; each
+   ``slice_duty_cycle_mean`` bucket of ``1h`` and ``24h`` equal to the
+   mean of the values published in it (within their min and max where
+   a generation may lie in either of two buckets); ``at=`` 5 s back the
+   nearest bucket; 304 on the ETag, gzip the same document; 200 reads
+   at once from one client shed with 429 and Retry-After, counted
+   exactly by ``kts_query_shed_total``; after the restart a ring with
+   nothing from before it and ETags that differ at the same generation.
+   A third leg: the hub restarted on the same port and checkpoint with
+   ``--ingest-procs 2``; the fleet and the daemon push through the two
+   ``SO_REUSEPORT`` children (both carry frames), the merged view and
+   rollups exact again, chains continued, ``/readyz`` and ``/query``
+   through the proxy; one child killed with SIGKILL, started again,
+   every publisher pushing again and the view exact; once nothing
+   pushes, the children's accepted frames equal the hub's applied ones;
+   relay round trip, apply, refresh, RSS (children too) and a child's
+   start time beside the single-process legs;
 9. time the kernel, its plain version and one library call
    (``torch.mm`` with f32 out) at the main path's and the sweep's sizes,
    each as the median of batches of back-to-back calls;
@@ -188,7 +214,8 @@ import urllib.request
 import torch
 
 from kube_gpu_stats_tpu_torch import (_build, config, daemon, delta, doctor,
-                                      embedded, schema, validate, wal)
+                                      embedded, history, ingestproc, schema,
+                                      validate, wal)
 from kube_gpu_stats_tpu_torch.kinds import _kind_lookup, _kind_peak_flops
 from kube_gpu_stats_tpu_torch.entry import dryrun_multichip, entry
 from kube_gpu_stats_tpu_torch.loadgen import tiled_burn
@@ -346,6 +373,27 @@ HUB_RATE_TOL = 0.05
 HUB_RATE_REFRESHES = 8
 HUB_WARM_MIN = 0.95
 STOP_GRACE_HUB_S = 15.0
+# The hub's history ring: the phase reads every generation the hub
+# publishes (a poll every HUB_POLL_S). Where /query did not report a
+# generation's commit time, it lies after the last read that still
+# answered an older generation and before HUB_COMMIT_EARLY_S past the
+# moment this script saw it (the ring commits just after the publish).
+# A bucket's mean and the mean of its generations' values (the same
+# floats, summed in another order) agree within HISTORY_REL_TOL. The
+# stampede: HUB_STAMPEDE /query reads from this one client against the
+# hub's default 50 qps, burst 100.
+HUB_POLL_S = 0.05
+HUB_COMMIT_EARLY_S = 0.25
+HISTORY_REL_TOL = 1e-9
+HUB_STAMPEDE = 200
+HUB_STAMPEDE_THREADS = 16
+HUB_QUERY_QPS, HUB_QUERY_BURST = 50.0, 100.0
+# The third leg: the hub restarted with --ingest-procs HUB_PROCS; its
+# live window, and HUB_PROBES relay probes each way.
+HUB_PROCS = 2
+HUB_LIVE3_S = 8.0
+HUB_PROBES = 40
+HUB_RESPAWN_S = 20.0
 MIB = 1024**2
 ROOT = pathlib.Path(__file__).resolve().parent
 KERNEL_NAME = "tiled_gemm_bf16_f32"
@@ -2838,7 +2886,9 @@ def phase_egress(card_line: str, c5_tick_ms: dict) -> int:
                     egress, _ = egress_state(port)
                     marks["cut"] = (time.monotonic(),
                                     max(watch.seen_at, default=0),
-                                    egress["spill"]["spooled_total"])
+                                    egress["spill"]["spooled_total"],
+                                    egress["senders"]["delta"][
+                                        "skipped_total"])
                     sink.blackout()
                     time.sleep(EGRESS_BLACKOUT_S / 2)
                     out["doctor_blackout"] = run_doctor(port, "--egress")
@@ -2848,7 +2898,9 @@ def phase_egress(card_line: str, c5_tick_ms: dict) -> int:
                     egress, _ = egress_state(port)
                     marks["restore"] = (time.monotonic(),
                                         max(watch.seen_at, default=0),
-                                        egress["spill"]["spooled_total"])
+                                        egress["spill"]["spooled_total"],
+                                        egress["senders"]["delta"][
+                                            "skipped_total"])
                     out["blackout_egress"] = egress
                     sink.restore()
                     out["recovered"] = wait_egress(
@@ -2958,6 +3010,7 @@ def phase_egress(card_line: str, c5_tick_ms: dict) -> int:
         "delta": delta_row,
         "blackout": {"ticks": blackout_ticks,
                      "spooled": spooled_in_blackout,
+                     "skipped": marks["restore"][3] - marks["cut"][3],
                      "spooled_per_tick": spooled_in_blackout
                      / max(1, blackout_ticks)},
         "spill": {k: spill[k] for k in ("spooled_total", "drained_total",
@@ -3281,7 +3334,9 @@ class SyntheticFleet:
                      for p in self.publishers.values())
         return {"full": full, "delta": deltas,
                 "failures": sum(p.failures_total
-                                for p in self.publishers.values())}
+                                for p in self.publishers.values()),
+                "resyncs": sum(p.resyncs_total
+                               for p in self.publishers.values())}
 
 
 def fold_rows(inputs: list[tuple[str, list]]) -> dict[str, dict]:
@@ -3393,7 +3448,8 @@ def hub_view(port: int, text: str | None = None) -> dict:
 
 
 def match_inputs(view: dict, embedded_texts, daemon_texts: dict,
-                 embedded_url: str, daemon_source: str) -> dict:
+                 embedded_url: str, daemon_source: str,
+                 oldest_tick: int | None = None) -> dict:
     """Which embedded scrape and which daemon ticks this refresh merged.
     Every per-card series of one embedded scrape (pulled: one body) is
     in the hub's exposition with the same labels and value. The daemon
@@ -3401,8 +3457,10 @@ def match_inputs(view: dict, embedded_texts, daemon_texts: dict,
     merges can hand that refresh two adjacent ticks of its values (the
     reference's contract, each series from one of them): every daemon
     series no earlier target claimed carries tick t's value or tick
-    t+1's, and the rollups fold tick t-1, t or t+1. Returns the matches
-    and the daemon series the first-wins dedup dropped."""
+    t+1's, and the rollups fold tick t-1, t or t+1. The daemon ticks
+    looked at are the newest 60, or with ``oldest_tick`` every tick from
+    it on. Returns the matches and the daemon series the first-wins
+    dedup dropped."""
     hub_chips = view["chips"]
     order = view["targets"]
     require(embedded_url in order and daemon_source in order,
@@ -3423,11 +3481,19 @@ def match_inputs(view: dict, embedded_texts, daemon_texts: dict,
                        f"{len(keys)}: {dict(list(off.items())[:3])}")
     embedded_first = order.index(embedded_url) < order.index(daemon_source)
     ticks = sorted(daemon_texts, reverse=True)
-    parsed = {t: chip_keys(validate.parse_exposition(daemon_texts[t]))
-              for t in ticks[:60]}
+    ticks = (ticks[:60] if oldest_tick is None
+             else [t for t in ticks if t >= oldest_tick])
+    parsed: dict[int, dict] = {}
+
+    def keys_of(t: int) -> dict:
+        if t not in parsed:
+            parsed[t] = (chip_keys(validate.parse_exposition(daemon_texts[t]))
+                         if t in daemon_texts else {})
+        return parsed[t]
+
     daemon = None
-    for tick in ticks[:60]:
-        keys, after = parsed[tick], parsed.get(tick + 1, {})
+    for tick in ticks:
+        keys, after = keys_of(tick), keys_of(tick + 1)
         claimed = ({k for k in keys if k in embedded[1]}
                    if embedded_first else set())
         if all(hub_chips.get(k) in (v, after.get(k, v))
@@ -3517,11 +3583,12 @@ def check_hub_view(view: dict, matched: dict, fleet: SyntheticFleet,
             "refreshes": view["refreshes"]}
 
 
-def wait_converged(port: int, from_refresh: float, what: str, match
-                   ) -> tuple[dict, dict]:
+def wait_converged(port: int, from_refresh: float, what: str, match,
+                   misses: list | None = None) -> tuple[dict, dict]:
     """The first hub refresh after ``from_refresh`` whose view passes
     every check; fails when none of the next HUB_CONVERGE_REFRESHES
-    refreshes does."""
+    refreshes does. Each refresh that failed a check before it appends
+    (refresh, reason) to ``misses``."""
     last_error = None
     etag = ""
     while True:
@@ -3529,11 +3596,14 @@ def wait_converged(port: int, from_refresh: float, what: str, match
         view = hub_view(port, text)
         require(view["refreshes"] - from_refresh <= HUB_CONVERGE_REFRESHES,
                 f"hub: {what} not converged within "
-                f"{HUB_CONVERGE_REFRESHES} refreshes: {last_error}")
+                f"{HUB_CONVERGE_REFRESHES} refreshes: {last_error}"
+                + (f"; every miss: {misses}" if misses else ""))
         try:
             return view, match(view)
         except RuntimeError as exc:
             last_error = exc
+            if misses is not None:
+                misses.append((view["refreshes"], str(exc)[:300]))
 
 
 def hub_cycles_ms(port: int) -> list[float]:
@@ -3606,6 +3676,622 @@ def check_top(port: int) -> dict:
     return {"rows": len(got), "workers": len(shown), "footer": footer[0],
             "lines": len(lines)}
 
+# -- the hub's history ring and its ingest processes ---------------------------
+
+# The families the hub's rollup seam records in its ring: every slice
+# rollup series and each target's slice_target_up.
+RING_FAMILIES = frozenset(spec.name for spec in (
+    schema.HUB_TARGET_UP, schema.HUB_CHIPS, schema.HUB_CHIPS_UP,
+    schema.HUB_WORKERS, schema.HUB_DUTY_MEAN, schema.HUB_DUTY_MIN,
+    schema.HUB_DUTY_MAX, schema.HUB_MFU_MEAN, schema.HUB_MFU_MIN,
+    schema.HUB_MEMORY_USED, schema.HUB_MEMORY_TOTAL, schema.HUB_POWER,
+    schema.HUB_ICI_BANDWIDTH, schema.HUB_ENERGY, schema.HUB_WORKER_STEPS,
+    schema.HUB_STRAGGLER_RATIO))
+# One ring series' slab with the default tiers: (360 + 288 + 168) slots,
+# each an f64 mean, a u32 count and an i64 bucket id.
+SERIES_BYTES = sum(slots * 20 for _, _, slots in history.DEFAULT_TIERS)
+DUTY_RE = re.compile(r'^slice_duty_cycle_mean\{slice="' + HUB_SLICE
+                     + r'"\} (\S+)$', re.M)
+SLICE_LINE_RE = re.compile(r"^(slice_\w+)(\{[^}]*\})? \S+$", re.M)
+METRICS_ETAG_RE = re.compile(r'^"(\w+)-(\d+)-m\d\d"$')
+QUERY_NONCE_RE = re.compile(r'^"h[0-9a-f]+-')
+
+
+def http_get(port: int, path: str, headers: dict | None = None
+             ) -> tuple[int, bytes, dict]:
+    """(status, body, headers) of one GET on a fresh connection."""
+    request = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                     headers=headers or {})
+    try:
+        with urllib.request.urlopen(request, timeout=30) as resp:
+            return resp.status, resp.read(), dict(resp.headers.items())
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read(), dict(exc.headers.items())
+
+
+class HubRecorder:
+    """Every generation one hub publishes, read on a thread from before
+    the hub binds its port until ``stop``: per generation the wall time
+    this script first saw it, the start of the last read before that
+    which still answered an older generation (the generation was
+    published after it), ``slice_duty_cycle_mean``'s value, and
+    the generation at which each ring identity (a rollup series or a
+    ``slice_target_up``) was first served; unless ``quiet`` is set, also
+    ``/query``'s answer for ``slice_chips`` at that generation: its
+    ETag, its ``as_of`` (the wall time the ring committed that
+    generation) and the first answer whole. Every ``/query`` of the
+    phase to this hub goes through ``query``, which counts the 429s this
+    client drew."""
+
+    def __init__(self, port: int) -> None:
+        self.port = port
+        self.seen: dict[int, tuple[float, float | None, float]] = {}
+        self.first_seen: dict[tuple, int] = {}
+        self.query_etags: dict[int, str] = {}
+        self.commit_at: dict[int, float] = {}
+        self._raw_seen: set = set()
+        self.first_query: tuple[int, dict] | None = None
+        self.boot = ""
+        self.shed = 0
+        self.quiet = threading.Event()
+        self.failure: list = []
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def start(self) -> "HubRecorder":
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=30)
+        require(not self.failure, f"reading the hub's generations: "
+                                  f"{self.failure}")
+
+    def query(self, params: str, headers: dict | None = None
+              ) -> tuple[int, bytes, dict]:
+        status, body, got = http_get(self.port, "/query?" + params, headers)
+        if status == 429:
+            with self._lock:
+                self.shed += 1
+        return status, body, got
+
+    def newest(self) -> int:
+        return max(self.seen, default=-1)
+
+    def wait_generation(self, generation: int, timeout: float = 30.0
+                        ) -> None:
+        deadline = time.monotonic() + timeout
+        while self.newest() < generation:
+            require(time.monotonic() < deadline,
+                    f"hub: generation {generation} not seen in {timeout} s")
+            time.sleep(0.02)
+
+    def identities(self, before: int) -> set:
+        """The ring identities first served before ``before``."""
+        return {key for key, g in list(self.first_seen.items())
+                if g < before}
+
+    def _observe(self, text: str, etag: str, after: float) -> None:
+        match = METRICS_ETAG_RE.match(etag)
+        if match is None:
+            return
+        self.boot, generation = match.group(1), int(match.group(2))
+        if generation in self.seen:
+            return
+        seen_at = time.time()
+        duty = DUTY_RE.search(text)
+        self.seen[generation] = (seen_at,
+                                 float(duty.group(1)) if duty else None,
+                                 after)
+        # Regex scans only: this thread shares the interpreter lock
+        # with the burn and the synthetic fleet.
+        for name, raw in SLICE_LINE_RE.findall(text):
+            if name in RING_FAMILIES and (name, raw) not in self._raw_seen:
+                self._raw_seen.add((name, raw))
+                labels = frozenset(validate._tokenize_labels(raw[1:-1])
+                                   if raw else ())
+                self.first_seen.setdefault((name, labels), generation)
+        if self.quiet.is_set():
+            return
+        status, body, got = self.query(
+            f"family={schema.HUB_CHIPS.name}&window=1h")
+        if status == 200:
+            payload = json.loads(body)
+            self.query_etags[payload["generation"]] = got["ETag"]
+            self.commit_at[payload["generation"]] = payload["as_of"]
+            if self.first_query is None:
+                self.first_query = (payload["generation"], payload)
+
+    def _run(self) -> None:
+        etag = ""
+        older = 0.0     # start of the newest read that answered an older
+        while not self._stop.is_set():
+            asked = time.time()
+            try:
+                request = urllib.request.Request(
+                    f"http://127.0.0.1:{self.port}/metrics",
+                    headers={"If-None-Match": etag} if etag else {})
+                with urllib.request.urlopen(request, timeout=10) as resp:
+                    text = resp.read().decode()
+                    new = resp.headers.get("ETag", "")
+                if new:
+                    if new != etag:
+                        self._observe(text, new, older)
+                    etag = new
+                older = asked
+            except urllib.error.HTTPError:
+                older = asked        # 304: no new generation yet
+            except OSError:
+                pass                 # the hub not up yet, or restarting
+            except Exception as exc:  # noqa: BLE001 - re-raised by stop()
+                self.failure.append(exc)
+                return
+            self._stop.wait(HUB_POLL_S)
+
+
+def ring_families(rec: HubRecorder) -> list[str]:
+    """The families the hub's ring tracks, as its 400 answer lists them."""
+    status, body, _ = rec.query("family=")
+    require(status == 400, f"hub /query without a family answered {status}")
+    listed = body.decode().strip().split("tracked families: ", 1)[1]
+    return [family for family in listed.split(",") if family]
+
+
+def check_ring_identities(rec: HubRecorder, port: int) -> dict:
+    """The identities the phase offered the ring are the ones it holds:
+    ``kts_history_series`` + ``kts_history_series_shed_total`` equal the
+    ring identities the hub served before that generation, the slab
+    bytes are series x SERIES_BYTES, and /query lists exactly the
+    identities the hub served."""
+    text, etag = next_hub_text(port)
+    generation = int(METRICS_ETAG_RE.match(etag).group(2))
+    rec.wait_generation(generation)
+    # Every ring identity, once served, is served by every later
+    # generation (no target leaves this phase), so a generation this
+    # script missed hides none; the two just before this one it needs.
+    missing = sorted(set(range(min(rec.seen), generation + 1))
+                     - set(rec.seen))
+    require(min(rec.seen) <= 1 and generation - 1 in rec.seen,
+            f"hub: generations not read: first {min(rec.seen)}, missing "
+            f"{missing[:10]}")
+    view = hub_view(port, text)
+    series = view["one"](schema.HISTORY_SERIES.name)
+    shed = view["one"](schema.HISTORY_SERIES_SHED.name)
+    held = view["one"](schema.HISTORY_BYTES.name)
+    offered = rec.identities(generation)
+    ring: set = set()
+    generations = []
+    for family in ring_families(rec):
+        status, body, _ = rec.query(f"family={family}&window=1h")
+        require(status == 200, f"hub /query {family} answered {status}")
+        payload = json.loads(body)
+        generations.append(payload["generation"])
+        ring |= {(family, frozenset(s["labels"].items()))
+                 for s in payload["series"]}
+    low, high = min(generations), max(generations)
+    require(rec.identities(low + 1) <= ring <= rec.identities(high + 1),
+            f"hub: the ring holds {len(ring)} identities, the hub served "
+            f"{len(rec.identities(high + 1))}: missing "
+            f"{sorted(map(str, rec.identities(low + 1) - ring))[:3]}, "
+            f"extra {sorted(map(str, ring - rec.identities(high + 1)))[:3]}")
+    require(series + shed == len(offered),
+            f"hub: kts_history_series {series} + shed {shed} != "
+            f"{len(offered)} identities offered")
+    require(held == series * SERIES_BYTES,
+            f"hub: kts_history_bytes {held} != {series} x {SERIES_BYTES}")
+    by_family = collections.Counter(family for family, _ in ring)
+    return {"generation": generation, "series": series, "shed": shed,
+            "bytes": held, "identities": len(offered),
+            "generations_missed": len(missing),
+            "target_up": by_family[schema.HUB_TARGET_UP.name],
+            "families": len(by_family),
+            "per_family": dict(sorted(by_family.items()))}
+
+
+def check_ring_duty(rec: HubRecorder, window: str, step: float) -> dict:
+    """/query for ``slice_duty_cycle_mean`` in ``window``: each bucket's
+    mean is the mean of the values the hub published in that bucket
+    where the bucket of every generation is known (from the commit time
+    /query reported for it, else from when this script saw it, away
+    from an edge), and lies within their min and max where a generation
+    near an edge may lie in either bucket. A bucket that may hold a
+    generation this script did not read is bounded, in a coarser tier,
+    by the ``1h`` bucket means of the same generation that fall in it,
+    and left unchecked in ``1h`` itself."""
+    family = schema.HUB_DUTY_MEAN.name
+    for _ in range(5):
+        status, body, _ = rec.query(f"family={family}&window={window}")
+        require(status == 200, f"hub /query duty {window} answered "
+                               f"{status}")
+        payload = json.loads(body)
+        finer = None
+        if window == "1h":
+            break
+        _, fine_body, _ = rec.query(f"family={family}&window=1h")
+        fine = json.loads(fine_body)
+        if fine["generation"] == payload["generation"]:
+            (finer,) = [s["samples"] for s in fine["series"]
+                        if s["labels"] == {"slice": HUB_SLICE}]
+            break
+    else:
+        require(False, f"hub: {window} and 1h never read one generation")
+    require(payload["step_s"] == step, f"hub: {window} step "
+                                       f"{payload['step_s']}")
+    generation = payload["generation"]
+    rec.wait_generation(generation)
+    (series,) = [s for s in payload["series"]
+                 if s["labels"] == {"slice": HUB_SLICE}]
+    known: dict[int, tuple[int, int, float | None]] = {}
+    for g, (seen_at, v, after) in list(rec.seen.items()):
+        if g > generation:
+            continue
+        committed = rec.commit_at.get(g)
+        if committed is not None:
+            low = high = int(committed // step)
+        else:
+            # Published after ``after``; committed just after the
+            # publish, so before this script saw it or shortly after.
+            low = math.floor(after / step)
+            high = math.floor((seen_at + HUB_COMMIT_EARLY_S) / step)
+        known[g] = (low, high, v)
+    values = [bounds for bounds in known.values() if bounds[2] is not None]
+    # A generation this script did not read holds an unknown value in a
+    # bucket between its neighbours': those buckets are not checked.
+    tainted: set = set()
+    for g in range(1, generation + 1):
+        if g in known:
+            continue
+        before = [known[h][0] for h in known if h < g]
+        after = [known[h][1] for h in known if h > g]
+        low = max(before) if before else -10**12
+        high = min(after) if after else 10**12
+        tainted |= {b for b in (round(st / step)
+                                for st, _ in series["samples"])
+                    if low <= b <= high}
+    exact = bounded = 0
+    ring_buckets = set()
+    for start, mean in series["samples"]:
+        bucket = round(start / step)
+        ring_buckets.add(bucket)
+        tol = HISTORY_REL_TOL * max(1.0, abs(mean))
+        if bucket in tainted:
+            if finer is not None:
+                inner = [v for st, v in finer if start <= st < start + step]
+                require(inner and min(inner) - tol <= mean
+                        <= max(inner) + tol,
+                        f"hub: {window} bucket {start}: ring {mean} "
+                        f"outside its 1h buckets' means {inner}")
+                bounded += 1
+            continue
+        sure, maybe = [], []
+        for low, high, v in values:
+            if low <= bucket <= high:
+                maybe.append(v)
+                if low == high:
+                    sure.append(v)
+        require(maybe, f"hub: {window} bucket {start} holds {mean}, but "
+                       f"no published value falls in it")
+        if len(sure) == len(maybe):
+            want = math.fsum(sure) / len(sure)
+            require(abs(mean - want) <= tol,
+                    f"hub: {window} bucket {start}: ring {mean} != mean "
+                    f"{want} of {len(sure)} published values")
+            exact += 1
+        else:
+            require(min(maybe) - tol <= mean <= max(maybe) + tol,
+                    f"hub: {window} bucket {start}: ring {mean} outside "
+                    f"[{min(maybe)}, {max(maybe)}]")
+            bounded += 1
+    slots = {n: c for n, _, c in history.DEFAULT_TIERS}[window]
+    newest = int(payload["as_of"] // step)
+    for low, high, _v in values:
+        if low == high and newest - low < slots:
+            require(low in ring_buckets,
+                    f"hub: {window}: a value published in bucket "
+                    f"{low * step} is in no bucket of the ring")
+    if finer is None:
+        require(exact >= 1, f"hub: {window}: no bucket whose every "
+                            f"generation is known ({bounded} bounded)")
+    else:
+        require(exact + bounded == len(ring_buckets),
+                f"hub: {window}: {len(ring_buckets)} buckets, {exact} "
+                f"exact, {bounded} bounded")
+    unchecked = len(ring_buckets) - exact - bounded
+    return {"generation": generation, "buckets": len(ring_buckets),
+            "exact": exact, "bounded": bounded, "unchecked": unchecked,
+            "values": len(values),
+            "commit_times_known": sum(1 for low, high, _ in values
+                                      if low == high)}
+
+
+def check_ring_at(rec: HubRecorder) -> dict:
+    """``at=`` 5 s back answers the ring's populated bucket nearest it
+    (the earlier one on a tie), from the 1h range read at the same
+    generation."""
+    family = schema.HUB_DUTY_MEAN.name
+    for _ in range(5):
+        ts = time.time() - 5.0
+        _, at_body, _ = rec.query(f"family={family}&at={ts!r}")
+        _, range_body, _ = rec.query(f"family={family}&window=1h")
+        at_payload, ranged = json.loads(at_body), json.loads(range_body)
+        if at_payload["as_of"] == ranged["as_of"]:
+            break
+    else:
+        require(False, "hub: at= and the range never read one generation")
+    (series,) = [s for s in ranged["series"]
+                 if s["labels"] == {"slice": HUB_SLICE}]
+    want = int(ts // 10.0)
+    start, mean = min(series["samples"], key=lambda sample: (
+        abs(round(sample[0] / 10.0) - want), round(sample[0] / 10.0) > want))
+    (hit,) = [s for s in at_payload["series"]
+              if s["labels"] == {"slice": HUB_SLICE}]
+    require((hit["t"], hit["v"], hit["window"]) == (start, mean, "1h"),
+            f"hub: at={ts} answered {hit}, the nearest bucket is "
+            f"[{start}, {mean}]")
+    return {"at": ts, "bucket": start, "back_s": ts - start}
+
+
+def check_query_caching(rec: HubRecorder) -> dict:
+    """A repeat with the ETag draws 304; the gzip body decompresses to
+    the identity body of the same ETag."""
+    path = f"family={schema.HUB_TARGET_UP.name}&window=1h"
+    not_modified = same_document = False
+    for _ in range(5):
+        status, plain, got = rec.query(path)
+        require(status == 200, f"hub /query answered {status}")
+        status, body, again = rec.query(path, {"If-None-Match": got["ETag"]})
+        if status == 304:
+            require(body == b"" and again["ETag"] == got["ETag"],
+                    f"hub: 304 with {len(body)} bytes, ETag {again}")
+            not_modified = True
+        status, gz, zipped = rec.query(path, {"Accept-Encoding": "gzip"})
+        if status == 200 and zipped["ETag"] == got["ETag"]:
+            require(zipped.get("Content-Encoding") == "gzip",
+                    f"hub: /query gzip answer {zipped}")
+            require(gzip.decompress(gz) == plain,
+                    "hub: the gzip /query body is another document")
+            same_document = True
+        if not_modified and same_document:
+            return {"etag": got["ETag"], "bytes": len(plain),
+                    "gzip_bytes": len(gz)}
+    require(False, f"hub: no 304 ({not_modified}) or no same-document "
+                   f"gzip body ({same_document}) in 5 tries")
+
+
+# The stampede runs in an interpreter of its own, so the burn and the
+# synthetic fleet in this one do not pace it, over plain sockets (one
+# request per connection, as a browser tab's poll); it prints each
+# answer's status and Retry-After, and the seconds the reads took.
+_STAMPEDE = """
+import concurrent.futures, json, socket, sys, time
+port, path = int(sys.argv[1]), sys.argv[2]
+count, threads = int(sys.argv[3]), int(sys.argv[4])
+request = (f"GET {path} HTTP/1.1\\r\\nHost: 127.0.0.1\\r\\n"
+           "Connection: close\\r\\n\\r\\n").encode()
+
+def read(_):
+    with socket.create_connection(("127.0.0.1", port), timeout=30) as sock:
+        sock.sendall(request)
+        chunks = []
+        while True:
+            chunk = sock.recv(65536)
+            if not chunk:
+                break
+            chunks.append(chunk)
+    head = b"".join(chunks).split(b"\\r\\n\\r\\n", 1)[0].decode()
+    lines = head.split("\\r\\n")
+    headers = dict(line.split(": ", 1) for line in lines[1:] if ": " in line)
+    return int(lines[0].split()[1]), headers.get("Retry-After")
+
+t0 = time.monotonic()
+with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+    answers = list(pool.map(read, range(count)))
+print(json.dumps({"answers": answers, "elapsed": time.monotonic() - t0}))
+"""
+
+
+def query_stampede(rec: HubRecorder, port: int) -> dict:
+    """HUB_STAMPEDE /query reads from this client at once: the gate
+    sheds with 429 and a Retry-After, and ``kts_query_shed_total``
+    counts exactly the 429s this client drew."""
+    rec.quiet.set()
+    path = f"/query?family={schema.HUB_CHIPS.name}&window=1h"
+    proc = subprocess.run([sys.executable, "-c", _STAMPEDE, str(port), path,
+                           str(HUB_STAMPEDE), str(HUB_STAMPEDE_THREADS)],
+                          capture_output=True, text=True, timeout=120)
+    require(proc.returncode == 0, f"hub: the stampede: {proc.stderr}")
+    result = json.loads(proc.stdout)
+    elapsed = result["elapsed"]
+    shed = [{"Retry-After": retry or "0"}
+            for status, retry in result["answers"] if status == 429]
+    rec.shed += len(shed)
+    require(elapsed < 1.0, f"hub: the stampede took {elapsed:.3f} s")
+    require(all(int(got.get("Retry-After", "0")) >= 1 for got in shed),
+            "hub: a 429 without Retry-After")
+    least = HUB_STAMPEDE - HUB_QUERY_BURST - math.ceil(
+        HUB_QUERY_QPS * elapsed) - 1
+    require(len(shed) >= least, f"hub: {len(shed)} of {HUB_STAMPEDE} shed "
+                                f"in {elapsed:.3f} s, at least {least}")
+    # Shed counts ride the next publish: two generations on, the served
+    # count is every 429 this client has drawn from this hub.
+    generation = rec.newest()
+    rec.wait_generation(generation + 2)
+    text, _ = next_hub_text(port)
+    served = hub_view(port, text)["one"](schema.QUERY_SHED.name)
+    require(served == rec.shed, f"hub: kts_query_shed_total {served}, "
+                                f"this client drew {rec.shed} 429s")
+    time.sleep(HUB_QUERY_BURST / HUB_QUERY_QPS)     # the bucket refills
+    rec.quiet.clear()
+    return {"requests": HUB_STAMPEDE, "shed": len(shed),
+            "elapsed_s": elapsed, "shed_served": served}
+
+
+def check_restart_etags(old: HubRecorder, new: HubRecorder,
+                        t_down: float) -> dict:
+    """The restarted hub's ring holds nothing from before the restart,
+    and its /query ETags differ from the old hub's at the same
+    generation (the per-boot nonce), the rest of the tag alike."""
+    require(new.first_query is not None, "hub: the restarted hub's ring "
+                                         "never answered /query")
+    generation, payload = new.first_query
+    first_bucket = math.floor(t_down / 10.0) * 10.0
+    starts = [sample[0] for s in payload["series"] for sample in s["samples"]]
+    require(starts and min(starts) >= first_bucket
+            and all(len(s["samples"]) <= generation
+                    for s in payload["series"]),
+            f"hub: the restarted ring's first answer (generation "
+            f"{generation}) holds buckets from {min(starts, default=None)} "
+            f"(restart at {t_down})")
+    common = sorted(set(old.query_etags) & set(new.query_etags))
+    require(common, "hub: no generation read from both hubs")
+    for g in common:
+        a, b = old.query_etags[g], new.query_etags[g]
+        require(a != b and QUERY_NONCE_RE.sub("", a)
+                == QUERY_NONCE_RE.sub("", b),
+                f"hub: generation {g}: ETags {a} and {b}")
+    return {"first_generation": generation, "series": len(payload["series"]),
+            "common_generations": len(common),
+            "etags": [old.query_etags[common[0]],
+                      new.query_etags[common[0]]]}
+
+
+def time_wait_on(port: int) -> int:
+    """Connections in TIME_WAIT on local port ``port`` (IPv4)."""
+    count = 0
+    for line in pathlib.Path("/proc/net/tcp").read_text().splitlines()[1:]:
+        fields = line.split()
+        local, state = fields[1], fields[3]
+        if int(local.split(":")[1], 16) == port and state == "06":
+            count += 1
+    return count
+
+
+def ring_cost(identities: int, refreshes: int = 2000,
+              reads: int = 2000) -> dict:
+    """The ring's cost on this host, with the port's HistoryStore in
+    this process before the phase starts anything: record of
+    ``identities`` samples and one commit per refresh, and a hot /query
+    (the cached response of the served generation)."""
+    store = history.HistoryStore(query_qps=0.0)
+    keys = [(schema.HUB_TARGET_UP.name, (("target", f"t{i}"),))
+            for i in range(identities)]
+    now = time.time()
+    t0 = time.perf_counter()
+    for refresh in range(refreshes):
+        for family, labels in keys:
+            store.record(family, labels, float(refresh))
+        store.commit(now + 10.0 * refresh, refresh + 1)
+    per_refresh = (time.perf_counter() - t0) / refreshes
+    params = {"family": schema.HUB_TARGET_UP.name, "window": "1h"}
+    store.handle_query(dict(params), "c", False, "")
+    t0 = time.perf_counter()
+    for _ in range(reads):
+        store.handle_query(dict(params), "c", False, "")
+    hot = (time.perf_counter() - t0) / reads
+    return {"identities": identities, "record_commit_us": per_refresh * 1e6,
+            "hot_query_us": hot * 1e6,
+            "cache_hits": store.cache_hits_total}
+
+
+def children_of(pid: int) -> list[int]:
+    """The live (not zombie) processes whose parent is ``pid``."""
+    out = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            fields = pathlib.Path(f"/proc/{entry}/stat").read_text(
+                ).rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == pid and fields[0] != "Z":
+            out.append(int(entry))
+    return sorted(out)
+
+
+def rss_mib(pid: int) -> float:
+    for line in pathlib.Path(f"/proc/{pid}/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) / 1024
+    return 0.0
+
+
+def relay_probe_ms(port: int, count: int = HUB_PROBES) -> dict:
+    """Round trips of a DELTA for a source the hub has no session for
+    (409, no state touched), each on a fresh connection: the cost of one
+    frame's trip through the hub's POST path."""
+    wire = delta.encode_delta("http://relay-probe.synthetic:9400/metrics",
+                              1, 2, [(0, 1.0)])
+    times = []
+    for _ in range(count):
+        t0 = time.perf_counter()
+        request = urllib.request.Request(
+            f"http://127.0.0.1:{port}{delta.INGEST_PATH}", data=wire,
+            method="POST", headers={"Content-Type": delta.CONTENT_TYPE})
+        try:
+            urllib.request.urlopen(request, timeout=10).read()
+            status = 200
+        except urllib.error.HTTPError as exc:
+            status = exc.code
+        times.append((time.perf_counter() - t0) * 1e3)
+        require(status == 409, f"hub: relay probe answered {status}")
+    return {"p50_ms": statistics.median(times), "max_ms": max(times),
+            "count": count}
+
+
+def proc_counts(view: dict, family: str) -> dict[str, float]:
+    return {labels["proc"]: value for name, labels, value in view["series"]
+            if name == family}
+
+
+def child_start() -> dict:
+    """One acceptor child started as the hub starts one: seconds from
+    spawn to its HELLO (its port bound), and its RSS."""
+    t0 = time.monotonic()
+    pool = ingestproc.IngestProcPool(lambda wire, peer="": (200, b"", {}),
+                                     host="127.0.0.1", port=0, procs=1)
+    try:
+        pool.start()
+        started = time.monotonic() - t0
+        rss = rss_mib(pool._children[0].pid)
+    finally:
+        pool.stop()
+    return {"start_s": started, "rss_mib": rss}
+
+
+def daemon_push_failures(watch: "DaemonWatcher") -> float:
+    """The daemon's failed delta pushes, from its newest scrape."""
+    texts = dict(watch.texts)
+    series = validate.parse_exposition(texts[max(texts)])
+    return sum(value for name, labels, value in series
+               if name == "collector_push_failures_total"
+               and labels.get("mode") == "delta")
+
+
+def quiet_conservation(port: int, fleet_failures: float) -> dict:
+    """With every publisher stopped, two publishes on: the children's
+    accepted frames against the hub's applied FULL and DELTA frames.
+    The hub's duplicate count (a FULL re-sent after its answer was lost)
+    is not served, so the difference must be 0 or, at most, the pushes
+    the publishers saw fail."""
+    text, etag = next_hub_text(port)
+    text, etag = next_hub_text(port, etag)
+    text, _ = next_hub_text(port, etag)
+    view = hub_view(port, text)
+    accepted = proc_counts(view, schema.INGEST_PROC_ACCEPTED.name)
+    _, full, deltas = lane_apply(view)
+    difference = sum(accepted.values()) - (full + deltas)
+    require(0 <= difference <= fleet_failures,
+            f"hub: the children accepted {sum(accepted.values())} frames, "
+            f"the hub applied {full} FULL + {deltas} DELTA")
+    return {"accepted": accepted, "full": full, "delta": deltas,
+            "difference": difference,
+            "resyncs": view["one"](schema.HUB_RESYNC.name),
+            "frames": proc_counts(view, schema.INGEST_PROC_FRAMES.name)}
+
+
 
 def phase_hub(card_line: str, c5_tick_ms: dict,
               main_cuda_steps_per_s: float) -> int:
@@ -3613,12 +4299,18 @@ def phase_hub(card_line: str, c5_tick_ms: dict,
     subprocess over a targets file naming the embedded exporter of a
     ``cuda`` burn in this process (pulled); the NVML daemon at 10 Hz
     pushing to it; 63 synthetic nodes of 8 cards each as delta
-    publishers on threads of this process (pushed). A live window, a
-    warm restart from the ingest checkpoint, a second live window.
-    Returns the kernel launches."""
+    publishers on threads of this process (pushed). A live window, with
+    the history ring read back against every generation the hub
+    published; a warm restart from the ingest checkpoint, a second live
+    window; a third hub on the same port and checkpoint with the ingest
+    spread over HUB_PROCS acceptor processes, one of them killed; the
+    conservation law once nothing pushes. Returns the kernel launches."""
     workdir = tempfile.mkdtemp(prefix="kts-hub-")
     targets_file = os.path.join(workdir, "targets.txt")
     checkpoint = os.path.join(workdir, "ingest.json")
+    # The ring's own cost, at the identity count this phase offers it
+    # (65 targets and the slice's rollup series).
+    cost = ring_cost(HUB_NODES + 1 + 14)
     hub_args = ["--interval", str(HUB_INTERVAL_S), "--ingest-checkpoint",
                 checkpoint, "--expect-workers", str(HUB_NODES),
                 "--targets-file", targets_file]
@@ -3636,8 +4328,16 @@ def phase_hub(card_line: str, c5_tick_ms: dict,
     out: dict = {}
     failure: list = []
     steps_log: list = []
+    recorders: dict[str, HubRecorder] = {}
+    fleet_stopped = False
     try:
-        hub_proc, hub_port, hub_log = start_hub(hub_args)
+        # The recorder reads the hub from before it binds, so it sees its
+        # first generation.
+        hub_port = free_port()
+        rec1 = recorders["first"] = HubRecorder(hub_port).start()
+        t_start = time.monotonic()
+        hub_proc, hub_port, hub_log = start_hub(hub_args, hub_port)
+        out["hub_start_s"] = time.monotonic() - t_start
         hub_url = f"http://127.0.0.1:{hub_port}"
         daemon_proc, port, log = start_daemon(workdir, (
             "--interval", str(HUB_DAEMON_INTERVAL_S), "--textfile-dir", "",
@@ -3647,10 +4347,18 @@ def phase_hub(card_line: str, c5_tick_ms: dict,
         with DaemonWatcher(daemon_proc, port, log, conform=True,
                            keep_texts=True) as watch:
 
+            # A restarted hub serves the daemon's checkpointed state
+            # until the daemon's next frame lands: through the restart,
+            # the daemon ticks looked at reach back to the window of
+            # the old hub's last view.
+            daemon_floor: list[int] = []
+
             def match(view: dict) -> dict:
                 matched = match_inputs(view, recorder.texts(),
                                        dict(watch.texts), embedded_url,
-                                       daemon_source)
+                                       daemon_source,
+                                       daemon_floor[0] if daemon_floor
+                                       else None)
                 return check_hub_view(view, matched, fleet, embedded_url,
                                       daemon_source)
 
@@ -3675,9 +4383,10 @@ def phase_hub(card_line: str, c5_tick_ms: dict,
                     # first FULL landed); the hub converges from there.
                     out["fleet_start_s"] = fleet.start()
                     start_view = hub_view(hub_port)
+                    out["start_misses"] = []
                     out["start"] = wait_converged(
                         hub_port, start_view["refreshes"], "the start",
-                        match)
+                        match, out["start_misses"])
                     out["start_refreshes"] = (out["start"][1]["refreshes"]
                                               - start_view["refreshes"])
                     t0 = time.monotonic()
@@ -3695,6 +4404,14 @@ def phase_hub(card_line: str, c5_tick_ms: dict,
                     out["series"] = len(out["live"][0]["series"])
                     out["top"] = check_top(hub_port)
                     out["doctor"] = run_hub_doctor(hub_port)
+                    # The history ring against what the hub published.
+                    out["probe1"] = relay_probe_ms(hub_port)
+                    out["ring"] = check_ring_identities(rec1, hub_port)
+                    out["duty_1h"] = check_ring_duty(rec1, "1h", 10.0)
+                    out["duty_24h"] = check_ring_duty(rec1, "24h", 300.0)
+                    out["at"] = check_ring_at(rec1)
+                    out["caching"] = check_query_caching(rec1)
+                    out["stampede"] = query_stampede(rec1, hub_port)
                     # The warm restart: quiesce the synthetic pushes, so
                     # no frame lands after the final checkpoint.
                     fleet.paused.set()
@@ -3702,9 +4419,19 @@ def phase_hub(card_line: str, c5_tick_ms: dict,
                     before = hub_view(hub_port)
                     out["before_restart"] = lane_apply(before)
                     out["fleet_before"] = fleet.frames()
+                    # The live checks' window (the newest 60 ticks),
+                    # held where it stood when the old hub stopped.
+                    daemon_floor.append(max(dict(watch.texts)) - 59)
+                    # The recorder stops while the hub still answers: a
+                    # read sent as the hub closes its port can wait out
+                    # its whole timeout.
+                    rec1.stop()
                     out["hub_rc"], out["hub_stop_s"] = stop_with_stacks(
                         hub_proc, hub_log)
                     t_down = time.monotonic()
+                    wall_down = time.time()
+                    rec2 = recorders["restart"] = HubRecorder(
+                        hub_port).start()
                     new_proc, new_port, new_log = start_hub(hub_args,
                                                             hub_port)
                     out["new_hub"] = (new_proc, new_log)
@@ -3719,6 +4446,11 @@ def phase_hub(card_line: str, c5_tick_ms: dict,
                         require(time.monotonic() - t_down < 60,
                                 f"hub: /readyz never 200: {readyz[-3:]}")
                         time.sleep(0.02)
+                    # Diagnostics: how long the hub was down, and the
+                    # daemon's spooled backlog its drain still owes.
+                    out["down_s"] = time.monotonic() - t_down
+                    out["daemon_backlog"] = [egress_state(port)[0][
+                        "spill"]["depth_frames"]]
                     # The snapshot that shows the state /readyz judged:
                     # the first refresh after it turned 200.
                     text, etag = next_hub_text(hub_port)
@@ -3736,10 +4468,17 @@ def phase_hub(card_line: str, c5_tick_ms: dict,
                     # restart: their sessions serve the checkpoint until
                     # their next frames, which continue the chains.
                     fleet.paused.clear()
+                    out["restart_misses"] = []
                     out["restart"] = wait_converged(
-                        hub_port, 0.0, "the warm restart", match)
+                        hub_port, 0.0, "the warm restart", match,
+                        out["restart_misses"])
                     out["recovered_refreshes"] = (
                         out["restart"][1]["refreshes"] - first)
+                    out["daemon_backlog"].append(egress_state(port)[0][
+                        "spill"]["depth_frames"])
+                    out["daemon_tick_at_restart"] = (
+                        daemon_floor[0], out["restart"][1]["daemon_tick"])
+                    daemon_floor.clear()
                     time.sleep(HUB_LIVE2_S)
                     out["live2"] = wait_converged(
                         hub_port, hub_view(hub_port)["refreshes"],
@@ -3747,8 +4486,164 @@ def phase_hub(card_line: str, c5_tick_ms: dict,
                     out["after_restart"] = lane_apply(out["live2"][0])
                     out["fleet_after"] = fleet.frames()
                     out["cycles_live2"] = hub_cycles_ms(hub_port)
+                    out["restart_ring"] = check_restart_etags(rec1, rec2,
+                                                              wall_down)
+                    try:
+                        procs_leg(rec2, new_proc, new_log)
+                    except Exception:
+                        procs_evidence()
+                        raise
                 except Exception as exc:  # noqa: BLE001 - re-raised
                     failure.append(exc)
+
+            def procs_evidence() -> None:
+                """What a failing third leg leaves to read: the hub's
+                log, the daemon's egress status and log, and the hub's
+                view of the daemon and of its children."""
+                hub3 = out.get("procs_hub")
+                if hub3 is not None:
+                    print("\n".join(hub3[1][-40:]), file=sys.stderr)
+                status, body, _ = fetch(f"http://127.0.0.1:{port}"
+                                        f"/debug/egress")
+                print(f"daemon /debug/egress {status}: {body[:3000]!r}",
+                      file=sys.stderr)
+                print("\n".join(log[-30:]), file=sys.stderr)
+                try:
+                    view = hub_view(hub_port)
+                    picked = [(n, lab, v) for n, lab, v in view["series"]
+                              if n.startswith(("kts_ingest_proc",
+                                               "kts_delta_",
+                                               "kts_hub_resync",
+                                               "kts_ingest_shed"))
+                              or (n == schema.HUB_TARGET_UP.name
+                                  and lab["target"] == daemon_source)]
+                    print(f"hub view: {picked}", file=sys.stderr)
+                except Exception as exc:  # noqa: BLE001 - evidence only
+                    print(f"hub view unreadable: {exc}", file=sys.stderr)
+                sys.stderr.flush()
+
+            def procs_leg(rec2: HubRecorder, old_proc, old_log) -> None:
+                """The third hub: the same port and checkpoint with
+                --ingest-procs HUB_PROCS; the fleet and the daemon push
+                through the children; one child killed and restarted."""
+                out["child"] = child_start()
+                fleet.paused.set()
+                time.sleep(1.0)
+                out["fleet_before3"] = fleet.frames()
+                out["daemon_failures0"] = daemon_push_failures(watch)
+                rec2.stop()     # while the hub answers, as in the restart
+                out["new_hub_rc"], out["new_hub_stop_s"] = \
+                    stop_with_stacks(old_proc, old_log)
+                # The reservation socket binds the port the second hub
+                # has just left: how many of its connections wait there.
+                out["time_wait"] = time_wait_on(hub_port)
+                rec3 = recorders["procs"] = HubRecorder(hub_port).start()
+                t0 = time.monotonic()
+                proc3, port3, log3 = start_hub(
+                    hub_args + ["--ingest-procs", str(HUB_PROCS)], hub_port)
+                out["procs_hub"] = (proc3, log3)
+                out["procs_hub_start_s"] = time.monotonic() - t0
+                require(port3 == hub_port, f"hub: procs hub on {port3}")
+                internal = re.search(r"exposition proxied to 127\.0\.0\.1:"
+                                     r"(\d+)", "\n".join(log3))
+                require(internal is not None, f"hub: {log3[-5:]}")
+                internal = int(internal.group(1))
+                kids = children_of(proc3.pid)
+                require(len(kids) == HUB_PROCS,
+                        f"hub: {len(kids)} acceptor children: {kids}")
+                out["procs_kids"] = list(kids)
+                deadline = time.monotonic() + 60
+                while fetch(f"{hub_url}/readyz")[0] != 200:
+                    require(time.monotonic() < deadline,
+                            "hub: /readyz through the children never 200")
+                    time.sleep(0.05)
+                fleet.paused.clear()
+                # The daemon's publisher probes a hub it lost on a
+                # back-off and then drains its spill: the leg counts
+                # refreshes from when it pushes live again (the second
+                # leg holds the restart itself to its limit).
+                while True:
+                    status, body, _ = fetch(f"http://127.0.0.1:{port}"
+                                            f"/debug/egress")
+                    egress = json.loads(body) if status == 200 else {}
+                    if (egress.get("senders", {}).get("delta", {}).get(
+                            "consecutive_failures", 1) == 0
+                            and not egress.get("spill", {}).get(
+                                "depth_frames", 1)):
+                        break
+                    require(time.monotonic() - t0 < 60,
+                            f"hub: the daemon never pushed live to the "
+                            f"third hub: {egress}")
+                    time.sleep(0.05)
+                out["daemon_live_s"] = time.monotonic() - t0
+                live_from = hub_view(hub_port)["refreshes"]
+                converged = wait_converged(hub_port, live_from,
+                                           "the ingest processes", match)
+                out["procs_start_refreshes"] = (converged[1]["refreshes"]
+                                                - live_from)
+                start_apply = lane_apply(converged[0])
+                time.sleep(HUB_LIVE3_S)
+                live3 = wait_converged(
+                    hub_port, hub_view(hub_port)["refreshes"],
+                    "the ingest processes' live window", match)[0]
+                out["procs_apply"] = (start_apply, lane_apply(live3))
+                out["procs_frames"] = proc_counts(
+                    live3, schema.INGEST_PROC_FRAMES.name)
+                require(len(out["procs_frames"]) == HUB_PROCS
+                        and all(v > 0 for v in out["procs_frames"].values()),
+                        f"hub: frames per child {out['procs_frames']}")
+                out["procs_rss"] = (
+                    (live3["one"]("process_resident_memory_bytes") or 0)
+                    / MIB, {pid: rss_mib(pid) for pid in kids})
+                out["procs_series"] = len(live3["series"])
+                out["probe3"] = relay_probe_ms(hub_port)
+                out["probe3_direct"] = relay_probe_ms(internal)
+                status, body, _ = rec3.query(
+                    f"family={schema.HUB_CHIPS.name}&window=1h")
+                require(status == 200 and json.loads(body)["series"],
+                        f"hub: /query through the children: {status}")
+                out["procs_query"] = status
+                require(fetch(f"{hub_url}/readyz")[0] == 200,
+                        "hub: /readyz through the children")
+                # One child killed: the pool starts another, and every
+                # publisher pushes again.
+                pushed = {n: p.pushes_total
+                          for n, p in fleet.publishers.items()}
+                before_kill = fleet.frames()
+                kill_refresh = hub_view(hub_port)["refreshes"]
+                victim = kids[0]
+                t_kill = time.monotonic()
+                os.kill(victim, signal.SIGKILL)
+                etag = ""
+                while True:
+                    require(time.monotonic() - t_kill < HUB_RESPAWN_S,
+                            f"hub: child {victim} not replaced in "
+                            f"{HUB_RESPAWN_S} s: {children_of(proc3.pid)}")
+                    now_kids = children_of(proc3.pid)
+                    text, etag = next_hub_text(hub_port, etag)
+                    ups = proc_counts(hub_view(hub_port, text),
+                                      schema.INGEST_PROC_UP.name)
+                    if (len(now_kids) == HUB_PROCS and victim not in now_kids
+                            and len(ups) == HUB_PROCS
+                            and all(v == 1 for v in ups.values())):
+                        break
+                out["respawn_s"] = time.monotonic() - t_kill
+                out["procs_kids_after"] = now_kids
+                while not all(p.pushes_total > pushed[n]
+                              for n, p in fleet.publishers.items()):
+                    require(time.monotonic() - t_kill < HUB_RESPAWN_S,
+                            "hub: publishers not pushing again after the "
+                            "kill: " + str(sorted(
+                                n for n, p in fleet.publishers.items()
+                                if p.pushes_total <= pushed[n])[:5]))
+                    time.sleep(0.05)
+                out["reconnect_s"] = time.monotonic() - t_kill
+                out["after_kill"] = wait_converged(
+                    hub_port, hub_view(hub_port)["refreshes"],
+                    "after a child was killed",
+                    match)[1]["refreshes"] - kill_refresh
+                out["kill_frames"] = (before_kill, fleet.frames())
+                out["cycles_procs"] = hub_cycles_ms(hub_port)
 
             def rates_in(hub_port_: int, refreshes: int) -> list:
                 """slice_worker_steps_per_second for node-00 at each of
@@ -3825,18 +4720,45 @@ def phase_hub(card_line: str, c5_tick_ms: dict,
             require(not failure, f"the hub phase failed: {failure}")
             tick_window = window_p50(watch.traced, min(watch.traced),
                                      max(watch.traced))
+        # The conservation law once nothing pushes: the fleet's final
+        # flush lands, then the daemon stops (its own final push too).
+        fleet.stop()
+        fleet_stopped = True
+        out["fleet_after_quiet"] = fleet.frames()
+        fleet_failures = (fleet.frames()["failures"]
+                          - out["fleet_before3"]["failures"])
+        daemon_failures = (daemon_push_failures(watch)
+                           - out["daemon_failures0"])
+        out["daemon_rc"], out["daemon_stop_s"] = stop_with_stacks(
+            daemon_proc, log)
+        out["quiet"] = quiet_conservation(
+            hub_port, fleet_failures + daemon_failures)
+        out["quiet"]["publisher_failures"] = fleet_failures + daemon_failures
+        recorders.pop("procs").stop()
     finally:
         # Pushers first, into a live hub (their final flush lands), then
-        # the hub, then the burn's exporter.
-        if fleet is not None:
+        # the hubs, then the burn's exporter.
+        for recorder in recorders.values():
+            recorder._stop.set()
+        if fleet is not None and not fleet_stopped:
             fleet.stop()
-        if daemon_proc is not None:
+        if daemon_proc is not None and "daemon_rc" not in out:
             out["daemon_rc"], out["daemon_stop_s"] = stop_with_stacks(
                 daemon_proc, log)
         new_hub = out.get("new_hub")
-        if new_hub is not None:
+        if new_hub is not None and "new_hub_rc" not in out:
             out["new_hub_rc"], out["new_hub_stop_s"] = stop_with_stacks(
                 *new_hub)
+        procs_hub = out.get("procs_hub")
+        if procs_hub is not None:
+            out["procs_hub_rc"], out["procs_hub_stop_s"] = \
+                stop_with_stacks(*procs_hub)
+            # A child its hub left running is re-parented to this
+            # process (adopt_orphans).
+            mine = children_of(os.getpid())
+            out["procs_kids_left"] = [
+                pid for pid in out.get("procs_kids", [])
+                + out.get("procs_kids_after", []) if pid in mine]
         if hub_proc is not None and hub_proc.poll() is None:
             stop_with_stacks(hub_proc, hub_log)
         exporter.stop()
@@ -3881,6 +4803,7 @@ def phase_hub(card_line: str, c5_tick_ms: dict,
         "convergence_refreshes": {
             "start": out["start_refreshes"],
             "restart": out["restart"][1]["refreshes"]},
+        "start_misses": out["start_misses"],
         "same_numbers": {"daemon_tick": out["live"][1]["daemon_tick"],
                          "duplicates": out["live"][1]["duplicates"],
                          "duplicate_families":
@@ -3897,6 +4820,11 @@ def phase_hub(card_line: str, c5_tick_ms: dict,
             "readyz_503s": len(saw_gate), "readyz_503_reasons":
             sorted(set(saw_gate)), "ready_view": ready_view,
             "recovered_refreshes": out["recovered_refreshes"],
+            "refreshes_missed": out["restart_misses"],
+            "down_s": out["down_s"],
+            "daemon_backlog_at_ready_and_converged": out["daemon_backlog"],
+            "daemon_tick_old_hub_and_converged":
+                out["daemon_tick_at_restart"],
             "fleet_frames_before": out["fleet_before"],
             "fleet_frames_after": out["fleet_after"]},
         "top": out["top"],
@@ -3945,6 +4873,79 @@ def phase_hub(card_line: str, c5_tick_ms: dict,
     require(max(cycles) < HUB_INTERVAL_S * 1e3,
             f"hub: a refresh took {max(cycles)} ms of a "
             f"{HUB_INTERVAL_S} s interval")
+    emit("hub_history", {
+        "card": card_line, "identities": out["ring"],
+        "series_bytes": SERIES_BYTES, "duty_1h": out["duty_1h"],
+        "duty_24h": out["duty_24h"], "at": out["at"],
+        "caching": out["caching"], "stampede": out["stampede"],
+        "restart": out["restart_ring"], "cost": cost})
+    # The third leg: ingest through the acceptor processes.
+    procs_cycles = out["cycles_procs"]
+    (s_seconds, s_full, s_delta), (l_seconds, _, l_delta) = \
+        out["procs_apply"]
+    procs_per_delta = (l_seconds - s_seconds) / max(1.0, l_delta - s_delta)
+    fulls3 = s_full
+    continued3 = HUB_NODES - fulls3
+    hub_rss3, kids_rss = out["procs_rss"]
+    quiet = out["quiet"]
+    before3 = out["fleet_before3"]
+    kill_before, kill_after = out["kill_frames"]
+    fleet_resyncs3 = out["fleet_after_quiet"]["resyncs"] - before3["resyncs"]
+    emit("hub_procs", {
+        "card": card_line, "procs": HUB_PROCS,
+        "hub_start_s": out["procs_hub_start_s"],
+        "hub_start_s_single_process": out["hub_start_s"],
+        "time_wait_at_bind": out["time_wait"],
+        "child": out["child"],
+        "daemon_live_s": out["daemon_live_s"],
+        "convergence_refreshes": out["procs_start_refreshes"],
+        "frames_per_child": out["procs_frames"],
+        "continued_share": continued3 / HUB_NODES,
+        "ingest_apply_ms": {
+            "per_delta": procs_per_delta * 1e3,
+            "per_delta_single_process": per_delta_s * 1e3,
+            "per_full_single_process": per_full_s * 1e3,
+            "fulls": fulls3},
+        "relay_round_trip_ms": {
+            "through_children": out["probe3"],
+            "direct_same_hub": out["probe3_direct"],
+            "single_process_hub": out["probe1"]},
+        "refresh_ms": {"p50": statistics.median(procs_cycles),
+                       "max": max(procs_cycles),
+                       "single_process_p50": statistics.median(cycles),
+                       "single_process_max": max(cycles)},
+        "rss_mib": {"hub": hub_rss3, "children": kids_rss,
+                    "total": hub_rss3 + sum(kids_rss.values()),
+                    "single_process_hub": (out["rss"] or 0) / MIB},
+        "series": out["procs_series"],
+        "kill": {"respawn_s": out["respawn_s"],
+                 "reconnect_s": out["reconnect_s"],
+                 "refreshes_to_converge": out["after_kill"],
+                 "fleet_failures": kill_after["failures"]
+                 - kill_before["failures"],
+                 "fleet_resyncs": kill_after["resyncs"]
+                 - kill_before["resyncs"],
+                 "fleet_fulls": kill_after["full"] - kill_before["full"]},
+        "conservation": quiet, "fleet_resyncs": fleet_resyncs3,
+        "probes": 2 * HUB_PROBES, "query_status": out["procs_query"],
+        "hub_rc": out.get("procs_hub_rc"),
+        "children_left": out.get("procs_kids_left")})
+    require(out.get("procs_hub_rc") == 0,
+            f"the procs hub exited {out.get('procs_hub_rc')} on SIGTERM")
+    require(not out.get("procs_kids_left"),
+            f"hub: acceptor children outlived their hub: "
+            f"{out.get('procs_kids_left')}")
+    require(continued3 / HUB_NODES >= HUB_WARM_MIN,
+            f"hub: {fulls3} of {HUB_NODES} sessions resynced with a FULL "
+            f"after the restart into --ingest-procs")
+    # Every FULL the fleet re-sent on a 409 is one the hub counted; the
+    # hub's count also holds the relay probes' 409s.
+    require(quiet["resyncs"] >= 2 * HUB_PROBES + fleet_resyncs3,
+            f"hub: {quiet['resyncs']} resyncs counted, the fleet made "
+            f"{fleet_resyncs3} and the probes {2 * HUB_PROBES}")
+    require(max(procs_cycles) < HUB_INTERVAL_S * 1e3,
+            f"hub: a refresh took {max(procs_cycles)} ms with "
+            f"--ingest-procs")
     return launches
 
 
@@ -4045,17 +5046,23 @@ def stop_children() -> list[str]:
     return live
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     adopt_orphans()
+    alone = None
     try:
-        phases()
+        if argv:
+            alone = phases_alone(argv)
+        else:
+            phases()
     finally:
         live = stop_children()
     require(not live, f"processes still running after the last phase: "
                       f"{live}")
+    if alone is not None:
+        return alone
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -4090,5 +5097,41 @@ def phases() -> None:
         "bound_share": t["bound_share"]}])
 
 
+ALONE = {
+    "doctor": phase_doctor,
+    "c5": phase_c5,
+    "burst": phase_burst,
+    "energy": lambda card: phase_energy(card, {}),
+    "egress": lambda card: phase_egress(card, {}),
+    "hub": lambda card: phase_hub(card, {}, 0.0),
+}
+
+
+def phases_alone(specs: list[str]) -> int:
+    """Each ``name[:times]`` phase run that many times after the card and
+    build phases; exit code 1 when any run failed."""
+    runs = []
+    for spec in specs:
+        name, _, times = spec.partition(":")
+        require(name in ALONE, f"no phase {name!r} runs alone: "
+                               f"{sorted(ALONE)}")
+        runs += [name] * int(times or 1)
+    card = phase_card()
+    phase_build()
+    outcomes = []
+    for name in runs:
+        t0 = time.monotonic()
+        try:
+            ALONE[name](card)
+            outcome = "ok"
+        except Exception as exc:  # noqa: BLE001 - reported, then counted
+            outcome = repr(exc)[:300]
+        outcomes.append({"phase": name, "outcome": outcome,
+                         "seconds": time.monotonic() - t0})
+        print(f"{name}: {outcome}", file=sys.stderr, flush=True)
+    emit("phases_alone", outcomes)
+    return int(any(o["outcome"] != "ok" for o in outcomes))
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

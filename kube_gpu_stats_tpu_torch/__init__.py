@@ -24,9 +24,12 @@ sampler (``burstsampler.py``); the per-pod energy accountant
 (the delta publisher with its disk spill queue, durable remote write
 1.0/2.0, the Pushgateway pusher); the slice hub (``hub.py``: delta
 ingest with its lanes, admission guards and warm-restart checkpoint,
-the series accountant, the merged exposition with slice rollups) and
-``top``; the H100 deploy assets (``deploy/``); and the entry points
+the series accountant, the merged exposition with slice rollups, the
+history ring behind ``/query`` and the SO_REUSEPORT ingest processes)
+and ``top``; the H100 deploy assets (``deploy/``); and the entry points
 (``entry.py``). The daemon, hub, top and doctor paths import no torch.
+Still off in the hub: the fleet lens, efficiency scoring, and the
+native frame fold and slot store (the Python paths always run).
 
 Layer map:
 
@@ -34,6 +37,9 @@ Layer map:
                       loadgen, validate, doctor, hub and top subcommands
     hub.py            Hub: push sessions and pulled targets merged into
                       one exposition with slice_* rollups; main()
+    history.py        HistoryStore: the rollups' bounded ring, /query
+    ingestproc.py     IngestProcPool: SO_REUSEPORT acceptor processes
+                      relaying frames to the hub (--ingest-procs)
     top.py            the live per-card table over exporters or a hub
     cardinality.py    SeriesAccountant (the hub's series ledger),
                       LabelFence (the daemon's label-churn fence)
@@ -84,8 +90,8 @@ Layer map:
     schema.py         the metric families (the reference's, unchanged)
     validate.py       the accelerator_* contract checker and its parsers
     collectors/       the collector trait; workers, resilience,
-                      procstats, ici, history, fleetlens,
-                      topology: the parts of them the stack uses
+                      procstats, ici, fleetlens, topology: the
+                      parts of them the stack uses
     kinds.py          accel_type and the per-kind datasheet tables
     device.py         device resolution and the Hopper probe
 """

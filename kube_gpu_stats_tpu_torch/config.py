@@ -10,7 +10,8 @@ accepted and ignored. The push-egress flags (``--pushgateway-*``,
 :func:`add_delta_push_flags` and :func:`validate_delta_push_args` keep
 its shape, and the hub (``hub.main``) shares them with the daemon, beside
 its own groups: :func:`add_ingest_guard_flags` (``--ingest-*``),
-:func:`add_cardinality_flags` (``--series-*``) and
+:func:`add_cardinality_flags` (``--series-*``),
+:func:`add_history_flags` (``--no-history``, ``--history-*``) and
 :func:`add_hub_noop_flags`. ``nvml`` takes the place of the reference's ``tpu``
 backend; the reference's ``gpu`` (drm sysfs) backend is not offered on an
 NVIDIA node.
@@ -379,9 +380,8 @@ def add_hub_noop_flags(p: argparse.ArgumentParser) -> None:
     """The reference hub's switches that only turn OFF a part the port's
     hub does not run yet: accepted, so a manifest written for either hub
     parses, and they change nothing here. The parts' other flags
-    (``--slo-*``, ``--waste-*``, ``--history-*``,
-    ``--energy-audit-key``, ``--ingest-procs``) configure what is not
-    ported and are refused by argparse."""
+    (``--slo-*``, ``--waste-*``, ``--energy-audit-key``) configure what
+    is not ported and are refused by argparse."""
     p.add_argument("--no-native-ingest", action="store_true",
                    help="accepted for the reference hub's manifests: the "
                         "port always applies delta frames on the Python "
@@ -391,16 +391,51 @@ def add_hub_noop_flags(p: argparse.ArgumentParser) -> None:
                    help="accepted for the reference hub's manifests: the "
                         "port's hub runs no fleet lens yet (no "
                         "/debug/fleet, no kts_fleet_* gauges)")
-    p.add_argument("--no-history", action="store_true",
-                   default=_env("NO_HISTORY", "") == "1",
-                   help="accepted for the reference hub's manifests: the "
-                        "port's hub keeps no history ring yet (/query "
-                        "answers 404)")
     p.add_argument("--no-efficiency", action="store_true",
                    default=_env("NO_EFFICIENCY", "") == "1",
                    help="accepted for the reference hub's manifests: the "
                         "port's hub scores no efficiency yet "
                         "(/debug/efficiency answers 404)")
+
+
+def add_history_flags(p: argparse.ArgumentParser) -> None:
+    """The hub's history ring and ``/query``: on by default, its memory
+    fixed (about 16 KB of slab per series over the 1h/24h/7d tiers)."""
+    p.add_argument("--no-history", action="store_true",
+                   default=_env("NO_HISTORY", "") == "1",
+                   help="keep no history ring: /query answers "
+                        "enabled:false and the hub holds no ring memory")
+    p.add_argument("--history-series-max", type=int,
+                   default=int(_env("HISTORY_SERIES_MAX", "1024")),
+                   help="series identities (rollup family + labels) the "
+                        "ring holds slabs for; the memory bound is this "
+                        "times the per-series slab. Past it a new "
+                        "identity takes a stale slab "
+                        "(kts_history_series_evicted_total) or is "
+                        "dropped (kts_history_series_shed_total); the "
+                        "live exposition is never affected")
+    p.add_argument("--history-query-qps", type=float,
+                   default=float(_env("HISTORY_QUERY_QPS", "50")),
+                   help="per-client /query rate in tokens per second; "
+                        "over it a request draws 429 + Retry-After "
+                        "(kts_query_shed_total). 0 = unlimited")
+    p.add_argument("--history-query-burst", type=float,
+                   default=float(_env("HISTORY_QUERY_BURST", "100")),
+                   help="per-client /query bucket depth: how many "
+                        "requests a dashboard may send at once before "
+                        "the rate applies")
+
+
+def validate_history_args(args) -> str | None:
+    """Range rules for the history flags; the hub parser surfaces the
+    string through parser.error."""
+    if args.history_series_max < 1:
+        return "--history-series-max must be >= 1"
+    if args.history_query_qps < 0:
+        return "--history-query-qps must be >= 0 (0 = unlimited)"
+    if args.history_query_burst < 1:
+        return "--history-query-burst must be >= 1"
+    return None
 
 
 def validate_cardinality_args(args) -> str | None:

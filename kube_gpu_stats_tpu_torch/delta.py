@@ -443,6 +443,11 @@ class DeltaEncoder:
         # instead of waiting for the next FULL. Cleared on ack (a
         # deferred/nacked frame re-announces).
         self._announce_build = False
+        # (arguments, wire) of the last FULL encoded. A FULL is a pure
+        # function of its arguments, and a publisher probing a down hub
+        # encodes the same spooled head at the same seq every cycle:
+        # the snappy pass is paid once per head.
+        self._last_full: tuple | None = None
 
     def set_wire(self, proto: int, caps: int) -> bool:
         """Adopt a negotiated (proto, caps); True when anything
@@ -472,9 +477,15 @@ class DeltaEncoder:
             # express it, and a FULL re-anchors slot indexing exactly.
             # The key compare is pointer-cheap: names and label tuples
             # come interned from the shared parse pools.
-            wire = encode_full(self.source, self.generation, seq, body,
-                               proto=self.proto, caps=self.caps,
-                               build=self.build)
+            args = (self.source, self.generation, seq, body, self.proto,
+                    self.caps, self.build)
+            if self._last_full is not None and self._last_full[0] == args:
+                wire = self._last_full[1]
+            else:
+                wire = encode_full(self.source, self.generation, seq, body,
+                                   proto=self.proto, caps=self.caps,
+                                   build=self.build)
+                self._last_full = (args, wire)
             kind = KIND_FULL
         else:
             changes = [(i, v) for i, v in enumerate(values)

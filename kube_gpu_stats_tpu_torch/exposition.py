@@ -21,6 +21,9 @@
   snapshot), ``/debug/egress`` (the push senders' backlog, lag and loss)
   ``/debug/skew`` (build and wire-protocol negotiation) and
   ``/debug/cardinality`` (the hub's series ledger) when those are wired.
+- HTTP ``GET /query`` — the hub's history ring (``history.HistoryStore``),
+  when a ``history_provider`` is wired: range and ``at=`` reads behind the
+  auth gate, with their own ETag, 304 and gzip.
 - TLS (``tls_cert_file``/``tls_key_file``), mTLS (``tls_client_ca_file``)
   and basic auth (``auth_username`` + ``auth_password_sha256``) on every
   path but the kubelet probes ``/healthz`` and ``/readyz``.
@@ -28,9 +31,9 @@
   (tmp + rename) after each poll tick.
 - Pushgateway — :class:`PushgatewayPusher` PUTs each published snapshot.
 
-The port's copy of the reference's exposition layer without ``/query``
-and the ``/debug/*`` endpoints of modules not ported yet (fleet,
-efficiency): those paths answer 404.
+The port's copy of the reference's exposition layer without the
+``/debug/*`` endpoints of modules not ported yet (fleet, efficiency):
+those paths answer 404.
 """
 
 from __future__ import annotations
@@ -311,9 +314,14 @@ class MetricsServer:
                  host_provider=None, egress_provider=None,
                  skew_provider=None, stores_provider=None,
                  ready_check=None, ingest_provider=None,
-                 cardinality_provider=None,
+                 cardinality_provider=None, history_provider=None,
                  ingest_read_deadline: float = 10.0):
         self._registry = registry
+        # The hub's history ring: ``handle_query(params, client,
+        # gzip_ok, if_none_match) -> (status, body, headers)`` answers
+        # /query. A disabled store (--no-history) answers enabled:false;
+        # None (daemons, bare test servers) 404s.
+        self._history = history_provider
         # Delta-push ingest (delta.DeltaIngest.handle, duck-typed:
         # (bytes, peer) -> (status, body, headers)): serves POST
         # /ingest/delta behind the same auth gate as /metrics. None =
@@ -831,6 +839,24 @@ class MetricsServer:
                     body = "".join(parts).encode()
                     self.send_response(200)
                     self.send_header("Content-Type", "text/plain")
+                elif path == "/query" and outer._history is not None:
+                    # The store admits, validates, decides the 304 and
+                    # keeps the rendered bodies; this only writes what
+                    # it returns.
+                    try:
+                        code, qbody, qheaders = outer._history.handle_query(
+                            self._query(), self.client_address[0],
+                            _gzip_accepted(
+                                self.headers.get("Accept-Encoding", "")),
+                            self.headers.get("If-None-Match", ""))
+                    except Exception:  # noqa: BLE001 - a failed query
+                        # answers 500 and leaves its stack in the log.
+                        log.exception("/query crashed")
+                        code, qbody, qheaders = 500, b"query error\n", {}
+                    if code == 304 and outer._render_stats is not None:
+                        outer._render_stats.observe_not_modified("/query")
+                    self._send_plain(code, qbody, qheaders or None)
+                    return
                 elif path == "/":
                     # Every endpoint this server serves: the landing page
                     # is the endpoint inventory (the recorder's appear
@@ -854,6 +880,8 @@ class MetricsServer:
                         links += ["/debug/skew"]
                     if outer._cardinality is not None:
                         links += ["/debug/cardinality"]
+                    if outer._history is not None:
+                        links += ["/query?family=slice_chips&window=1h"]
                     body = ("<html><body>kube-tpu-stats " + " ".join(
                         f'<a href="{link}">{link.partition("?")[0]}</a>'
                         for link in links) + "</body></html>").encode()

@@ -36,12 +36,17 @@ Self-metric families re-exported from the source exporters
 (``collector_*``/``process_*``) are deliberately NOT merged: they carry
 no worker identity, so series from different targets would collide.
 
+Every published rollup series, and each target's ``slice_target_up``,
+also feeds the history ring (``history.HistoryStore``), which ``/query``
+serves. ``--ingest-procs N`` hands the public port to N acceptor
+processes (``ingestproc.py``) that relay each frame to this process, the
+one owner of the push sessions.
+
 Not ported yet, and off as in the reference's matching switches: the
 fleet lens and efficiency scoring (``/debug/fleet`` and
-``/debug/efficiency`` answer 404), the history ring (``/query`` answers
-404), the native frame fold and slot store (the Python paths, which the
-reference keeps as its oracle, always run) and the multi-process ingest.
-The hub path imports no torch: it runs from the DaemonSet image.
+``/debug/efficiency`` answer 404), and the native frame fold and slot
+store (the Python paths, which the reference keeps as its oracle, always
+run). The hub path imports no torch: it runs from the DaemonSet image.
 """
 
 
@@ -407,7 +412,8 @@ class Hub:
                  series_hard_cap: int = 0,
                  series_high_watermark: int = 0,
                  series_low_watermark: int = 0,
-                 series_idle_refreshes: int = 5) -> None:
+                 series_idle_refreshes: int = 5,
+                 history=None) -> None:
         if not targets and targets_provider is None and not delta_ingest:
             raise ValueError("hub needs at least one target")
         # Order-preserving dedup: a target listed twice (positional +
@@ -421,6 +427,11 @@ class Hub:
         # push sources join the effective target list on top of it each
         # refresh, so a push-only fleet needs no target config at all.
         self._configured = list(self._targets)
+        # History ring (history.HistoryStore): each refresh stages its
+        # rollup series on this thread and commits them once its
+        # snapshot is published. None keeps no lookback (bare hubs in
+        # tests); a disabled store (--no-history) records nothing.
+        self.history = history
         # Federation root (--federate): targets are leaf hubs — their
         # slice_* rollup series (FEDERATED_SPECS) are re-exported
         # alongside any per-chip series, so a root hub serves the whole
@@ -1066,6 +1077,11 @@ class Hub:
         for target in self._targets:
             up = 1.0 if reachable.get(target) else 0.0
             builder.add(schema.HUB_TARGET_UP, up, (("target", target),))
+            if self.history is not None:
+                # Reachability per target goes into the ring too, so a
+                # look back names the targets that were down then.
+                self.history.record(schema.HUB_TARGET_UP.name,
+                                    (("target", target),), up)
             took = fetch_seconds.get(target)
             if took is not None:
                 builder.add(schema.HUB_TARGET_FETCH_SECONDS, took,
@@ -1314,7 +1330,14 @@ class Hub:
             except Exception:  # noqa: BLE001 - a broken contributor
                 # must cost its own families, never the publish.
                 log.exception("extra metrics provider failed")
+        if self.history is not None:
+            # The ring's own families ride the snapshot they describe.
+            self.history.contribute(builder)
         self.registry.publish(builder.build())
+        if self.history is not None:
+            # After the publish: the ring serves the generation readers
+            # see, so /query's and /metrics' ETags move together.
+            self.history.commit(time.time(), self.registry.generation)
         if self.delta is not None:
             # Warm-restart checkpoint: written HERE, on the
             # refresh thread, never on a handler thread — rate-limited
@@ -1486,7 +1509,16 @@ class Hub:
         last contribution) because a dipping counter is semantically a
         reset — Prometheus would rate() a phantom spike — while a
         dipping gauge is simply the current truth."""
-        add = builder.add
+        hist = self.history
+        if hist is None:
+            add = builder.add
+        else:
+            # One seam for both: each rollup series goes into the
+            # snapshot and is staged for the ring, so the ring holds
+            # exactly what the exposition said.
+            def add(spec, value, labels=()):
+                builder.add(spec, value, labels)
+                hist.record(spec.name, labels, value)
         by_slice: dict[str, list] = {}
         for row in frame.rows.values():
             by_slice.setdefault(row.key[1], []).append(row)
@@ -2080,6 +2112,18 @@ def main(argv: Sequence[str] | None = None) -> int:
                              "lock at high pusher fan-in). 0 = auto "
                              "(bounded by the core count); 1 restores "
                              "the single-lock behavior")
+    parser.add_argument("--ingest-procs", type=int, default=0,
+                        help="SO_REUSEPORT acceptor processes on the "
+                             "public port. 0 = off (ingest in this "
+                             "process). N>0 starts N children that each "
+                             "bind the public port with SO_REUSEPORT, so "
+                             "the kernel spreads publisher connections "
+                             "over them and their socket and HTTP work "
+                             "leaves this process's interpreter lock; "
+                             "each relays frames to this hub (the one "
+                             "owner of the sessions) over unix sockets, "
+                             "and proxies scrapes and probes to it. "
+                             "Linux/BSD only")
     parser.add_argument("--listen-host", default="0.0.0.0")
     parser.add_argument("--listen-port", type=int, default=DEFAULT_PORT)
     parser.add_argument("--once", action="store_true",
@@ -2176,14 +2220,17 @@ def main(argv: Sequence[str] | None = None) -> int:
     # defaults cannot drift between the two CLIs. On a hub, --hub-url
     # points at the PARENT (root) hub of a federation tree.
     from .config import (add_cardinality_flags, add_delta_push_flags,
-                         add_hub_noop_flags, add_ingest_guard_flags,
+                         add_history_flags, add_hub_noop_flags,
+                         add_ingest_guard_flags,
                          validate_cardinality_args,
                          validate_delta_push_args,
+                         validate_history_args,
                          validate_ingest_guard_args)
 
     add_delta_push_flags(parser)
     add_ingest_guard_flags(parser)
     add_cardinality_flags(parser)
+    add_history_flags(parser)
     add_hub_noop_flags(parser)
     args = parser.parse_args(argv)
     push_error = validate_delta_push_args(args)
@@ -2195,8 +2242,28 @@ def main(argv: Sequence[str] | None = None) -> int:
     cardinality_error = validate_cardinality_args(args)
     if cardinality_error:
         parser.error(cardinality_error)
+    history_error = validate_history_args(args)
+    if history_error:
+        parser.error(history_error)
     if args.ingest_lanes < 0 or args.ingest_lanes > 256:
         parser.error("--ingest-lanes must be 0 (auto) or 1..256")
+    if args.ingest_procs < 0 or args.ingest_procs > 64:
+        parser.error("--ingest-procs must be 0 (off) or 1..64")
+    if args.ingest_procs > 0:
+        import socket as socket_mod
+
+        if not hasattr(socket_mod, "SO_REUSEPORT"):
+            parser.error("--ingest-procs needs SO_REUSEPORT "
+                         "(Linux/BSD); this platform has no such "
+                         "socket option")
+        if args.no_delta_ingest:
+            parser.error("--ingest-procs without delta ingest makes no "
+                         "sense (drop --no-delta-ingest or set "
+                         "--ingest-procs 0)")
+        if args.tls_cert_file or args.tls_key_file:
+            parser.error("--ingest-procs serves plain HTTP acceptors "
+                         "and cannot terminate TLS; drop the TLS flags "
+                         "or run single-process ingest")
     if not 1 <= args.remote_write_shards <= 64:
         parser.error("--remote-write-shards must be 1..64")
     if args.remote_write_shards > 1 and not args.remote_write_wal_dir:
@@ -2346,6 +2413,16 @@ def main(argv: Sequence[str] | None = None) -> int:
                     out["remote_write"] = status
         return out
 
+    # Built even under --no-history: /query then answers enabled:false
+    # rather than 404, and the disabled store holds no ring.
+    from .history import HistoryStore
+
+    history_store = HistoryStore(
+        enabled=not args.no_history,
+        max_series=args.history_series_max,
+        query_qps=args.history_query_qps,
+        query_burst=args.history_query_burst)
+
     hub = Hub(targets, interval=args.interval,
               expect_workers=args.expect_workers,
               rollups_only=args.rollups_only,
@@ -2378,7 +2455,8 @@ def main(argv: Sequence[str] | None = None) -> int:
               series_hard_cap=args.series_hard_cap,
               series_high_watermark=args.series_high_watermark,
               series_low_watermark=args.series_low_watermark,
-              series_idle_refreshes=args.series_idle_refreshes)
+              series_idle_refreshes=args.series_idle_refreshes,
+              history=history_store)
 
     # Push senders follow registry publishes, so they ship each merged
     # snapshot unmodified — the hub as a slice-level egress point.
@@ -2491,8 +2569,14 @@ def main(argv: Sequence[str] | None = None) -> int:
         payload["enabled"] = hub.cardinality.enabled
         return payload
 
+    # With --ingest-procs the acceptor children hold the public port and
+    # this process's server moves to an ephemeral loopback port, which
+    # the children proxy every non-ingest request to.
+    ingest_procs = max(0, args.ingest_procs)
+    serve_host = "127.0.0.1" if ingest_procs else args.listen_host
+    serve_port = 0 if ingest_procs else args.listen_port
     server = MetricsServer(
-        hub.registry, host=args.listen_host, port=args.listen_port,
+        hub.registry, host=serve_host, port=serve_port,
         healthz_max_age=max(3 * args.interval, 30.0),
         tls_cert_file=args.tls_cert_file, tls_key_file=args.tls_key_file,
         tls_client_ca_file=args.tls_client_ca_file,
@@ -2506,7 +2590,8 @@ def main(argv: Sequence[str] | None = None) -> int:
         egress_provider=egress_payload,
         skew_provider=skew_payload,
         stores_provider=stores_payload,
-        cardinality_provider=cardinality_payload)
+        cardinality_provider=cardinality_payload,
+        history_provider=history_store)
     # SIGTERM/SIGINT stop cleanly like the daemon (daemon.run): the push
     # senders flush the final snapshot on stop, so a pod reschedule is
     # not a data gap upstream.
@@ -2515,8 +2600,26 @@ def main(argv: Sequence[str] | None = None) -> int:
     stop = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: stop.set())
+    pool = None
     try:
         server.start()
+        if ingest_procs and hub.delta is not None:
+            from .ingestproc import IngestProcPool
+
+            pool = IngestProcPool(
+                hub.delta.handle, host=args.listen_host,
+                port=args.listen_port, procs=ingest_procs,
+                parent_port=server.port,
+                auth=((args.auth_username, args.auth_password_sha256)
+                      if args.auth_username else None))
+            # Raises when a child does not come up: the hub exits
+            # non-zero rather than fall back to ingest in-process.
+            pool.start()
+            hub.add_metrics_provider(pool.contribute)
+            log.info("ingest sharded over %d SO_REUSEPORT acceptor "
+                     "process(es) on %s:%d (exposition proxied to "
+                     "127.0.0.1:%d)", ingest_procs, args.listen_host,
+                     pool.port, server.port)
         for _, sender in senders:
             sender.start()
         hub.start()
@@ -2543,7 +2646,7 @@ def main(argv: Sequence[str] | None = None) -> int:
             "render-warmer", is_alive=server.warm_thread_alive,
             restart=server.respawn_warm)
         supervisor.start()
-        public_port = server.port
+        public_port = pool.port if pool is not None else server.port
         if args.targets_dns:
             log.info("hub serving DNS-discovered targets (%s) on %s:%d",
                      args.targets_dns, args.listen_host, public_port)
@@ -2559,6 +2662,8 @@ def main(argv: Sequence[str] | None = None) -> int:
         # Supervisor first: a watchdog pass mid-teardown would respawn
         # the very threads being joined (the daemon.stop discipline).
         supervisor.stop()
+        if pool is not None:
+            pool.stop()
         hub.stop()
         for _, sender in senders:
             sender.stop()

@@ -583,6 +583,19 @@ class PollLoop:
         duration in seconds."""
         return self._tick_as(None)
 
+    def settle(self, timeout: float) -> bool:
+        """Wait up to ``timeout`` seconds for the reads still running past
+        an earlier tick's deadline; True when none is left. The loop's
+        own interval gives such a read that time before the next tick; a
+        caller that ticks back to back gives it here, or every later
+        tick finds the read stuck and serves its card down."""
+        pending = [f for f in list(self._outstanding.values())
+                   if not f.done()]
+        if not pending:
+            return True
+        _, not_done = concurrent.futures.wait(pending, timeout=timeout)
+        return not not_done
+
     def _tick_as(self, owner: threading.Thread | None) -> float:
         """One tick on behalf of ``owner`` (the loop thread, or None for
         direct callers). A thread superseded by a respawn mid-tick — it

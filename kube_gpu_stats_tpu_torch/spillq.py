@@ -80,6 +80,11 @@ class SpillQueue:
         # count.
         self.reencoded_total = 0
         self._head_reencoded = False
+        # (record, re-encoded?, body) of the last head peek decoded. A
+        # drain probing a down hub peeks the same head every cycle; the
+        # ring hands back the same record object until it is committed,
+        # so the decode (a pure-Python snappy pass) is paid once.
+        self._head: tuple | None = None
         if self._ring.records_pending():
             # A restart with a backlog on disk resumes the drain where
             # the dead process stopped (minus the at-least-once cursor
@@ -121,6 +126,9 @@ class SpillQueue:
             if record is None:
                 return None
             ts, payload = record
+            if self._head is not None and self._head[0] is record:
+                self._head_reencoded = self._head[1]
+                return ts, self._head[2]
             try:
                 raw = snappy.decompress(payload)
             except ValueError as exc:
@@ -130,6 +138,7 @@ class SpillQueue:
                 body = self._recover_wire_frame(raw)
                 if body is not None:
                     self._head_reencoded = True
+                    self._head = (record, True, body)
                     return ts, body
                 self._drop_undecodable(
                     ValueError("spooled wire frame carries no "
@@ -137,12 +146,15 @@ class SpillQueue:
                 continue
             self._head_reencoded = False
             try:
-                return ts, raw.decode()
+                body = raw.decode()
             except UnicodeDecodeError as exc:
                 # Drop it rather than wedge the drain forever on one
                 # frame — counted, never silent (the accounting
                 # invariant the partition sim pins).
                 self._drop_undecodable(exc)
+                continue
+            self._head = (record, False, body)
+            return ts, body
 
     @staticmethod
     def _recover_wire_frame(raw: bytes) -> str | None:

@@ -20,15 +20,18 @@ smoke point the daemon's senders at it and read back what arrived.
 - ``PUT /metrics/job/...`` — the Pushgateway; every body is kept with
   its path. Answers 200.
 
-:meth:`EgressSink.blackout` closes the listener and :meth:`restore`
-reopens it on the same port (what a partitioned receiver looks like to
-the senders); :meth:`restart` does both, optionally with a new protocol
-range. The server runs on threads of the calling process.
+:meth:`EgressSink.blackout` resets every connection until
+:meth:`restore` (what a refusing receiver looks like to the senders);
+:meth:`restart` closes the listener and opens it again on the same port,
+optionally with a new protocol range. The server runs on threads of the
+calling process.
 """
 
 from __future__ import annotations
 
 import http.server
+import socket
+import struct
 import threading
 import time
 from typing import NamedTuple
@@ -68,6 +71,23 @@ class _Session:
         self.series = series
 
 
+class _Server(http.server.ThreadingHTTPServer):
+    """A threaded server that, while ``refusing``, resets each
+    connection as it accepts it (SO_LINGER 0: an RST, not a FIN)."""
+
+    daemon_threads = True
+    request_queue_size = 128
+    refusing = False
+
+    def process_request(self, request, client_address) -> None:
+        if self.refusing:
+            request.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                               struct.pack("ii", 1, 0))
+            self.close_request(request)
+            return
+        super().process_request(request, client_address)
+
+
 class EgressSink:
     """Delta ingest, remote-write receiver and Pushgateway in one
     threaded HTTP server. All recorded state is guarded by one lock; read
@@ -99,9 +119,7 @@ class EgressSink:
         return f"http://{self.host}:{self.port}"
 
     def start(self) -> "EgressSink":
-        self._httpd = http.server.ThreadingHTTPServer(
-            (self.host, self.port), self._handler())
-        self._httpd.daemon_threads = True
+        self._httpd = _Server((self.host, self.port), self._handler())
         self.port = self._httpd.server_address[1]
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         name="egress-sink", daemon=True)
@@ -109,7 +127,36 @@ class EgressSink:
         return self
 
     def blackout(self) -> None:
-        """Close the listener: every sender's next connect is refused."""
+        """Refuse every sender until :meth:`restore`: the listener stays
+        bound and resets each connection it accepts, so each request
+        fails at once. Closing the listener would leave the refusal to
+        the network stack, and under gVisor a connection made in the
+        moments after a listener closes can hang instead of failing: the
+        sender then waits out its timeout, as at a blackholed receiver,
+        not a refused one."""
+        if self._httpd is not None:
+            self._httpd.refusing = True
+
+    def restore(self) -> None:
+        """Serve again on the same port; sessions and records survive
+        the blackout."""
+        if self._httpd is None:
+            self.start()
+        self._httpd.refusing = False
+
+    def restart(self, proto_min: int | None = None,
+                proto_max: int | None = None) -> None:
+        """Close the listener and open it again on the same port, with a
+        new protocol range when given; sessions and records survive."""
+        self.stop()
+        if proto_min is not None:
+            self.proto_min = proto_min
+        if proto_max is not None:
+            self.proto_max = proto_max
+        self.start()
+
+    def stop(self) -> None:
+        """Close the listener."""
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
@@ -117,25 +164,6 @@ class EgressSink:
         if self._thread is not None:
             self._thread.join(timeout=10)
             self._thread = None
-
-    def restore(self) -> None:
-        """Reopen the listener on the same port; sessions and records
-        survive the blackout."""
-        if self._httpd is None:
-            self.start()
-
-    def restart(self, proto_min: int | None = None,
-                proto_max: int | None = None) -> None:
-        """Blackout and restore, with a new protocol range when given."""
-        self.blackout()
-        if proto_min is not None:
-            self.proto_min = proto_min
-        if proto_max is not None:
-            self.proto_max = proto_max
-        self.restore()
-
-    def stop(self) -> None:
-        self.blackout()
 
     # -- records --------------------------------------------------------------
 

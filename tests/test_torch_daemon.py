@@ -376,7 +376,7 @@ def test_subcommands_not_ported_exit_2(sub, capsys, tmp_path):
     configures an unported part; top, whole, exits 2 the reference's
     way when no target answered."""
     argv = {"doctor": ["doctor", "--fleet"],
-            "hub": ["hub", "--ingest-procs", "2", "--once"],
+            "hub": ["hub", "--slo-freshness-target", "0.9", "--once"],
             "top": ["top", "--once", str(tmp_path / "absent.prom")]}[sub]
     try:
         rc = cli.main(argv)
@@ -385,7 +385,7 @@ def test_subcommands_not_ported_exit_2(sub, capsys, tmp_path):
     assert rc == 2
     err = capsys.readouterr().err
     assert {"doctor": "not ported yet",
-            "hub": "unrecognized arguments: --ingest-procs",
+            "hub": "unrecognized arguments: --slo-freshness-target",
             "top": "absent.prom"}[sub] in err
 
 

@@ -750,3 +750,117 @@ def test_the_sink_blackout_refuses_then_restores_with_sessions(tmp_path):
     finally:
         publisher.stop()
         sink.stop()
+
+
+# -- a down link is probed without re-encoding the same head ------------------
+
+def _counting(monkeypatch, name: str) -> list:
+    """Count calls of ``snappy.<name>`` in the port's modules."""
+    calls: list = []
+    inner = getattr(snappy, name)
+
+    def counted(data):
+        calls.append(len(data))
+        return inner(data)
+
+    monkeypatch.setattr(snappy, name, counted)
+    return calls
+
+
+def test_a_refused_full_is_encoded_once_and_equals_the_references(
+        monkeypatch):
+    bodies = _bodies(3, 3)
+    port = delta.DeltaEncoder("node", 7, build="b")
+    ref = ref_delta.DeltaEncoder("node", 7, build="b")
+    compressed = _counting(monkeypatch, "compress")
+    steps = [(bodies[0], None)] * 4 + [(bodies[1], None)] * 3 \
+        + [(bodies[1], (2, delta.CAP_BUILD_INFO))] * 2 + [(bodies[2], None)]
+    for i, (body, wire) in enumerate(steps):
+        if wire is not None:
+            port.set_wire(*wire)
+            ref.set_wire(*wire)
+        got, want = port.encode_next(body), ref.encode_next(body)
+        assert got == want and got[1] == delta.KIND_FULL, i
+        port.nack()
+        ref.nack()
+    # One snappy pass per distinct (body, seq, wire): 4, not 10.
+    assert len(compressed) == 4
+    port.encode_next(bodies[2])
+    ref.encode_next(bodies[2])
+    port.ack()
+    ref.ack()
+    got, want = port.encode_next(bodies[0]), ref.encode_next(bodies[0])
+    assert got == want
+
+
+def test_a_probed_spill_head_is_decoded_once(tmp_path, monkeypatch):
+    from kube_gpu_stats_tpu.spillq import SpillQueue as RefSpillQueue
+
+    bodies = _bodies(4, 3)
+    spill = SpillQueue(str(tmp_path / "spill"), fsync=False)
+    for i, body in enumerate(bodies):
+        spill.spool(1000.0 + i, body)
+    spill.save_cursor(force=True)
+    ref = RefSpillQueue(str(tmp_path / "spill"), fsync=False)
+    decompressed = _counting(monkeypatch, "decompress")
+    for body in bodies:
+        for _ in range(5):
+            got = spill.peek()
+            assert got == ref.peek() and got[1] == body
+        spill.commit()
+        ref.commit()
+    assert spill.peek() is None and ref.peek() is None
+    assert len(decompressed) == len(bodies)
+    assert spill.drained_total == ref.drained_total == len(bodies)
+
+
+def test_a_blackout_costs_one_snappy_pass_per_spooled_snapshot(
+        tmp_path, monkeypatch):
+    sink = EgressSink().start()
+    registry = Registry()
+    rng = np.random.default_rng(9)
+    spill = SpillQueue(str(tmp_path / "spill"), fsync=False)
+    publisher = delta.DeltaPublisher(registry, sink.url, source="node",
+                                     spill=spill, timeout=1.0)
+    try:
+        _publish(registry, SnapshotBuilder, rng)
+        publisher.push_once()
+        sink.blackout()
+        compressed = _counting(monkeypatch, "compress")
+        decompressed = _counting(monkeypatch, "decompress")
+        for _ in range(6):
+            _publish(registry, SnapshotBuilder, rng)
+            publisher._probe_at = 0.0
+            publisher.push_once()
+        # The DELTA the first push tried, six spools, and one FULL of
+        # the head that the five probes after it share.
+        assert spill.spooled_total == 6 and publisher.failures_total == 6
+        assert len(compressed) == 1 + 6 + 1 and len(decompressed) == 1
+        sink.restore()
+        publisher._probe_at = 0.0
+        _publish(registry, SnapshotBuilder, rng)
+        publisher.push_once()
+        assert spill.depth() == 0 and spill.drained_total == 7
+        assert sink.sessions()["node"] == parse_exposition_interned(
+            registry.rendered()[0].decode())
+    finally:
+        publisher.stop()
+        sink.stop()
+
+
+def test_the_listener_probe_sees_refusals_resets_and_answers():
+    from kube_gpu_stats_tpu_torch.testing import listener_probe
+
+    got = listener_probe.probe(closed_s=0.3, cycles=2, clients=2,
+                               rate_hz=50.0, timeout=2.0)
+    assert set(got) == {"closed", "close", "blackout"}
+    assert set(got["closed"]["kinds"]) == {"ConnectionRefusedError"}
+    assert "ConnectionRefusedError" in got["close"]["kinds"]
+    # The sink answers the probe's body with 400 while it serves; in
+    # its blackout the listener stays and resets each connection.
+    for leg in ("close", "blackout"):
+        assert got[leg]["kinds"].get("HTTP 400", 0) > 0
+    assert not {"ConnectionRefusedError", "timeout"} \
+        & set(got["blackout"]["kinds"])
+    assert set(got["blackout"]["kinds"]) - {"HTTP 400"} <= {
+        "ConnectionResetError", "BrokenPipeError", "RemoteDisconnected"}

@@ -294,6 +294,37 @@ def test_check_poll_fails_when_the_backend_cannot_start(monkeypatch):
     assert "Driver Not Loaded" in row.detail
 
 
+def test_one_slow_read_does_not_serve_the_card_down_in_later_ticks(
+        monkeypatch):
+    # The 3rd of the five ticks' memory reads overruns the 50 ms
+    # deadline by 70 ms. Back to back, ticks 4 and 5 would find it still
+    # running and serve the card down; the doctor lets it finish first.
+    fake = FakeNvml([FakeDevice(UUIDS[0], minor=2)])
+    fake.devices[0].stalls["memory"] = (0.12, 3)
+    monkeypatch.setattr(daemon, "_nvml_collector",
+                        lambda: NvmlCollector(fake))
+    poll, _ = doctor.check_poll(port_config.Config(backend="nvml"))
+    assert fake.devices[0].calls["memory"] == 5
+    assert poll.status == "ok"
+    assert (poll.data["devices"], poll.data["up"]) == (1, 1)
+
+
+def test_settle_waits_only_for_reads_past_their_deadline():
+    fake = FakeNvml([FakeDevice(UUIDS[0], minor=2)])
+    fake.devices[0].stalls["memory"] = (0.3, 1)
+    collector = NvmlCollector(fake)
+    loop = PollLoop(collector, Registry(), deadline=0.05,
+                    pipeline_fetch=False)
+    try:
+        assert loop.settle(5.0)              # nothing outstanding
+        loop.tick()
+        assert not loop.settle(0.01)         # still inside its stall
+        assert loop.settle(5.0)
+    finally:
+        loop.stop()
+        collector.close()
+
+
 # -- the nvml row --------------------------------------------------------------
 
 def _fake(**kwargs) -> FakeNvml:

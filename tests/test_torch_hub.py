@@ -19,7 +19,11 @@ histogram cache holding cumulative counts; push-fresh against
 fence-expired, falling back to pull; ``--rollups-only``; ``--federate``
 over two leaf hubs; ``--expect-workers``; file-target churn; series
 budget and hard-cap sheds; idle eviction above the watermark; skew
-refusals counted; a warm restart from the ingest checkpoint.
+refusals counted; a warm restart from the ingest checkpoint; the
+history ring fed by both hubs (each with its package's
+``HistoryStore``, the wall clock pinned too), its ``/query`` answers for
+every family, window and a spread of ``at=`` times, its cap and its
+disabled form.
 
 Exact throughout: the rollups are sums, means, mins and maxes over the
 same floats in the same order, formatted by the same ``format_value``.
@@ -28,6 +32,7 @@ same floats in the same order, formatted by the same ``format_value``.
 from __future__ import annotations
 
 import http.server
+import json
 import threading
 import time
 
@@ -599,3 +604,151 @@ def test_warm_restart_from_either_checkpoint(tmp_path, clock):
         assert "kts_hub_warm_restart_sessions 3" in text
     finally:
         _stop(new_port, new_ref)
+
+
+# -- the history ring through the hub --------------------------------------------
+
+class WallClock:
+    """time.time pinned between refreshes: both hubs commit their ring
+    at the same wall instant, so bucket boundaries fall alike."""
+
+    def __init__(self) -> None:
+        self.now = 1_700_000_003.0
+
+    def __call__(self) -> float:
+        return self.now
+
+
+def _history_hubs(targets, store_kwargs=None, **kwargs):
+    from kube_gpu_stats_tpu import history as ref_history
+    from kube_gpu_stats_tpu_torch import history
+
+    store_kwargs = store_kwargs or {}
+    port = hub.Hub(list(targets),
+                   history=history.HistoryStore(**store_kwargs), **kwargs)
+    ref = ref_hub.Hub(list(targets), fleet_lens=False, efficiency=False,
+                      history=ref_history.HistoryStore(**store_kwargs),
+                      native_ingest=False, **kwargs)
+    return port, ref
+
+
+def _queries_equal(port, ref, params: dict) -> tuple:
+    import re
+
+    nonce = re.compile(r'"h[0-9a-f]{8}-')
+    got = port.history.handle_query(dict(params), "10.0.0.1", False, "")
+    want = ref.history.handle_query(dict(params), "10.0.0.1", False, "")
+    assert (got[0], got[1]) == (want[0], want[1]), params
+    assert {k: nonce.sub("", v) for k, v in got[2].items()} == \
+        {k: nonce.sub("", v) for k, v in want[2].items()}, params
+    return got
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_the_ring_and_query_equal_the_reference(tmp_path, exporters, clock,
+                                                monkeypatch, seed):
+    """Pulled and pushed nodes through a sequence of refreshes 10 s of
+    wall time apart (one node down for two of them): after each, the
+    whole /metrics text (kts_history_* and kts_query_* included) and,
+    for every family the ring tracks, every window and a spread of
+    ``at=`` timestamps, the /query answers are equal."""
+    wall = WallClock()
+    monkeypatch.setattr(time, "time", wall)
+    rng = np.random.default_rng(20 + seed)
+    paths = [str(tmp_path / f"h{i}.prom") for i in range(2)]
+    urls = [exporters.url("x"), exporters.url("y")]
+    sources = [f"http://node-{i:02d}.push:9400/metrics" for i in range(4, 6)]
+    # Rate 0: every read admitted (the monotonic clock is pinned, so a
+    # bucket would not refill between these reads).
+    port, ref = _history_hubs(paths + urls, store_kwargs={"query_qps": 0.0},
+                              interval=10.0, expect_workers=6,
+                              fetch_timeout=2.0)
+    tee = Tee(port, ref)
+    try:
+        pubs = _publishers(tee, sources)
+        for step in range(1, 9):
+            for i, path in enumerate(paths):
+                with open(path, "w") as handle:
+                    handle.write(_node(rng, f"node-{i:02d}", 2, step))
+            for j, name in enumerate(("x", "y")):
+                exporters.bodies[name] = _node(rng, f"node-{2 + j:02d}", 2,
+                                               step, hist=True)
+            if step in (4, 5):
+                exporters.down.add("y")
+            else:
+                exporters.down.discard("y")
+            for k, (registry, pub) in enumerate(pubs):
+                _publish(registry, _node(rng, f"node-{4 + k:02d}", 2, step))
+                pub.push_once()
+            clock.now += 10.0
+            wall.now += 10.0 + float(rng.uniform(0.0, 0.5))
+            text = _refresh(port, ref)
+            assert sorted(port.history._data) == sorted(ref.history._data)
+            for family in sorted(port.history._data):
+                for window in ("1h", "24h", "7d"):
+                    status, _b, _h = _queries_equal(
+                        port, ref, {"family": family, "window": window})
+                    assert status == 200
+                for back in (0.0, 5.0, 12.0, 31.0, 400.0):
+                    _queries_equal(port, ref, {"family": family,
+                                               "at": repr(wall.now - back)})
+            _queries_equal(port, ref, {"family": "absent", "window": "1h"})
+        families = set(port.history._data)
+        assert {"slice_duty_cycle_mean", "slice_chips", "slice_target_up",
+                "slice_worker_steps_per_second"} <= families
+        # One ring series per target and per rollup series served.
+        assert "kts_history_series_shed_total 0" in text
+        down = json.loads(port.history.handle_query(
+            {"family": "slice_target_up", "at": repr(wall.now - 40.0)},
+            "10.0.0.2", False, "")[1])
+        assert {s["labels"]["target"]: s["v"] for s in down["series"]}[
+            urls[1]] == 0.0
+        assert port.history.generation == port.registry.generation
+    finally:
+        tee.close()
+        _stop(port, ref)
+
+
+def test_the_ring_sheds_past_its_cap_as_the_reference(tmp_path, clock,
+                                                      monkeypatch):
+    wall = WallClock()
+    monkeypatch.setattr(time, "time", wall)
+    rng = np.random.default_rng(30)
+    paths = [str(tmp_path / f"c{i}.prom") for i in range(3)]
+    port, ref = _history_hubs(paths, store_kwargs={"max_series": 6},
+                              interval=10.0)
+    try:
+        for step in range(1, 5):
+            for i, path in enumerate(paths):
+                with open(path, "w") as handle:
+                    handle.write(_node(rng, f"node-{i:02d}", 1, step,
+                                       slice_=f"h100-{step % 2}"))
+            clock.now += 10.0
+            wall.now += 10.0
+            text = _refresh(port, ref)
+        assert "kts_history_series 6" in text
+        assert port.history.series_shed_total == \
+            ref.history.series_shed_total > 0
+        assert port.history.bytes() == 6 * port.history.series_bytes
+    finally:
+        _stop(port, ref)
+
+
+def test_a_disabled_ring_answers_enabled_false(tmp_path, clock, monkeypatch):
+    wall = WallClock()
+    monkeypatch.setattr(time, "time", wall)
+    path = str(tmp_path / "d.prom")
+    with open(path, "w") as handle:
+        handle.write(_node(np.random.default_rng(31), "node-00", 2, 1))
+    port, ref = _history_hubs([path], store_kwargs={"enabled": False},
+                              interval=10.0)
+    try:
+        clock.now += 10.0
+        text = _refresh(port, ref)
+        assert "kts_history_series 0" in text
+        assert "kts_history_bytes 0" in text
+        status, body, _ = _queries_equal(port, ref,
+                                         {"family": "slice_chips"})
+        assert status == 200 and json.loads(body)["enabled"] is False
+    finally:
+        _stop(port, ref)

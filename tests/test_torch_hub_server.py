@@ -9,11 +9,18 @@ its command line and its doctor row.
 - Two hub processes, the port's and the reference's, over the same
   targets and pushes: ``/debug/cardinality``, ``/debug/skew`` and
   ``/debug/stores`` answer the same payloads, build, version, times and
-  paths excepted; ``hub --once`` prints the same exposition.
-- Every hub flag the port wires reaches the hub with the reference's
-  value, and bad values are refused by the same checks with the same
-  message; every flag of an unported part is refused by argparse, and
-  the flags that only switch such a part off are accepted.
+  paths excepted; under ``--no-history`` both answer ``/query`` with
+  ``enabled: false``; ``hub --once`` prints the same exposition,
+  ``kts_history_*`` and ``kts_query_*`` included.
+- Two hub processes with ``--ingest-procs 2``: frames through the
+  children, ``kts_ingest_proc_*`` and its conservation law, ``/query``
+  and ``/readyz`` through the proxy, SIGTERM ending the children too.
+- The hub's flag set is the reference's less the flags of parts still
+  unported; every hub flag the port wires reaches the hub with the
+  reference's value (the history store built alike), and bad values are
+  refused by the same checks with the same message; every flag of an
+  unported part is refused by argparse, and the flags that only switch
+  such a part off are accepted.
 - ``cardinality_verdict``/``check_cardinality`` give the reference's
   status and text on canned payloads and on a live port hub;
   ``check_skew`` and ``stores_verdict`` on a hub's payloads too.
@@ -288,8 +295,13 @@ def test_two_hub_processes_answer_the_same_debug_payloads(tmp_path):
                                "cardinality_verdict")):
             assert getattr(doctor, verdict)(payloads[path]) == \
                 getattr(ref_doctor, verdict)(payloads[path])
+        # --no-history: both hubs keep a disabled store and say so.
+        got, want = (_get_json(port, "/query?family=slice_chips")
+                     for port in ports)
+        assert got == want == {"enabled": False,
+                               "hint": "hub started with --no-history"}
         for port in ports:
-            for path in ("/query", "/debug/fleet", "/debug/efficiency"):
+            for path in ("/debug/fleet", "/debug/efficiency"):
                 try:
                     _get_json(port, path)
                     code = 200
@@ -304,9 +316,8 @@ def test_two_hub_processes_answer_the_same_debug_payloads(tmp_path):
             assert proc.wait(timeout=15) == 0
 
 
-# The reference's CLI always wires a history store (disabled under
-# --no-history), and a disabled store still serves these at 0; the
-# port's hub has no history ring yet, so it serves none of them.
+# Both CLIs always wire a history store (disabled under --no-history),
+# and a disabled store serves these at 0: compared like the rest.
 HISTORY = {"kts_history_series", "kts_history_bytes",
            "kts_history_samples_total", "kts_history_series_shed_total",
            "kts_history_series_evicted_total", "kts_query_requests_total",
@@ -315,7 +326,7 @@ HISTORY = {"kts_history_series", "kts_history_bytes",
 
 
 def _hub_filter(text: str) -> list[str]:
-    timed = HISTORY | {"hub_refresh_duration_seconds", "kts_hub_parse_seconds",
+    timed = {"hub_refresh_duration_seconds", "kts_hub_parse_seconds",
              "slice_target_fetch_seconds", "kts_tick_phase_seconds",
              "kts_slowest_tick_seconds", "process_cpu_seconds_total",
              "process_start_time_seconds", "process_virtual_memory_bytes",
@@ -353,6 +364,10 @@ def test_hub_once_prints_the_same_exposition(tmp_path):
     assert outs[0] == outs[1]
     assert outs[0][0] == 0
     assert 'slice_power_watts{slice="s"} 312.5' in outs[0][1]
+    served = {line.split(" ")[0] for line in outs[0][1]
+              if not line.startswith("#")}
+    assert HISTORY <= served
+    assert "kts_history_series 0" in outs[0][1]
 
 
 # -- flags ---------------------------------------------------------------------
@@ -392,6 +407,9 @@ WIRED = [
      "--target-ca-file", "/ca.pem"],
     ["--no-fleet-lens", "--no-history", "--no-efficiency",
      "--no-native-ingest"],
+    ["--history-series-max", "10", "--history-query-qps", "1",
+     "--history-query-burst", "1"],
+    ["--history-query-qps", "0", "--ingest-procs", "64"],
 ]
 
 
@@ -429,6 +447,15 @@ def _refusal(main, argv) -> tuple[int, str]:
     ["--targets-file", "f", "--targets-dns", "h:1"],
     ["--targets-dns", "http://svc:9400"],
     ["--no-delta-ingest"],
+    ["--ingest-procs", "65"],
+    ["--ingest-procs", "-1"],
+    ["--ingest-procs", "2", "--no-delta-ingest", "t.prom"],
+    ["--ingest-procs", "2", "--tls-cert-file", "c.pem", "--tls-key-file",
+     "k.pem"],
+    ["--ingest-procs", "1", "--tls-cert-file", "c.pem"],
+    ["--history-series-max", "0"],
+    ["--history-query-qps", "-1"],
+    ["--history-query-burst", "0.5"],
 ])
 def test_bad_values_are_refused_by_the_same_checks(argv):
     assert _refusal(hub.main, argv) == _refusal(ref_hub.main, argv)
@@ -436,8 +463,6 @@ def test_bad_values_are_refused_by_the_same_checks(argv):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--ingest-procs", "2"], ["--history-series-max", "10"],
-    ["--history-query-qps", "1"], ["--history-query-burst", "1"],
     ["--slo-freshness-target", "0.9"], ["--slo-straggler-target", "0.9"],
     ["--slo-straggler-ratio", "0.5"], ["--waste-warmup-refreshes", "2"],
     ["--waste-idle-refreshes", "2"], ["--waste-idle-duty", "5"],
@@ -447,6 +472,58 @@ def test_flags_of_unported_parts_are_refused(flag):
     rc, message = _refusal(hub.main, flag + ["--once", "x.prom"])
     assert rc == 2
     assert f"unrecognized arguments: {flag[0]}" in message
+
+
+STILL_REFUSED = {"--slo-freshness-target", "--slo-straggler-target",
+                 "--slo-straggler-ratio", "--waste-warmup-refreshes",
+                 "--waste-idle-refreshes", "--waste-idle-duty",
+                 "--waste-top-k", "--energy-audit-key"}
+
+
+def _options(main, monkeypatch) -> set[str]:
+    import argparse
+
+    seen = {}
+
+    def capture(parser, *args, **kwargs):
+        seen["parser"] = parser
+        raise _Captured
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", capture)
+    with pytest.raises(_Captured):
+        main([])
+    return {option for action in seen["parser"]._actions
+            for option in action.option_strings}
+
+
+def test_the_hubs_flags_are_the_references_but_the_refused(monkeypatch):
+    got = _options(hub.main, monkeypatch)
+    want = _options(ref_hub.main, monkeypatch)
+    assert STILL_REFUSED <= want
+    assert got == want - STILL_REFUSED
+    assert {"--ingest-procs", "--no-history", "--history-series-max",
+            "--history-query-qps", "--history-query-burst"} <= got
+
+
+@pytest.mark.parametrize("argv,env", [
+    ([], {}),
+    (["--no-history"], {}),
+    (["--history-series-max", "7", "--history-query-qps", "2.5",
+      "--history-query-burst", "3"], {}),
+    ([], {"KTS_HISTORY_SERIES_MAX": "9", "KTS_HISTORY_QUERY_QPS": "0",
+          "KTS_NO_HISTORY": "1"}),
+], ids=range(4))
+def test_the_history_flags_build_the_references_store(monkeypatch, argv,
+                                                      env):
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    stores = [_parsed(main, module, monkeypatch, argv)["history"]
+              for main, module in ((hub.main, hub),
+                                   (ref_hub.main, ref_hub))]
+    got, want = ([s.enabled, s.max_series, s.reclaim_age, s.tiers,
+                  s.series_bytes, s.gate.rate, s.gate.burst]
+                 for s in stores)
+    assert got == want
 
 
 # -- the doctor's cardinality row ---------------------------------------------
@@ -532,3 +609,96 @@ def test_skew_and_stores_verdicts_on_a_hub_payload():
               "accept_fence": {"state": "healthy"}, "threads": []}
     assert doctor.stores_verdict(stores) == ref_doctor.stores_verdict(stores)
     assert ref_delta.PROTO_MAX == delta.PROTO_MAX
+
+
+# -- a hub process with acceptor children ----------------------------------------
+
+def _children_of(pid: int) -> list[int]:
+    out = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as handle:
+                fields = handle.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == pid:
+            out.append(int(entry))
+    return out
+
+
+def test_two_hub_processes_with_ingest_procs(tmp_path):
+    """``--ingest-procs 2`` on both CLIs: frames posted to the public
+    port land through the children, ``kts_ingest_proc_*`` keeps the
+    conservation law, ``/query`` and ``/readyz`` answer through the
+    proxy, and SIGTERM ends the hub and both children."""
+    import signal
+
+    def expired(*_):
+        raise TimeoutError("test exceeded its 90 s limit")
+
+    previous = signal.signal(signal.SIGALRM, expired)
+    signal.setitimer(signal.ITIMER_REAL, 90)
+    procs = []
+    try:
+        ports = []
+        for package in ("kube_gpu_stats_tpu_torch", "kube_gpu_stats_tpu"):
+            work = tmp_path / package
+            work.mkdir()
+            proc, port = _start_hub(package, [
+                "--interval", "0.2", "--ingest-procs", "2",
+                "--no-fleet-lens", "--no-efficiency", "--no-native-ingest"],
+                str(work / "log"))
+            procs.append(proc)
+            ports.append(port)
+        kids = [_children_of(proc.pid) for proc in procs]
+        assert [len(k) for k in kids] == [2, 2]
+        body = ('accelerator_up{chip="0",slice="s",worker="w"} 1\n'
+                'accelerator_duty_cycle{chip="0",slice="s",worker="w"} 70\n')
+        for port in ports:
+            for i in range(6):
+                assert _post(port, delta.encode_full(
+                    f"http://n{i}:9400/metrics", 1, 1, body)) == 200
+            assert _post(port, delta.encode_delta(
+                "http://ghost:9400/metrics", 1, 2, [(0, 1.0)])) == 409
+        time.sleep(1.0)
+        texts = []
+        for port in ports:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/metrics", timeout=5) as resp:
+                texts.append(resp.read().decode())
+        for text in texts:
+            assert "kts_ingest_procs 2" in text
+            accepted = sum(float(line.rsplit(" ", 1)[1])
+                           for line in text.splitlines()
+                           if line.startswith(
+                               "kts_ingest_proc_accepted_total{"))
+            frames = sum(float(line.rsplit(" ", 1)[1])
+                         for line in text.splitlines()
+                         if line.startswith("kts_ingest_proc_frames_total{"))
+            assert (accepted, frames) == (6.0, 7.0)
+        queries = [_get_json(port, "/query?family=slice_chips&window=1h")
+                   for port in ports]
+        for payload in queries:
+            assert payload["series"][0]["labels"] == {"slice": "s"}
+            assert payload["series"][0]["samples"][-1][1] == 6.0
+        for port in ports:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/readyz", timeout=5) as resp:
+                assert resp.status == 200
+        for proc in procs:
+            proc.terminate()
+        assert [proc.wait(timeout=30) for proc in procs] == [0, 0]
+        for group in kids:
+            for pid in group:
+                assert not os.path.exists(f"/proc/{pid}") or open(
+                    f"/proc/{pid}/stat").read().rsplit(")", 1)[1].split()[
+                        0] == "Z"
+    finally:
+        signal.setitimer(signal.ITIMER_REAL, 0)
+        signal.signal(signal.SIGALRM, previous)
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=15)

@@ -60,7 +60,7 @@ def test_importing_the_port_loads_no_jax():
                    "testing.faultfs", "snappy", "spillq", "remote_write",
                    "proto.prompb", "proto.prompb2", "delta",
                    "testing.egress_sink", "hub", "top", "cardinality",
-                   "fleetlens"):
+                   "fleetlens", "history", "ingestproc"):
         assert f"kube_gpu_stats_tpu_torch.{module}" in report["imported"]
     assert [m for m in report["loaded"] if _forbidden(m)] == []
 
@@ -245,4 +245,71 @@ def test_the_hub_and_top_import_no_torch():
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["rc"] == [0, 0, 200]
+    assert _no_torch(report["loaded"]) == []
+
+
+# A pool of one acceptor child, started as the hub starts it. A
+# sitecustomize on the children's PYTHONPATH (the pool keeps the
+# caller's entries after its own) writes each child's sys.modules when
+# it exits; the pool's stop ends the child with SIGTERM, a clean exit.
+# The child installs its SIGTERM handler only once it serves, after the
+# pool has seen it ready: until then the probe's own handler makes the
+# signal a clean exit too.
+_SITECUSTOMIZE = """
+import atexit, json, os, signal, sys
+
+def _dump():
+    path = os.path.join(os.environ["KTS_MODULES_PROBE"],
+                        f"{os.getpid()}.json")
+    with open(path, "w") as handle:
+        json.dump(sorted(sys.modules), handle)
+
+def _exit(*_):
+    sys.exit(0)
+
+atexit.register(_dump)
+signal.signal(signal.SIGTERM, _exit)
+"""
+
+_RUN_POOL = """
+import json, os, sys
+probe = sys.argv[1]
+os.environ["PYTHONPATH"] = probe
+os.environ["KTS_MODULES_PROBE"] = probe
+from kube_gpu_stats_tpu_torch import hub
+from kube_gpu_stats_tpu_torch.ingestproc import IngestProcPool
+h = hub.Hub([], targets_provider=lambda: [], interval=5.0)
+pool = IngestProcPool(h.delta.handle, host="127.0.0.1", port=0, procs=1)
+pool.start()
+try:
+    pid = pool._children[0].pid
+    with open(f"/proc/{pid}/cmdline", "rb") as handle:
+        cmdline = [part.decode() for part in handle.read().split(b"\\0")]
+finally:
+    pool.stop()
+    h.stop()
+with open(os.path.join(probe, f"{pid}.json")) as handle:
+    child_loaded = json.load(handle)
+print(json.dumps({"cmdline": cmdline, "child_loaded": child_loaded,
+                  "loaded": sorted(sys.modules)}))
+"""
+
+
+def test_the_ingest_child_is_the_ports_and_imports_no_reference(tmp_path):
+    """The pool must start the port's child module: the reference's
+    child speaks the same protocol, so a copied module name would pass
+    every other test while running the reference under the port's hub
+    (the import-statement walk above cannot see a name in an argv)."""
+    (tmp_path / "sitecustomize.py").write_text(_SITECUSTOMIZE)
+    proc = subprocess.run([sys.executable, "-c", _RUN_POOL, str(tmp_path)],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["cmdline"][1:3] == ["-m",
+                                      "kube_gpu_stats_tpu_torch.ingestproc"]
+    assert "kube_gpu_stats_tpu_torch.ingestproc" in report["child_loaded"] \
+        or "__main__" in report["child_loaded"]
+    assert "kube_gpu_stats_tpu_torch.supervisor" in report["child_loaded"]
+    assert _no_torch(report["child_loaded"]) == []
     assert _no_torch(report["loaded"]) == []
