@@ -7,7 +7,8 @@ Run from the repository root on a machine with one H100:
 
 ``python3 chip_smoke.py egress:3 hub:2`` instead builds the kernel and
 runs only the named host-side phases (``doctor``, ``c5``, ``burst``,
-``energy``, ``egress``, ``hub``), each the given number of times, and
+``energy``, ``egress``, ``hub``, ``fleet``), each the given number of
+times, and
 prints one ``phases_alone`` line with each run's outcome: the way to
 measure how often a phase's check fails.
 
@@ -171,6 +172,34 @@ prints its result line after one):
    pushes, the children's accepted frames equal the hub's applied ones;
    relay round trip, apply, refresh, RSS (children too) and a child's
    start time beside the single-process legs;
+8h. ``fleet``: the fleet lens at the hub phase's scale. The hub with the
+   lens and efficiency at their defaults, ``--interval 1``, the history
+   ring and an ``--energy-audit-key``; the NVML daemon at 10 Hz as
+   node-00 pushing, with the same key and a kubelet checkpoint that
+   gives card 0 to the burn's pod; the ``cuda`` burn in this process with
+   its exporter pulled (its poll loop given the same pod for the card);
+   63 synthetic 8-card nodes, each its own pod, frozen card values and a
+   step counter at the burn's rate, pushed from a process of their own
+   that also reads every generation the hub publishes (each one held to the
+   contract by ``validate.check`` in a third process). Windows, counted
+   in hub refreshes: a warm-up past the waste warm-up with no anomaly
+   and no waste; the burn paused with 4 GiB held (node-00's duty anomaly
+   once, the pod ``idle-reservation`` within 8 refreshes, no other
+   target or pod, recovery then the 0.0 tombstone within 4); the burn
+   stepping with no step recorded (``low-goodput``, cleared); one node
+   at half the step rate (``slice_straggler_ratio`` 0.5 ± 0.05); one node
+   silent (``freshness`` at its third miss, its 8 last-known cards in the
+   freshness burn, cleared when it pushes again); ``doctor --fleet``
+   naming the straggler, the silent node and the worst node;
+   ``--efficiency`` OK with the key, FAIL with a wrong one, WARN with
+   none; ``--fleet --at`` and ``--efficiency --at`` inside the pause
+   naming node-00 and the pod; the straggler and freshness SLO bad
+   ratios equal to the refreshes seen; the worst tick node-00's own
+   ``kts_slowest_tick_seconds``; the attestation (node-00's digest
+   verbatim with its HMAC, totals, 7 unreachable leaves as stubs of 65);
+   the ``fleet_score`` span and refresh ms, the hub's RSS, and the
+   pod's steps per joule within 15% of the burn's steps/s over
+   ``nvidia-smi``'s power draw;
 9. time the kernel, its plain version and one library call
    (``torch.mm`` with f32 out) at the main path's and the sweep's sizes,
    each as the median of batches of back-to-back calls;
@@ -4949,6 +4978,1052 @@ def phase_hub(card_line: str, c5_tick_ms: dict,
     return launches
 
 
+# -- the fleet lens on the hub -----------------------------------------------------
+
+FLEET_INTERVAL_S = 1.0
+FLEET_DAEMON_INTERVAL_S = 0.1
+FLEET_EMBEDDED_INTERVAL_S = 0.05
+FLEET_POD_UID = "5a6b7c8d-9e0f-4a1b-8c2d-3e4f5a6b7c8d"
+FLEET_NAMESPACE = "fleet"
+FLEET_STRAGGLER = 7
+FLEET_SILENT = 9
+# Refreshes past each of the reference's thresholds a window allows: the
+# card's utilization counter and the daemon's push reach the hub up to a
+# refresh after the burn changes.
+FLEET_MARGIN = 2
+FLEET_PAUSE_MIN_S = 22.0    # two whole 10 s ring buckets inside the pause
+FLEET_STRAGGLE_REFRESHES = 4
+FLEET_STEADY_REFRESHES = 12
+FLEET_RATIO_TOL = 0.05
+FLEET_SPJ_TOL = 0.15
+FLEET_PUSH_DELAY_S = 0.35   # a synthetic round, after the refresh it follows
+FLEET_MAX_S = 400.0
+FLEET_HELD_BYTES = 4 << 30
+FLEET_SMI_GAP_S = 0.25
+FLEET_DOCTOR_BACKEND = "nvml"
+
+# The synthetic nodes and the recorder of the hub's generations, in a
+# process of their own (their threads then take no interpreter time from
+# the burn or from the burn's exporter, whose latency the lens scores).
+# Every generation the hub publishes: a summary line on stdout and the
+# text in a file for the conformance checker. After each generation, one
+# round: every node publishes its frozen card values with its step
+# counter advanced, and pushes, one node after the other in node order
+# (so each node's frames arrive a steady interval apart). The collector
+# runs right after each round, never inside one: in a real fleet one
+# node's collection cannot delay another node's frame. Commands on
+# stdin: "template <path> <steps per refresh>", "straggle <n>",
+# "unstraggle", "silence <n>", "unsilence", "stop".
+_FLEET_SYNTH = r"""
+import gc, json, os, re, sys, threading, time, urllib.error, urllib.request
+from kube_gpu_stats_tpu_torch import delta, schema
+from kube_gpu_stats_tpu_torch.registry import Registry, Series, SnapshotBuilder
+
+hub_url, out_dir = sys.argv[1], sys.argv[2]
+nodes, cards = int(sys.argv[3]), int(sys.argv[4])
+push_delay, namespace = float(sys.argv[5]), sys.argv[6]
+interval = float(sys.argv[7])
+ETAG = re.compile(r'^"(\w+)-(\d+)-m\d\d"$')
+COUNT = re.compile(r"^hub_refresh_duration_seconds_count (\S+)$", re.M)
+RATIO = re.compile(r'^slice_straggler_ratio\{slice="[^"]*"\} (\S+)$', re.M)
+UP = re.compile(r'^slice_target_up\{target="([^"]+)"\} (\S+)$', re.M)
+FLEET = re.compile(r"^(kts_fleet_\w+(?:\{[^}]*\})?) (\S+)$", re.M)
+CHIPS = re.compile(r'^slice_chips\{slice="[^"]*"\} (\S+)$', re.M)
+DOWN_CHIPS = re.compile(r'^accelerator_up\{[^}]*\} 0$', re.M)
+specs = {m.name: m for m in schema.PER_DEVICE_METRICS
+         if m.type is not schema.MetricType.HISTOGRAM}
+RSS = re.compile(r"^process_resident_memory_bytes (\S+)$", re.M)
+state = {"straggle": None, "silence": None, "rounds": 0, "gen": -1,
+         "detected": 0.0, "stop": False}
+lock = threading.Lock()
+detected = threading.Condition(lock)
+fleet = {}
+
+
+def out(payload):
+    sys.stdout.write(json.dumps(payload) + "\n")
+    sys.stdout.flush()
+
+
+def build(template_path, per_refresh):
+    with open(template_path) as handle:
+        mine = json.load(handle)
+    up = next(labels for name, labels, _ in mine if name == "accelerator_up")
+    mine = [row for row in mine if row[0] in specs
+            and row[0] != "accelerator_workload_steps_total"]
+    rows = {}
+    for n in range(1, nodes + 1):
+        per = []
+        for card in range(cards):
+            swap = {"uuid": f"GPU-synthetic-{n:02d}-{card}",
+                    "minor": str(card), "chip": str(card),
+                    "device_path": f"/dev/nvidia{card}",
+                    "worker": f"node-{n:02d}", "pod": f"train-{n:02d}",
+                    "namespace": namespace}
+            for name, labels, value in mine:
+                per.append((specs[name], tuple(
+                    (k, swap.get(k, v)) for k, v in labels.items()), value))
+            per.append((specs["accelerator_workload_steps_total"], tuple(
+                (k, swap.get(k, v)) for k, v in up.items()), None))
+        rows[n] = per
+    source = lambda n: f"http://node-{n:02d}.synthetic:9400/metrics"
+    for n in rows:
+        registry = Registry()
+        fleet[n] = {"rows": rows[n], "registry": registry, "steps": 0.0,
+                    "publisher": delta.DeltaPublisher(
+                        registry, hub_url, source=source(n), timeout=10.0)}
+    state["per_refresh"] = per_refresh
+
+
+def push_round():
+    with lock:
+        straggle, silence = state["straggle"], state["silence"]
+        per_refresh = state["per_refresh"]
+    t0 = time.monotonic()
+    failures = 0
+    slowest = (0.0, 0)
+    for n, node in fleet.items():
+        if n == silence:
+            continue
+        t_node = time.monotonic()
+        node["steps"] += per_refresh / 2 if n == straggle else per_refresh
+        builder = SnapshotBuilder()
+        builder.extend_series(
+            Series(spec, labels, node["steps"] if value is None else value)
+            for spec, labels, value in node["rows"])
+        node["registry"].publish(builder.build())
+        before = node["publisher"].failures_total
+        node["publisher"].push_once()
+        failures += node["publisher"].failures_total - before
+        slowest = max(slowest, (time.monotonic() - t_node, n))
+    state["rounds"] += 1
+    return time.monotonic() - t0, failures, slowest
+
+
+def pusher():
+    # One round per hub generation, on a fixed grid of the hub's interval
+    # anchored push_delay after a generation was first seen: the poll's
+    # granularity does not reach the frames' spacing. The grid re-anchors
+    # only when it strays more than 0.15 s from a detection.
+    followed, due = -1, None
+    while True:
+        with detected:
+            while state["gen"] <= followed and not state["stop"]:
+                detected.wait(1.0)
+            if state["stop"]:
+                return
+            followed, seen = state["gen"], state["detected"]
+        ideal = seen + push_delay
+        if due is None or abs(due - ideal) > 0.15:
+            due = ideal
+        time.sleep(max(0.0, due - time.monotonic()))
+        took, failures, slowest = push_round()
+        out({"round": state["rounds"], "gen": followed, "push_s": took,
+             "late_s": time.monotonic() - took - due, "failures": failures,
+             "slowest_push_s": slowest[0], "slowest_node": slowest[1]})
+        due += interval
+        gc.collect()
+
+
+def commands():
+    for line in sys.stdin:
+        words = line.split()
+        if not words:
+            continue
+        if words[0] == "template":
+            build(words[1], float(words[2]))
+            gc.collect()
+            gc.freeze()
+            push_round()
+            out({"ready": len(fleet)})
+            threading.Thread(target=pusher, daemon=True).start()
+            continue
+        with lock:
+            if words[0] == "straggle":
+                state["straggle"] = int(words[1])
+            elif words[0] == "unstraggle":
+                state["straggle"] = None
+            elif words[0] == "silence":
+                state["silence"] = int(words[1])
+            elif words[0] == "unsilence":
+                state["silence"] = None
+        if words[0] == "stop":
+            break
+        out({"ack": words, "round": state["rounds"]})
+    with detected:
+        state["stop"] = True
+        detected.notify_all()
+
+
+gc.disable()
+reader = threading.Thread(target=commands, daemon=True)
+reader.start()
+etag = ""
+while reader.is_alive():
+    request = urllib.request.Request(
+        hub_url + "/metrics", headers={"If-None-Match": etag} if etag else {})
+    try:
+        with urllib.request.urlopen(request, timeout=10) as resp:
+            text = resp.read().decode()
+            new = resp.headers.get("ETag", "")
+    except urllib.error.HTTPError:
+        new = etag                    # 304: no new generation
+    except OSError:
+        new = etag                    # the hub not up yet
+    if new and new != etag:
+        seen, mono = time.time(), time.monotonic()
+        etag = new
+        match = ETAG.match(new)
+        generation = int(match.group(2)) if match else -1
+        with detected:
+            state["gen"], state["detected"] = generation, mono
+            detected.notify_all()
+        path = os.path.join(out_dir, f"gen-{generation:06d}.prom")
+        with open(path, "w") as handle:
+            handle.write(text)
+        count = COUNT.search(text)
+        ratio = RATIO.search(text)
+        chips = CHIPS.search(text)
+        rss = RSS.search(text)
+        out({"gen": generation, "path": path, "seen": seen, "mono": mono,
+             "rss": float(rss.group(1)) if rss else None,
+             "count": float(count.group(1)) if count else 0.0,
+             "ratio": float(ratio.group(1)) if ratio else None,
+             "chips": float(chips.group(1)) if chips else 0.0,
+             "down_chips": len(DOWN_CHIPS.findall(text)),
+             "up": {t: float(v) for t, v in UP.findall(text)},
+             "fleet": dict(FLEET.findall(text))})
+    time.sleep(0.02)
+out({"stopped": state["rounds"]})
+"""
+
+# Each generation file the fleet process writes, held by validate.check against
+# the one before it, then deleted; one result line per file.
+_FLEET_CONFORM = r"""
+import json, os, sys
+from kube_gpu_stats_tpu_torch import validate
+previous = None
+for line in sys.stdin:
+    path = line.strip()
+    with open(path) as handle:
+        text = handle.read()
+    problems = validate.check(text, previous)
+    os.unlink(path)
+    previous = text
+    sys.stdout.write(json.dumps({"path": path, "problems": problems[:5]})
+                     + "\n")
+    sys.stdout.flush()
+"""
+
+
+class FleetSynth:
+    """The fleet process, its summaries as they arrive, and the
+    conformance checker the summaries feed."""
+
+    def __init__(self, hub_url: str, workdir: str) -> None:
+        gens = os.path.join(workdir, "generations")
+        os.makedirs(gens)
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _FLEET_SYNTH, hub_url, gens,
+             str(HUB_NODES - 1), str(HUB_CARDS), str(FLEET_PUSH_DELAY_S),
+             FLEET_NAMESPACE, str(FLEET_INTERVAL_S)], cwd=ROOT, stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self.conform = subprocess.Popen(
+            [sys.executable, "-c", _FLEET_CONFORM], cwd=ROOT,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        self.gens: dict[float, dict] = {}
+        self.rounds: list[dict] = []
+        self.ready = threading.Event()
+        self.stopped = threading.Event()
+        self.errors: list[str] = []
+        self.conform_lines: list[str] = []
+        self.new = threading.Condition()
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+        threading.Thread(target=self._errors, daemon=True).start()
+        threading.Thread(target=self._conformed, daemon=True).start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            payload = json.loads(line)
+            if "path" in payload:
+                self.conform.stdin.write(payload["path"] + "\n")
+                self.conform.stdin.flush()
+                with self.new:
+                    self.gens.setdefault(payload["count"], payload)
+                    self.new.notify_all()
+            elif "round" in payload and "push_s" in payload:
+                self.rounds.append(payload)
+            elif "ready" in payload:
+                self.ready.set()
+            elif "stopped" in payload:
+                self.stopped.set()
+        self.stopped.set()
+        with self.new:
+            self.new.notify_all()
+
+    def _errors(self) -> None:
+        for line in self.proc.stderr:
+            self.errors.append(line.rstrip("\n"))
+
+    def _conformed(self) -> None:
+        for line in self.conform.stdout:
+            self.conform_lines.append(line)
+
+    def command(self, text: str) -> None:
+        self.proc.stdin.write(text + "\n")
+        self.proc.stdin.flush()
+
+    def newest(self) -> float:
+        return max(self.gens, default=0.0)
+
+    def wait(self, predicate, after: float, limit: int, what: str
+             ) -> dict:
+        """The first generation of the ``limit`` refreshes after refresh
+        ``after`` that satisfies ``predicate``; fails when none does."""
+        seen = after
+        with self.new:
+            while True:
+                for count in sorted(c for c in self.gens if c > seen):
+                    require(count - after <= limit,
+                            f"fleet: {what} not seen within {limit} "
+                            f"refreshes of refresh {after:g}")
+                    gen = self.gens[count]
+                    if predicate(gen):
+                        return gen
+                    seen = count
+                require(not self.stopped.is_set() and self.proc.poll()
+                        is None and self._reader.is_alive(),
+                        f"fleet: the fleet process ended: {self.errors[-20:]}")
+                self.new.wait(timeout=5.0)
+
+    def refreshes(self, n: int) -> dict:
+        """The generation ``n`` refreshes after the newest one now."""
+        start = self.newest()
+        return self.wait(lambda g: g["count"] >= start + n, start, n,
+                         f"{n} refreshes")
+
+    def gaps(self, first: float, last: float) -> list[float]:
+        """Refresh counts in [first, last] this recorder did not see."""
+        return [c for c in range(int(first), int(last) + 1)
+                if float(c) not in self.gens]
+
+    def close(self) -> dict:
+        if self.proc.poll() is None:
+            try:
+                self.command("stop")
+            except OSError:
+                pass
+        try:
+            self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+        self.stopped.wait(timeout=10)
+        self.conform.stdin.close()
+        self.conform.wait(timeout=120)
+        time.sleep(0.2)
+        problems = [json.loads(line) for line in self.conform_lines]
+        return {"checked": len(problems),
+                "failed": [p for p in problems if p["problems"]][:3]}
+
+
+def fleet_diagnostics(hub_url: str, synth: "FleetSynth") -> None:
+    """What a failing window leaves to read: the hub's fleet journal,
+    each flagged target's signals, and the fleet process's rounds; one
+    ``fleet_diag`` line, the whole of it under chiprun_out/."""
+    try:
+        status, body, _ = fetch(f"{hub_url}/debug/events")
+        events = [(e["kind"], e["tick_seq"], e["attrs"])
+                  for e in json.loads(body)["events"]
+                  if e["kind"].startswith("fleet_")]
+        status, body, _ = fetch(f"{hub_url}/debug/fleet")
+        rollup = json.loads(body)
+        flagged = {a.get("target") for _k, _s, a in events if a.get("target")}
+        signals = {t: rollup["targets"].get(t, {}).get("signals")
+                   for t in sorted(t for t in flagged if t)}
+        diag = {"events": events, "signals": signals,
+                "rounds": synth.rounds[-60:],
+                "counts": [(g["count"], g["mono"]) for g in
+                           [synth.gens[c] for c in sorted(synth.gens)]]}
+        os.makedirs(ROOT / "chiprun_out", exist_ok=True)
+        with open(ROOT / "chiprun_out" / "fleet_diag.json", "w") as handle:
+            json.dump(diag, handle)
+        emit("fleet_diag", {"events": events[-40:],
+                            "rounds": synth.rounds[-15:]})
+    except Exception as exc:  # noqa: BLE001 - evidence only
+        print(f"fleet diagnostics unreadable: {exc}", file=sys.stderr)
+
+
+def fleet_value(gen: dict, name: str, **labels) -> float | None:
+    """One kts_fleet_* value of a generation summary by its labels."""
+    for key, value in gen["fleet"].items():
+        head, _, raw = key.partition("{")
+        if head != name:
+            continue
+        got = dict(validate._tokenize_labels(raw[:-1])) if raw else {}
+        if all(got.get(k) == v for k, v in labels.items()):
+            return float(value)
+    return None
+
+
+class CardPods:
+    """The burn's exporter's pod labels: the kubelet checkpoint's pod for
+    each CUDA card, by the card's UUID — the join the daemon's checkpoint
+    attribution makes for the same card, so both exporters' rows of the
+    card carry the burn's pod."""
+
+    def __init__(self, path: str) -> None:
+        from kube_gpu_stats_tpu_torch.attribution.checkpoint import (
+            CheckpointSource)
+
+        self.table = CheckpointSource(path).fetch()
+
+    def lookup(self, device) -> dict:
+        if not device.device_path.startswith("/dev/nvidia"):
+            return {}
+        return dict(self.table.get(
+            embedded.cuda_uuid(torch.device("cuda", device.index)), {}))
+
+
+def fleet_exporter(checkpoint: str):
+    """The burn's embedded exporter, its poll loop given the card's pod."""
+    from kube_gpu_stats_tpu_torch.poll import PollLoop
+    from kube_gpu_stats_tpu_torch.topology import topology_labels
+
+    exporter = embedded.EmbeddedExporter(
+        port=0, interval=FLEET_EMBEDDED_INTERVAL_S)
+    exporter.poll.stop()
+    exporter.poll = PollLoop(
+        exporter.collector, exporter.registry,
+        interval=FLEET_EMBEDDED_INTERVAL_S, deadline=5.0,
+        topology_labels=topology_labels(), version="embedded",
+        render_stats=exporter.render_stats.contribute,
+        attribution=CardPods(checkpoint))
+    return exporter.start()
+
+
+class SmiPower:
+    """``nvidia-smi``'s power.draw for card 0 every FLEET_SMI_GAP_S, each
+    reading with its own timestamp, from one ``nvidia-smi -lms`` process
+    (a process forked per reading would hold this process's interpreter
+    lock through each fork and idle the burn's card meanwhile)."""
+
+    def __init__(self) -> None:
+        self.rows: list[tuple[float, float]] = []
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "-i", "0", "--query-gpu=timestamp,power.draw",
+             "--format=csv,noheader,nounits", "-lms",
+             str(int(FLEET_SMI_GAP_S * 1e3))],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+    def stop(self) -> None:
+        import datetime
+
+        if self.proc.poll() is None:
+            self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        for line in out.splitlines():
+            try:
+                stamp, watts = line.split(",")
+                self.rows.append((datetime.datetime.strptime(
+                    stamp.strip(), "%Y/%m/%d %H:%M:%S.%f").timestamp(),
+                    float(watts)))
+            except ValueError:  # "[N/A]" or a cut line
+                continue
+
+    def mean(self, t0: float, t1: float) -> float:
+        """Mean draw over [t0, t1], wall clock (after ``stop``)."""
+        values = [w for t, w in self.rows if t0 <= t <= t1]
+        require(values, "fleet: no nvidia-smi power reading in the window")
+        return statistics.fmean(values)
+
+
+def fleet_doctor(port: int, *flags: str, key: str | None = None
+                 ) -> tuple[int, dict]:
+    """``doctor`` against the hub: exit code, rows by name."""
+    cmd = [sys.executable, "-m", "kube_gpu_stats_tpu_torch", "doctor",
+           "--backend", FLEET_DOCTOR_BACKEND, "--attribution", "off",
+           "--interval", "0.1",
+           "--json", "--url", f"http://127.0.0.1:{port}/metrics", *flags]
+    if key is not None:
+        cmd += ["--energy-audit-key", key]
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    try:
+        payload = json.loads(proc.stdout)
+    except ValueError:
+        raise RuntimeError(f"fleet: doctor {flags}: {proc.stdout[-500:]} "
+                           f"{proc.stderr[-1500:]}")
+    return proc.returncode, {row["name"]: row for row in payload["checks"]}
+
+
+def ring_bucket_inside(t0: float, t1: float, step: float = 10.0) -> float:
+    """The middle of the ring bucket of ``step`` seconds that lies most
+    inside [t0, t1] (wall clock)."""
+    best, best_cover = t0, -1.0
+    start = math.floor(t0 / step) * step
+    while start < t1:
+        cover = min(t1, start + step) - max(t0, start)
+        if cover > best_cover:
+            best, best_cover = start + step / 2, cover
+        start += step
+    return best
+
+
+def slowest_values(texts, phase: str) -> set[str]:
+    """The rendered kts_slowest_tick_seconds values of ``phase`` in a
+    node's own scrapes."""
+    out = set()
+    for text in texts:
+        for name, labels, value in value_strings(text):
+            if (name == schema.SLOWEST_TICK_SECONDS.name
+                    and labels.get("phase") == phase):
+                out.add(value)
+    return out
+
+
+def hub_trace_ms(port: int) -> tuple[list[float], list[float]]:
+    """(whole-refresh ms, fleet_score ms) of the hub's recorded cycles."""
+    status, body, _ = fetch(f"http://127.0.0.1:{port}/debug/trace?last=128")
+    require(status == 200, f"hub /debug/trace answered {status}")
+    events = json.loads(body)["traceEvents"]
+    cycles = [e["dur"] / 1e3 for e in events if e.get("cat") == "cycle"]
+    score = [e["dur"] / 1e3 for e in events
+             if e.get("name") == "fleet_score" and "dur" in e]
+    return cycles, score
+
+
+def fleet_card_uuid() -> str:
+    return "GPU-" + str(torch.cuda.get_device_properties(0).uuid)
+
+
+def fleet_hold():
+    """Memory the burn keeps on the card through its pause, so the pause
+    idles the card without releasing its reservation."""
+    return torch.empty(FLEET_HELD_BYTES, dtype=torch.uint8, device="cuda")
+
+
+class FleetStop(Exception):
+    """Raised by the fleet burn's step hook to end its one run_burn."""
+
+
+def fleet_burn(record) -> None:
+    """One ``cuda`` burn for the whole phase (a burn started anew would
+    idle the card between runs, which its duty shows), steered from its
+    step hook: the hook blocks to pause it with its tensors held and
+    raises FleetStop to end it."""
+    try:
+        run_burn(seconds=FLEET_MAX_S, size=MAIN_SIZE, report_every=1e9,
+                 kernel="cuda", device="cuda:0", step_hook=record)
+    except FleetStop:
+        torch.cuda.synchronize()
+        return
+    raise RuntimeError(f"the fleet phase did not end in {FLEET_MAX_S} s")
+
+
+def phase_fleet(card_line: str) -> int:
+    """The fleet lens on the hub at the hub phase's scale, on card 0: the
+    hub with the lens and efficiency at their defaults, an audit key and
+    the history ring; the NVML daemon at 10 Hz as node-00 pushing, with
+    the kubelet checkpoint that gives card 0 to the burn's pod; the
+    ``cuda`` burn in this process with its exporter pulled; 63 synthetic
+    8-card nodes, each its own pod, in a process of their own. Windows: a
+    warm-up; the burn paused with its tensors held (idle reservation); the
+    burn stepping without recording steps (low goodput); one synthetic
+    worker at half rate (straggler) and then one silent; the doctor's
+    lens rows live and after the fact; the signed attestation; the lens's
+    cost. Returns the kernel launches."""
+    from kube_gpu_stats_tpu_torch import efficiency as efficiency_mod
+    from kube_gpu_stats_tpu_torch import energy, fleetlens
+
+    workdir = tempfile.mkdtemp(prefix="kts-fleet-")
+    uuid = fleet_card_uuid()
+    checkpoint = os.path.join(workdir, "kubelet_internal_checkpoint")
+    kubelet_checkpoint(checkpoint, uuid, FLEET_POD_UID)
+    key = base64.b16encode(os.urandom(16)).decode()
+    targets_file = os.path.join(workdir, "targets.txt")
+    warmup = efficiency_mod.DEFAULT_WARMUP_REFRESHES
+    idle = efficiency_mod.DEFAULT_IDLE_REFRESHES
+    clear = efficiency_mod.CLEAR_REFRESHES
+    misses = fleetlens.FRESHNESS_MISS_THRESHOLD
+    saved_env = {k: os.environ.get(k) for k in ("KTS_SLICE", "KTS_WORKER")}
+    os.environ["KTS_SLICE"], os.environ["KTS_WORKER"] = HUB_SLICE, "node-00"
+    held = fleet_hold()
+    exporter = fleet_exporter(checkpoint)
+    embedded_rec = PublishRecorder(exporter.registry, keep=200)
+    embedded_url = f"http://127.0.0.1:{exporter.port}/metrics"
+    with open(targets_file, "w") as handle:
+        handle.write(f"{embedded_url}\n")
+    daemon_port = free_port()
+    daemon_source = f"http://127.0.0.1:{daemon_port}/metrics"
+    node = lambda n: f"http://node-{n:02d}.synthetic:9400/metrics"
+    node00 = {embedded_url, daemon_source}
+    mode = {"burn": "run"}
+    out: dict = {"card": card_line}
+    failure: list = []
+    steps_log: list = [(time.monotonic(), 0)]
+    hub_proc = daemon_proc = synth = smi = None
+    hook = StepCounter()
+
+    def record(n: int, *, seconds: float, flops: float) -> None:
+        """The burn's step hook, every 32 steps: forwards them to the
+        exporter (``run``), keeps them to itself (``nosteps``: the card
+        busy, no step recorded), holds the burn (``pause``: what is
+        queued drains, the tensors stay), or ends it (``stop``)."""
+        hook(n, seconds=seconds, flops=flops)
+        if mode["burn"] == "run":
+            exporter.record_step(n, seconds=seconds, flops=flops)
+            steps_log.append((time.monotonic(), hook.steps))
+        while mode["burn"] == "pause":
+            time.sleep(0.01)
+        if mode["burn"] == "stop":
+            raise FleetStop
+
+    def burn_rate(t0: float, t1: float) -> float:
+        log_ = [(t, s) for t, s in list(steps_log) if t0 <= t <= t1]
+        require(len(log_) >= 2, "fleet: no steps recorded in the window")
+        return (log_[-1][1] - log_[0][1]) / (log_[-1][0] - log_[0][0])
+
+    try:
+        hub_port = free_port()
+        hub_url = f"http://127.0.0.1:{hub_port}"
+        synth = FleetSynth(hub_url, workdir)
+        t_start = time.monotonic()
+        hub_proc, hub_port, hub_log = start_hub(
+            ["--interval", str(FLEET_INTERVAL_S), "--expect-workers",
+             str(HUB_NODES), "--targets-file", targets_file,
+             "--energy-audit-key", key], hub_port)
+        out["hub_start_s"] = time.monotonic() - t_start
+        daemon_proc, port, log = start_daemon(workdir, (
+            "--interval", str(FLEET_DAEMON_INTERVAL_S), "--textfile-dir", "",
+            "--listen-port", str(daemon_port), "--hub-url", hub_url,
+            "--hub-push-source", daemon_source, "--hub-push-interval",
+            "0.01", "--attribution", "checkpoint", "--checkpoint-path",
+            checkpoint, "--energy-audit-key", key))
+        smi = SmiPower()
+        with DaemonWatcher(daemon_proc, port, log, conform=True,
+                           keep_texts=True) as watch:
+
+            def journal(kinds: tuple) -> list[dict]:
+                status, body, _ = fetch(f"{hub_url}/debug/events")
+                require(status == 200, f"hub /debug/events {status}")
+                return [e for e in json.loads(body)["events"]
+                        if e["kind"] in kinds]
+
+            def fleet_payload() -> dict:
+                status, body, _ = fetch(f"{hub_url}/debug/fleet")
+                require(status == 200, f"hub /debug/fleet {status}")
+                return json.loads(body)
+
+            def waste(gen: dict, reason: str) -> float | None:
+                return fleet_value(gen, schema.FLEET_WASTE_SUSPECT.name,
+                                   pod=FLEET_POD_UID, reason=reason)
+
+            def controller() -> None:
+                try:
+                    windows(out)
+                except Exception as exc:  # noqa: BLE001 - re-raised
+                    failure.append(exc)
+                    fleet_diagnostics(hub_url, synth)
+                finally:
+                    mode["burn"] = "stop"
+
+            def windows(out: dict) -> None:
+                # The pod owns the card once both exporters' first
+                # attribution has landed in the daemon's scrape.
+                deadline = time.monotonic() + 30
+                while not any(f'pod="{FLEET_POD_UID}"' in text
+                              for text in list(watch.texts.values())[-3:]):
+                    require(time.monotonic() < deadline,
+                            "fleet: the daemon never served the pod")
+                    time.sleep(0.1)
+                t_rate = time.monotonic()
+                time.sleep(3.0)
+                rate = burn_rate(t_rate, time.monotonic())
+                out["burn_steps_per_s_start"] = rate
+                # The synthetic nodes' frozen card: the daemon's card 0
+                # as it serves it under the burn.
+                newest = watch.texts[max(watch.texts)]
+                template = [
+                    (name, labels, value) for name, labels, value
+                    in validate.parse_exposition(newest)
+                    if labels.get("uuid") == uuid]
+                path = os.path.join(workdir, "template.json")
+                with open(path, "w") as handle:
+                    json.dump(template, handle)
+                synth.command(f"template {path} {rate * FLEET_INTERVAL_S}")
+                require(synth.ready.wait(60),
+                        f"fleet: the synthetic nodes never started: "
+                        f"{synth.errors[-20:]}")
+                # 1. Warm-up: every pod seen past the waste warm-up.
+                c0 = synth.newest()
+                gen = synth.wait(lambda g: g["count"] >= c0 + warmup + 1,
+                                  c0, warmup + 1, "the warm-up")
+                raised = journal(("fleet_anomaly", "fleet_waste"))
+                out["warmup"] = {
+                    "refreshes": gen["count"] - c0,
+                    "anomalous": fleet_value(
+                        gen, schema.FLEET_TARGETS_ANOMALOUS.name),
+                    "raised": [(e["attrs"].get("target"),
+                                e["attrs"].get("anomaly"),
+                                e["attrs"].get("z"))
+                               for e in raised]}
+                require(not raised and fleet_value(
+                    gen, schema.FLEET_TARGETS_ANOMALOUS.name) == 0.0,
+                    f"fleet: the warm-up raised {out['warmup']}")
+                # 2. The idle reservation.
+                t_pause, wall_pause = time.monotonic(), time.time()
+                c_pause = synth.newest()
+                mode["burn"] = "pause"
+                gen = synth.wait(
+                    lambda g: waste(g, "idle-reservation") == 1.0,
+                    c_pause, idle + FLEET_MARGIN, "idle-reservation")
+                out["idle_after"] = gen["count"] - c_pause
+                wall_idle = gen["seen"]
+                while time.monotonic() - t_pause < FLEET_PAUSE_MIN_S:
+                    time.sleep(0.1)
+                c_resume, wall_resume = synth.newest(), time.time()
+                mode["burn"] = "run"
+                gen = synth.wait(
+                    lambda g: waste(g, "idle-reservation") == 0.0,
+                    c_resume, clear + FLEET_MARGIN, "the waste cleared")
+                out["idle_cleared_after"] = gen["count"] - c_resume
+                wall_cleared = gen["seen"]
+                events = journal(("fleet_anomaly", "fleet_recovered",
+                                  "fleet_waste", "fleet_waste_cleared"))
+                raised = [e for e in events if e["kind"] == "fleet_anomaly"]
+                out["idle_raised"] = sorted(
+                    (e["attrs"]["target"], e["attrs"]["anomaly"])
+                    for e in raised)
+                duty = [e for e in raised
+                        if e["attrs"]["target"] == daemon_source
+                        and e["attrs"]["anomaly"] == "duty"]
+                require(len(duty) == 1, f"fleet: node-00's duty anomaly "
+                                        f"raised {len(duty)} times")
+                require(all(e["attrs"]["target"] in node00 for e in raised),
+                        f"fleet: the pause flagged other targets: "
+                        f"{out['idle_raised']}")
+                wastes = [e for e in events if e["kind"] == "fleet_waste"]
+                require([(e["attrs"]["pod"], e["attrs"]["reason"])
+                         for e in wastes]
+                        == [(FLEET_POD_UID, "idle-reservation")],
+                        f"fleet: waste verdicts {wastes}")
+                require(fleet_value(gen, schema.FLEET_ANOMALIES.name,
+                                    target=daemon_source, kind="duty")
+                        == 1.0, "fleet: kts_fleet_anomalies_total for "
+                                "node-00's duty is not 1")
+                cleared = [e for e in events
+                           if e["kind"] == "fleet_waste_cleared"]
+                require(len(cleared) == 1, f"fleet: {cleared}")
+                duty_back = [e for e in journal(("fleet_recovered",))
+                             if e["attrs"]["target"] == daemon_source
+                             and e["attrs"]["anomaly"] == "duty"]
+                require(duty_back and duty_back[0]["id"]
+                        < cleared[0]["id"],
+                        "fleet: node-00's duty not recovered before the "
+                        "waste cleared")
+                out["pause"] = (wall_pause, wall_resume)
+                out["waste_active"] = (wall_idle, wall_cleared)
+                # 3. Low goodput: GEMMs, no steps recorded.
+                c_flat = synth.newest()
+                mode["burn"] = "nosteps"
+                gen = synth.wait(lambda g: waste(g, "low-goodput") == 1.0,
+                                  c_flat, idle + FLEET_MARGIN,
+                                  "low-goodput")
+                out["flat_after"] = gen["count"] - c_flat
+                c_steps = synth.newest()
+                mode["burn"] = "run"
+                gen = synth.wait(lambda g: waste(g, "low-goodput") == 0.0,
+                                  c_steps, clear + FLEET_MARGIN,
+                                  "low-goodput cleared")
+                out["flat_cleared_after"] = gen["count"] - c_steps
+                wastes = journal(("fleet_waste",))
+                require([e["attrs"]["reason"] for e in wastes]
+                        == ["idle-reservation", "low-goodput"],
+                        f"fleet: waste verdicts {wastes}")
+                # 4. The straggler.
+                synth.command(f"straggle {FLEET_STRAGGLER}")
+                c_straggle = synth.newest()
+                gens = []
+                while len(gens) < FLEET_STRAGGLE_REFRESHES:
+                    gen = synth.wait(lambda g: True,
+                                      c_straggle + len(gens), 1,
+                                      "a straggler refresh")
+                    gens.append(gen)
+                ratios = [g["ratio"] for g in gens[1:]]
+                out["straggler_ratios"] = ratios
+                require(all(r is not None
+                            and abs(r - 0.5) <= FLEET_RATIO_TOL
+                            for r in ratios),
+                        f"fleet: slice_straggler_ratio {ratios}")
+                # 5. The silent node (the straggler still straggling).
+                synth.command(f"silence {FLEET_SILENT}")
+                c_silent = synth.newest()
+                silent = node(FLEET_SILENT)
+                down = []
+
+                def third_miss(g: dict) -> bool:
+                    if g["up"].get(silent) == 0.0:
+                        down.append(g["count"])
+                    return len(down) == misses
+
+                # The push fence (three intervals) before the first miss.
+                gen = synth.wait(third_miss, c_silent, misses + 5,
+                                  "the third missed refresh")
+                require(synth.gaps(down[0], gen["count"]) == [],
+                        "fleet: the recorder missed a refresh")
+                before = synth.gens.get(gen["count"] - 1, {})
+                out["freshness"] = {
+                    "misses": down,
+                    "raised_at_third": fleet_value(
+                        gen, schema.FLEET_ANOMALIES.name, target=silent,
+                        kind="freshness"),
+                    "before_third": fleet_value(
+                        before, schema.FLEET_ANOMALIES.name, target=silent,
+                        kind="freshness") if before else None}
+                require(out["freshness"]["raised_at_third"] == 1.0
+                        and not out["freshness"]["before_third"],
+                        f"fleet: freshness {out['freshness']}")
+                # 7. The doctor against the hub, live.
+                out["doctor_fleet"] = fleet_doctor(hub_port, "--fleet")
+                synth.command("unsilence")
+                synth.command("unstraggle")
+                c_back = synth.newest()
+                gen = synth.wait(lambda g: g["up"].get(silent) == 1.0,
+                                  c_back, FLEET_MARGIN,
+                                  "the silent node back")
+                back = [e for e in journal(("fleet_recovered",))
+                        if e["attrs"]["target"] == silent
+                        and e["attrs"]["anomaly"] == "freshness"]
+                require(back, "fleet: the silent node's freshness did not "
+                              "clear")
+                # A steady stretch, for the rate and cost readings.
+                t_steady, wall_steady = time.monotonic(), time.time()
+                gen = synth.refreshes(FLEET_STEADY_REFRESHES)
+                t_end = time.monotonic()
+                payload = fleet_payload()
+                out["steady"] = {"gen": gen, "fleet": payload,
+                                 "wall": (wall_steady, time.time()),
+                                 "burn": burn_rate(t_steady, t_end)}
+                # 7. The rest of the doctor, and the look back.
+                out["doctor_eff"] = fleet_doctor(hub_port, "--efficiency",
+                                                 key=key)
+                out["doctor_eff_wrong"] = fleet_doctor(
+                    hub_port, "--efficiency", key=key + "x")
+                out["doctor_eff_nokey"] = fleet_doctor(hub_port,
+                                                       "--efficiency")
+                t_fleet_at = ring_bucket_inside(*out["pause"])
+                t_eff_at = ring_bucket_inside(*out["waste_active"])
+                out["at"] = (t_fleet_at, t_eff_at)
+                out["doctor_fleet_at"] = fleet_doctor(
+                    hub_port, "--fleet", "--at", repr(t_fleet_at))
+                out["doctor_eff_at"] = fleet_doctor(
+                    hub_port, "--efficiency", "--at", repr(t_eff_at))
+                # 8. The attestation.
+                t0 = time.perf_counter()
+                status, body, _ = fetch(f"{hub_url}/debug/efficiency")
+                out["efficiency_ms"] = (time.perf_counter() - t0) * 1e3
+                require(status == 200, f"/debug/efficiency {status}")
+                out["attestation"] = json.loads(body)
+                status, body, _ = fetch(f"http://127.0.0.1:{port}"
+                                        f"/debug/energy")
+                out["daemon_digest"] = json.loads(body)
+                out["trace"] = hub_trace_ms(hub_port)
+                out["final_gen"] = synth.gens[synth.newest()]
+                out["payload_end"] = fleet_payload()
+
+            thread = threading.Thread(target=controller, daemon=True)
+            tiled_burn.launches = 0
+            thread.start()
+            fleet_burn(record)
+            launches = tiled_burn.launches
+            thread.join(timeout=60)
+            require(not failure, f"the fleet phase failed: {failure}")
+            out["daemon_texts"] = dict(watch.texts)
+        out["daemon_rc"], _ = stop_with_stacks(daemon_proc, log)
+    finally:
+        if smi is not None:
+            smi.stop()
+        if daemon_proc is not None and "daemon_rc" not in out:
+            stop_with_stacks(daemon_proc, log)
+        conform = synth.close() if synth is not None else None
+        if hub_proc is not None:
+            out["hub_rc"], _ = stop_with_stacks(hub_proc, hub_log)
+        exporter.stop()
+        del held
+        for key_, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key_, None)
+            else:
+                os.environ[key_] = value
+    # One launch before the loop, one per step queued; the steps of at
+    # most two 32-step batches were queued but not yet reported when the
+    # hook ended the burn.
+    require(0 <= launches - 1 - hook.steps <= 64,
+            f"fleet: {launches} launches for {hook.steps} steps reported")
+    require(out.get("hub_rc") == 0, f"fleet: the hub exited "
+                                    f"{out.get('hub_rc')}: {hub_log[-20:]}")
+    require(out.get("daemon_rc") == 0,
+            f"fleet: the daemon exited {out.get('daemon_rc')}")
+    require(conform["checked"] >= len(synth.gens) and not conform["failed"],
+            f"fleet: the hub's scrapes against the contract: {conform}")
+    out["steady"]["power_w"] = smi.mean(*out["steady"]["wall"])
+    row = fleet_checks(out, synth, embedded_rec, daemon_source,
+                       embedded_url, node, key)
+    row.update(launches=launches, conform_checked=conform["checked"])
+    emit("fleet", row)
+    return launches
+
+
+def fleet_checks(out: dict, synth: FleetSynth, embedded_rec,
+                 daemon_source: str, embedded_url: str, node, key: str
+                 ) -> dict:
+    """Windows 4-9 from what the phase read: the SLO windows against the
+    refreshes this script saw, slow-node attribution, the doctor's rows,
+    the attestation, the lens's cost and its steps per joule."""
+    from kube_gpu_stats_tpu_torch import energy, fleetlens
+
+    gens = [synth.gens[c] for c in sorted(synth.gens)]
+    first, last = gens[0]["count"], gens[-1]["count"]
+    end = out["final_gen"]
+    gaps = synth.gaps(1, end["count"])
+    require(not gaps, f"fleet: the recorder missed refreshes {gaps[:10]}")
+    # 4. The straggler SLO: the refreshes with a ratio, bad below the
+    # objective's minimum, against the lens's windows (the phase is
+    # shorter than the 5m window: both hold every refresh).
+    upto = [g for g in gens if g["count"] <= end["count"]]
+    with_ratio = [g["ratio"] for g in upto if g["ratio"] is not None]
+    bad = sum(1 for r in with_ratio if r < fleetlens.DEFAULT_STRAGGLER_RATIO)
+    want = round(bad / len(with_ratio), 6)
+    budget = 1.0 - fleetlens.DEFAULT_STRAGGLER_TARGET
+    slo = {}
+    for window in ("5m", "1h"):
+        got = fleet_value(end, schema.FLEET_SLO_BAD.name,
+                          objective="straggler", window=window)
+        burn = fleet_value(end, schema.FLEET_SLO_BURN.name,
+                           objective="straggler", window=window)
+        slo[window] = (got, burn)
+        require(got == want and burn == round(want / budget, 3),
+                f"fleet: straggler SLO {window} {got}/{burn}, counted "
+                f"{bad} of {len(with_ratio)} = {want}")
+    # 5. The freshness SLO: the silent node's 8 last-known cards burn in
+    # each refresh it missed.
+    payload = out["payload_end"]
+    windows = payload["slo"]["freshness"]["windows"]
+    missed = [g for g in upto if g["up"].get(node(FLEET_SILENT)) == 0.0]
+    other_down = sum(1 for g in upto for t, v in g["up"].items()
+                     if v == 0.0 and t != node(FLEET_SILENT))
+    stale = sum(g["down_chips"] for g in upto)
+    fresh_bad = round(windows["1h"]["bad_ratio"] * windows["1h"]["events"])
+    require(other_down == 0 and fresh_bad == HUB_CARDS * len(missed) + stale,
+            f"fleet: freshness burn {windows['1h']} for {len(missed)} "
+            f"missed refreshes of {HUB_CARDS} cards, {stale} stale, "
+            f"{other_down} other misses")
+    # 6. Slow-node attribution: node-00 (its daemon or its exporter),
+    # the value its own scrape serves.
+    worst = {k: v for k, v in end["fleet"].items()
+             if k.startswith(schema.FLEET_WORST_TICK.name + "{")}
+    require(len(worst) == 1, f"fleet: worst tick {worst}")
+    (raw, value), = worst.items()
+    labels = dict(validate._tokenize_labels(raw.partition("{")[2][:-1]))
+    texts = (list(out["daemon_texts"].values())[-300:]
+             if labels["target"] == daemon_source
+             else embedded_rec.texts()[-200:])
+    require(labels["target"] in (daemon_source, embedded_url)
+            and value in slowest_values(texts, labels["phase"]),
+            f"fleet: worst tick {labels} {value} is not node-00's own")
+    targets = payload["targets"]
+    digests = sorted(t for t, e in targets.items() if e.get("digest"))
+    require(set(digests) <= {daemon_source, embedded_url},
+            f"fleet: digests from {digests}")
+    # 7. The doctor.
+    rc, rows = out["doctor_fleet"]
+    detail = rows["fleet"]["detail"]
+    require(rows["fleet"]["status"] == "warn"
+            and node(FLEET_STRAGGLER) in detail
+            and node(FLEET_SILENT) in detail
+            and f"worst node: {labels['target']}" in detail,
+            f"fleet: doctor --fleet {rc} {rows['fleet']}")
+    rc, rows = out["doctor_eff"]
+    require(rows["efficiency"]["status"] == "ok",
+            f"fleet: doctor --efficiency {rc} {rows['efficiency']}")
+    rc, rows = out["doctor_eff_wrong"]
+    require(rc == 1 and rows["efficiency"]["status"] == "fail",
+            f"fleet: doctor --efficiency, wrong key: {rows['efficiency']}")
+    rc, rows = out["doctor_eff_nokey"]
+    require(rows["efficiency"]["status"] == "warn",
+            f"fleet: doctor --efficiency, no key: {rows['efficiency']}")
+    rc, rows = out["doctor_fleet_at"]
+    require(rows["fleet-at"]["status"] == "warn"
+            and "straggler worker node-00" in rows["fleet-at"]["detail"],
+            f"fleet: doctor --fleet --at {rows['fleet-at']}")
+    rc, rows = out["doctor_eff_at"]
+    require(rows["efficiency-at"]["status"] == "warn"
+            and f"/{FLEET_POD_UID} was wasting chips (idle-reservation"
+            in rows["efficiency-at"]["detail"],
+            f"fleet: doctor --efficiency --at {rows['efficiency-at']}")
+    # 8. The attestation.
+    att = out["attestation"]
+    leaves = att["leaves"]
+    leaf = leaves.get(daemon_source)
+    require(leaf is not None and energy.verify_payload(leaf, key)
+            and set(leaf) == set(out["daemon_digest"]),
+            f"fleet: node-00's leaf {str(leaf)[:300]}")
+    joules = round(sum(float(row[2]) for d in leaves.values()
+                       if "error" not in d for row in d.get("per_pod") or []
+                       if len(row) >= 3), 6)
+    stubs = [t for t, d in leaves.items() if "error" in d]
+    require(energy.verify_payload(att, key)
+            and abs(att["totals"]["joules"] - joules) <= 1e-6
+            and len(leaves) == 8 and len(stubs) == 7
+            and att["totals"]["targets_total"] == HUB_NODES + 1,
+            f"fleet: attestation totals {att['totals']}, {len(stubs)} "
+            f"stubs")
+    # 9. Cost and fidelity.
+    steady = out["steady"]
+    pods = steady["fleet"]["efficiency"]["pods"]
+    pod = pods.get(f"/{FLEET_POD_UID}") or {}
+    spj = pod.get("steps_per_joule")
+    want_spj = steady["burn"] / steady["power_w"]
+    require(spj is not None and abs(spj / want_spj - 1) <= FLEET_SPJ_TOL,
+            f"fleet: steps per joule {spj} vs {want_spj}")
+    cycles, score = out["trace"]
+    rss = end.get("rss")
+    return {
+        "card": out["card"], "nodes": HUB_NODES, "cards": HUB_NODES
+        * HUB_CARDS - HUB_CARDS + 2, "targets": HUB_NODES + 1,
+        "refreshes": last - first + 1,
+        "warmup": out["warmup"], "idle_after": out["idle_after"],
+        "idle_cleared_after": out["idle_cleared_after"],
+        "idle_raised": out["idle_raised"],
+        "flat_after": out["flat_after"],
+        "flat_cleared_after": out["flat_cleared_after"],
+        "straggler_ratios": out["straggler_ratios"],
+        "straggler_slo": {"bad": bad, "refreshes": len(with_ratio),
+                          "windows": slo},
+        "freshness": out["freshness"], "freshness_1h": windows["1h"],
+        "worst": [labels, value],
+        "doctor_fleet": out["doctor_fleet"][1]["fleet"]["detail"][:400],
+        "doctor_at": [out["doctor_fleet_at"][1]["fleet-at"]["detail"][:300],
+                      out["doctor_eff_at"][1]["efficiency-at"]["detail"][
+                          :300]],
+        "attestation": {"totals": att["totals"],
+                        "ms": out["efficiency_ms"]},
+        "fleet_score_ms": {"p50": statistics.median(score),
+                           "max": max(score), "n": len(score)},
+        "refresh_ms": {"p50": statistics.median(cycles),
+                       "max": max(cycles), "n": len(cycles)},
+        "hub_rss_mib": rss / MIB if rss else None,
+        "steps_per_joule": {"lens": spj, "burn_over_smi": want_spj,
+                            "burn_steps_per_s": steady["burn"],
+                            "smi_power_w": steady["power_w"]},
+        "push_round_s": statistics.median(r["push_s"]
+                                          for r in synth.rounds),
+        "push_failures": sum(r["failures"] for r in synth.rounds),
+    }
+
+
 def library_call():
     """The yardstick: one PyTorch call computing the same function. Returns
     (name, fn(a, b))."""
@@ -5087,6 +6162,7 @@ def phases() -> None:
     launches += phase_energy(card, c5_tick_ms)
     launches += phase_egress(card, c5_tick_ms)
     launches += phase_hub(card, c5_tick_ms, cuda_steps_per_s)
+    launches += phase_fleet(card)
     t = phase_timing(card)
     emit("kernels", [{
         "name": KERNEL_NAME, "route": "cuda", "source": KERNEL_SOURCE,
@@ -5104,6 +6180,7 @@ ALONE = {
     "energy": lambda card: phase_energy(card, {}),
     "egress": lambda card: phase_egress(card, {}),
     "hub": lambda card: phase_hub(card, {}, 0.0),
+    "fleet": phase_fleet,
 }
 
 

@@ -25,11 +25,13 @@ sampler (``burstsampler.py``); the per-pod energy accountant
 1.0/2.0, the Pushgateway pusher); the slice hub (``hub.py``: delta
 ingest with its lanes, admission guards and warm-restart checkpoint,
 the series accountant, the merged exposition with slice rollups, the
-history ring behind ``/query`` and the SO_REUSEPORT ingest processes)
-and ``top``; the H100 deploy assets (``deploy/``); and the entry points
-(``entry.py``). The daemon, hub, top and doctor paths import no torch.
-Still off in the hub: the fleet lens, efficiency scoring, and the
-native frame fold and slot store (the Python paths always run).
+history ring behind ``/query``, the SO_REUSEPORT ingest processes, and
+the fleet lens: per-target baselines, slow-node attribution, SLO burn
+windows, the link localizer and the efficiency lens with its signed
+attestation) and ``top``; the H100 deploy assets (``deploy/``); and the
+entry points (``entry.py``). The daemon, hub, top and doctor paths
+import no torch. Still off in the hub: the native frame fold and slot
+store (the Python paths always run).
 
 Layer map:
 
@@ -38,6 +40,13 @@ Layer map:
     hub.py            Hub: push sessions and pulled targets merged into
                       one exposition with slice_* rollups; main()
     history.py        HistoryStore: the rollups' bounded ring, /query
+    fleetlens.py      FleetLens: per-target baselines and anomalies,
+                      slow-node attribution, SLO burn windows
+                      (/debug/fleet, kts_fleet_*)
+    efficiency.py     EfficiencyLens: per-pod waste verdicts;
+                      build_attestation (/debug/efficiency)
+    linkloc.py        LinkLocalizer: link verdicts over the graph
+                      (inert on nvlink<N> labels)
     ingestproc.py     IngestProcPool: SO_REUSEPORT acceptor processes
                       relaying frames to the hub (--ingest-procs)
     top.py            the live per-card table over exporters or a hub
@@ -47,7 +56,7 @@ Layer map:
                       --url scrape and live breakers, --trace post-mortem,
                       --host summary, --energy digest, --stores health,
                       --egress and --skew, the remote-write probe, a
-                      hub's --cardinality
+                      hub's --cardinality, --fleet, --efficiency, --at
     daemon.py         Daemon: backend choice, watchers, supervisor, server
     config.py         its flags and KTS_* environment
     collectors/nvml.py  NvmlCollector over native/nvml.py (ctypes NVML)
@@ -90,8 +99,9 @@ Layer map:
     schema.py         the metric families (the reference's, unchanged)
     validate.py       the accelerator_* contract checker and its parsers
     collectors/       the collector trait; workers, resilience,
-                      procstats, ici, fleetlens, topology: the
-                      parts of them the stack uses
+                      procstats: the parts of them the stack uses
+    ici.py            RateTracker, LinkBaselineEngine
+    topology.py       the KTS_* labels, InterconnectGraph
     kinds.py          accel_type and the per-kind datasheet tables
     device.py         device resolution and the Hopper probe
 """

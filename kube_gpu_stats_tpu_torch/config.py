@@ -11,8 +11,11 @@ accepted and ignored. The push-egress flags (``--pushgateway-*``,
 its shape, and the hub (``hub.main``) shares them with the daemon, beside
 its own groups: :func:`add_ingest_guard_flags` (``--ingest-*``),
 :func:`add_cardinality_flags` (``--series-*``),
-:func:`add_history_flags` (``--no-history``, ``--history-*``) and
-:func:`add_hub_noop_flags`. ``nvml`` takes the place of the reference's ``tpu``
+:func:`add_history_flags` (``--no-history``, ``--history-*``),
+:func:`add_efficiency_flags` (``--no-efficiency``, ``--waste-*``) and
+:func:`add_hub_noop_flags`; :func:`add_fleet_lens_flags` (``--no-fleet-lens``,
+``--slo-*``) sits on both parsers, as in the reference, so a manifest
+written for either daemon parses. ``nvml`` takes the place of the reference's ``tpu``
 backend; the reference's ``gpu`` (drm sysfs) backend is not offered on an
 NVIDIA node.
 """
@@ -24,6 +27,8 @@ import dataclasses
 import os
 import re
 from typing import Sequence
+
+from . import fleetlens
 
 DEFAULT_KUBELET_SOCKET = "/var/lib/kubelet/pod-resources/kubelet.sock"
 DEFAULT_CHECKPOINT = "/var/lib/kubelet/device-plugins/kubelet_internal_checkpoint"
@@ -44,6 +49,16 @@ class Config:
     auth_username: str = ""  # + password hash = basic auth on /metrics
     auth_password_sha256: str = ""
     max_concurrent_scrapes: int = 16  # parallel /metrics renders; 0 = off
+    # Fleet-lens / SLO knobs. Scored by the HUB's fleet lens (hub.py
+    # shares these flags via add_fleet_lens_flags); carried on the
+    # daemon config surface so doctor and tools accept the same
+    # spellings + KTS_SLO_* env vars everywhere. Defaults come from
+    # fleetlens (the single source both CLIs use) so a programmatic
+    # Config() can never drift from the flag surface.
+    fleet_lens: bool = True
+    slo_freshness_target: float = fleetlens.DEFAULT_FRESHNESS_TARGET
+    slo_straggler_target: float = fleetlens.DEFAULT_STRAGGLER_TARGET
+    slo_straggler_ratio: float = fleetlens.DEFAULT_STRAGGLER_RATIO
     textfile_dir: str = ""  # empty = textfile output disabled
     pushgateway_url: str = ""  # empty = push disabled
     pushgateway_job: str = "kube-tpu-stats"
@@ -178,6 +193,42 @@ def parse_extra_labels(raw: str) -> tuple:
         raise ValueError("duplicate extra label names")
     return tuple(pairs)
 
+
+
+def add_fleet_lens_flags(p: argparse.ArgumentParser) -> None:
+    """The fleet-lens / SLO flag surface, shared by the daemon parser
+    (doctor/tools accept them) and the hub (which actually scores
+    them): one definition so the spellings, KTS_* env vars and
+    defaults can never drift between the two CLIs."""
+    from .fleetlens import (DEFAULT_FRESHNESS_TARGET,
+                            DEFAULT_STRAGGLER_RATIO,
+                            DEFAULT_STRAGGLER_TARGET)
+
+    p.add_argument("--no-fleet-lens", action="store_true",
+                   default=_env_bool("NO_FLEET_LENS"),
+                   help="disable the hub's fleet lens (per-target "
+                        "anomaly baselines, slow-node attribution, SLO "
+                        "burn windows; /debug/fleet and the kts_fleet_* "
+                        "gauges go with it)")
+    p.add_argument("--slo-freshness-target", type=float,
+                   default=float(_env("SLO_FRESHNESS_TARGET",
+                                      str(DEFAULT_FRESHNESS_TARGET))),
+                   help="freshness SLO objective: fraction of observed "
+                        "card-refreshes that must serve fresh data (a "
+                        "stale card or an unreachable target's last-known "
+                        "cards count against the error budget)")
+    p.add_argument("--slo-straggler-target", type=float,
+                   default=float(_env("SLO_STRAGGLER_TARGET",
+                                      str(DEFAULT_STRAGGLER_TARGET))),
+                   help="straggler SLO objective: fraction of "
+                        "rate-bearing refreshes whose slice straggler "
+                        "ratio must meet --slo-straggler-ratio")
+    p.add_argument("--slo-straggler-ratio", type=float,
+                   default=float(_env("SLO_STRAGGLER_RATIO",
+                                      str(DEFAULT_STRAGGLER_RATIO))),
+                   help="minimum healthy slice_straggler_ratio (min/max "
+                        "per-worker step rate); refreshes below it burn "
+                        "the straggler error budget")
 
 
 def add_delta_push_flags(p: argparse.ArgumentParser) -> None:
@@ -377,25 +428,13 @@ def add_cardinality_flags(p: argparse.ArgumentParser) -> None:
 
 
 def add_hub_noop_flags(p: argparse.ArgumentParser) -> None:
-    """The reference hub's switches that only turn OFF a part the port's
-    hub does not run yet: accepted, so a manifest written for either hub
-    parses, and they change nothing here. The parts' other flags
-    (``--slo-*``, ``--waste-*``, ``--energy-audit-key``) configure what
-    is not ported and are refused by argparse."""
+    """The reference hub's switch that only turns OFF a part the port's
+    hub does not run: accepted, so a manifest written for either hub
+    parses, and it changes nothing here."""
     p.add_argument("--no-native-ingest", action="store_true",
                    help="accepted for the reference hub's manifests: the "
                         "port always applies delta frames on the Python "
                         "per-slot path")
-    p.add_argument("--no-fleet-lens", action="store_true",
-                   default=_env_bool("NO_FLEET_LENS"),
-                   help="accepted for the reference hub's manifests: the "
-                        "port's hub runs no fleet lens yet (no "
-                        "/debug/fleet, no kts_fleet_* gauges)")
-    p.add_argument("--no-efficiency", action="store_true",
-                   default=_env("NO_EFFICIENCY", "") == "1",
-                   help="accepted for the reference hub's manifests: the "
-                        "port's hub scores no efficiency yet "
-                        "(/debug/efficiency answers 404)")
 
 
 def add_history_flags(p: argparse.ArgumentParser) -> None:
@@ -435,6 +474,60 @@ def validate_history_args(args) -> str | None:
         return "--history-query-qps must be >= 0 (0 = unlimited)"
     if args.history_query_burst < 1:
         return "--history-query-burst must be >= 1"
+    return None
+
+
+def add_efficiency_flags(p: argparse.ArgumentParser) -> None:
+    """The hub's fleet-efficiency scoring knobs: waste
+    verdicts (idle-reservation / low-goodput), the top-K ranking bound,
+    and the /debug/efficiency attestation switch. Defaults live in
+    efficiency.py so the flag surface and the engine cannot drift."""
+    from .efficiency import (DEFAULT_IDLE_DUTY, DEFAULT_IDLE_REFRESHES,
+                             DEFAULT_TOP_K, DEFAULT_WARMUP_REFRESHES)
+
+    p.add_argument("--no-efficiency", action="store_true",
+                   default=_env("NO_EFFICIENCY", "") == "1",
+                   help="disable fleet efficiency scoring: no "
+                        "kts_fleet_efficiency_*/kts_fleet_waste_* "
+                        "families, no waste journal events, and "
+                        "/debug/efficiency answers enabled:false")
+    p.add_argument("--waste-warmup-refreshes", type=int,
+                   default=int(_env("WASTE_WARMUP_REFRESHES",
+                                    str(DEFAULT_WARMUP_REFRESHES))),
+                   help="refreshes a pod must be observed before any "
+                        "waste verdict may form — the grace a "
+                        "legitimately-starting pod (model loading, "
+                        "compilation) gets before idle cards count "
+                        "against it")
+    p.add_argument("--waste-idle-refreshes", type=int,
+                   default=int(_env("WASTE_IDLE_REFRESHES",
+                                    str(DEFAULT_IDLE_REFRESHES))),
+                   help="consecutive refreshes the idle-reservation / "
+                        "low-goodput shape must hold before the verdict "
+                        "raises (and journals fleet_waste)")
+    p.add_argument("--waste-idle-duty", type=float,
+                   default=float(_env("WASTE_IDLE_DUTY",
+                                      str(DEFAULT_IDLE_DUTY))),
+                   help="duty-cycle points at or below which a "
+                        "card-holding pod counts as idle")
+    p.add_argument("--waste-top-k", type=int,
+                   default=int(_env("WASTE_TOP_K", str(DEFAULT_TOP_K))),
+                   help="per-pod efficiency/waste series exported on "
+                        "/metrics are bounded to the K worst offenders "
+                        "(the full ledger rides /debug/fleet)")
+
+
+def validate_efficiency_args(args) -> str | None:
+    """Range rules for the efficiency flags; the hub parser surfaces
+    the string through parser.error."""
+    if args.waste_warmup_refreshes < 1:
+        return "--waste-warmup-refreshes must be >= 1"
+    if args.waste_idle_refreshes < 1:
+        return "--waste-idle-refreshes must be >= 1"
+    if args.waste_idle_duty < 0 or args.waste_idle_duty > 100:
+        return "--waste-idle-duty must be 0..100 duty points"
+    if args.waste_top_k < 1:
+        return "--waste-top-k must be >= 1"
     return None
 
 
@@ -503,6 +596,20 @@ def validate_delta_push_args(args) -> str | None:
         return "--hub-proto-max must be >= 0 (0 = this build's maximum)"
     return None
 
+
+
+def validate_fleet_lens_args(args) -> str | None:
+    """Range-check the shared SLO flags; returns an error string or
+    None (both CLIs surface it through their own parser.error)."""
+    for name in ("slo_freshness_target", "slo_straggler_target"):
+        value = getattr(args, name)
+        if not 0.0 < value < 1.0:
+            return (f"--{name.replace('_', '-')} must be in (0, 1) "
+                    f"(got {value!r})")
+    if not 0.0 < args.slo_straggler_ratio <= 1.0:
+        return (f"--slo-straggler-ratio must be in (0, 1] "
+                f"(got {args.slo_straggler_ratio!r})")
+    return None
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -674,6 +781,7 @@ def build_parser() -> argparse.ArgumentParser:
                    default=_env("AUTH_PASSWORD_SHA256", ""),
                    help="hex sha256 of the basic-auth password (never the "
                         "plaintext)")
+    add_fleet_lens_flags(p)
     add_delta_push_flags(p)
     p.add_argument("--burst-mode", choices=("off", "auto", "continuous"),
                    default=_env("BURST_MODE", "auto"),
@@ -869,6 +977,9 @@ def from_args(argv: Sequence[str] | None = None) -> Config:
         parser.error(
             f"--remote-write-protocol must be 1.0 or 2.0 "
             f"(got {args.remote_write_protocol!r})")
+    fleet_error = validate_fleet_lens_args(args)
+    if fleet_error:
+        parser.error(fleet_error)
     push_error = validate_delta_push_args(args)
     if push_error:
         parser.error(push_error)
@@ -899,6 +1010,10 @@ def from_args(argv: Sequence[str] | None = None) -> Config:
         auth_username=args.auth_username,
         auth_password_sha256=args.auth_password_sha256,
         max_concurrent_scrapes=args.max_concurrent_scrapes,
+        fleet_lens=not args.no_fleet_lens,
+        slo_freshness_target=args.slo_freshness_target,
+        slo_straggler_target=args.slo_straggler_target,
+        slo_straggler_ratio=args.slo_straggler_ratio,
         textfile_dir=args.textfile_dir,
         pushgateway_url=args.pushgateway_url,
         pushgateway_job=args.pushgateway_job,

@@ -51,8 +51,23 @@ Accepts the exporter's own flags (the same config surface) plus:
 With --remote-write-url set, a ``remote-write`` row probes the receiver
 with an empty write request.
 
-The reference's --fleet, --efficiency and --at read modules the port
-has not ported yet; each exits 2 and says so.
+  --fleet        read a RUNNING hub's fleet lens (/debug/fleet) and
+                 print the post-mortem: the worst node with its phase
+                 and blame, every anomalous target with its anomaly
+                 kinds (joined with host pressure on the same node),
+                 a suspect link, and the SLO burn windows. A target
+                 that itself answers /debug/fleet is a leaf hub, and
+                 its own post-mortem is folded in. Hub fallback like
+                 --cardinality
+  --efficiency   read a RUNNING hub's /debug/efficiency attestation,
+                 verify its HMAC with the local --energy-audit-key (OK
+                 verified, FAIL on tamper or a wrong key, WARN with no
+                 key) and name the pods wasting cards now. Hub fallback
+                 like --cardinality
+  --at TIME      with --fleet and/or --efficiency: replay the verdict
+                 from the hub's history ring at TIME (unix seconds, or
+                 an ago-offset like 600, 10m, 2h) instead of the live
+                 lens
 
 Exit code: 0 = no failures (warns allowed), 1 = at least one failure,
 2 = usage error. Every probe is time-bounded; the doctor never hangs on a
@@ -72,9 +87,6 @@ from .config import Config, from_args
 
 OK, WARN, FAIL, SKIP = "ok", "warn", "fail", "skip"
 _ORDER = {FAIL: 0, WARN: 1, OK: 2, SKIP: 3}
-
-# The reference's doctor flags whose rows read modules not ported yet.
-NOT_PORTED_FLAGS = ("--fleet", "--efficiency", "--at")
 
 
 @dataclasses.dataclass
@@ -671,6 +683,22 @@ _HOST_KIND_TEXT = {
 }
 
 
+def _host_verdict_bits(host_kinds: dict, digest_host: dict) -> str:
+    """Render active host anomalies with their CURRENT values from the
+    target's digest (falling back to the latched z when the digest has
+    no value — an older exporter's rollup)."""
+    bits = []
+    for kind in sorted(host_kinds):
+        key, template = _HOST_KIND_TEXT.get(
+            kind, (None, kind + " {:.1f}"))
+        value = (digest_host or {}).get(key) if key else None
+        if value is None:
+            bits.append(f"{kind} (z={host_kinds[kind]:g})")
+        else:
+            bits.append(template.format(value))
+    return " + ".join(bits)
+
+
 def check_egress(base: str) -> CheckResult:
     """--egress: read /debug/egress and summarize the durable-egress
     picture — spill depth/age/loss, durable remote-write shard
@@ -1090,6 +1118,500 @@ def check_skew(base: str) -> CheckResult:
     return _result("skew", status, detail, data={"skew": payload})
 
 
+def fleet_post_mortem(payload: dict) -> tuple[str, str, dict]:
+    """(status, detail line, data) for a /debug/fleet rollup: the
+    slice post-mortem — worst node with its phase and blame, every
+    anomalous target with its anomaly kinds (and that target's own
+    worst phase from its digest), host correlation (a target whose device-side anomaly or worst-phase attribution
+    co-occurs with a host_* anomaly in the same refresh window gets
+    the joined verdict, e.g. "node-7: fetch_wait spike co-occurs with
+    PSI memory full-stall 18%"), and the SLO burn windows. WARN when
+    any anomaly is active or any burn window is over budget (burn >
+    1.0). Pure so tests drive it on canned JSON; check_fleet wraps it
+    with the fetch/auth/version classification."""
+    from .linkloc import LINK_EXPLAINED_KINDS
+
+    parts: list[str] = []
+    data: dict = {"attribution": payload.get("attribution"),
+                  "anomalous": {}, "correlated": {},
+                  "slo": payload.get("slo", {})}
+    status = OK
+    worst = payload.get("attribution")
+    if worst:
+        line = (f"worst node: {worst.get('target')} "
+                f"(phase {worst.get('phase')}, "
+                f"{worst.get('seconds', 0.0):.3f}s")
+        if worst.get("blame"):
+            line += f", blame {worst['blame']}"
+        parts.append(line + ")")
+    # Interconnect localization: the verdict the whole
+    # topology pass exists to print — name the sick LINK first, and
+    # below, do NOT also accuse the endpoint nodes whose anomalies the
+    # link fully explains (they are the innocent neighbors).
+    suspects = (payload.get("links") or {}).get("suspects") or {}
+    link_explained: dict[str, str] = {}
+    for link, verdict in sorted(suspects.items()):
+        status = WARN
+        ends = ",".join(verdict.get("endpoints") or ())
+        line = f"nodes {ends} slow; shared ICI link {link} suspect"
+        reason = verdict.get("reason", "")
+        if "host-counter-confirmed" in reason:
+            line += ", host-counter-confirmed"
+        elif "anomaly-correlated" in reason:
+            line += ", anomaly-correlated"
+        drop = verdict.get("drop")
+        if drop:
+            line += f" ({drop:.0%} below baseline)"
+        parts.append(line)
+        for target in verdict.get("targets") or ():
+            if target:
+                link_explained[target] = link
+    data["link_suspects"] = {link: dict(v)
+                            for link, v in sorted(suspects.items())}
+    data["link_explained"] = {}
+    for target, entry in sorted((payload.get("targets") or {}).items()):
+        anomalous = entry.get("anomalous") or {}
+        if not anomalous:
+            continue
+        status = WARN
+        if target in link_explained and all(
+                kind in LINK_EXPLAINED_KINDS or kind.startswith("host_")
+                for kind in anomalous):
+            # Every anomaly on this endpoint is a symptom a degraded
+            # shared link produces (ici/steps/fetch slowdowns, the host
+            # NIC/IRQ corroboration) — the link verdict above already
+            # owns them, so the node is not accused.
+            data["link_explained"][target] = link_explained[target]
+            continue
+        data["anomalous"][target] = dict(anomalous)
+        # Freshness reports the CURRENT missed count (entry['missed']),
+        # not the count frozen at the raise edge — a 100-refresh outage
+        # must not read as '3 refreshes missed' forever.
+        kinds = ", ".join(
+            f"{kind} (z={z:g})" if kind != "freshness"
+            else (f"freshness ({int(entry.get('missed', z))} "
+                  f"refreshes missed)")
+            for kind, z in sorted(anomalous.items()))
+        line = f"{target}: {kinds}"
+        digest = entry.get("digest") or {}
+        slow = digest.get("slowest") or {}
+        if slow.get("phase"):
+            line += f" [worst phase {slow['phase']}"
+            if slow.get("blame"):
+                line += f", {slow['blame']}"
+            line += "]"
+        parts.append(line)
+        # Joined verdict: device-side slowness AND host pressure inside
+        # the same refresh window on the SAME node — the root-cause
+        # sentence the whole host-signals pipeline exists to print.
+        host_kinds = {k: z for k, z in anomalous.items()
+                      if k.startswith("host_")}
+        device_kinds = [k for k in anomalous
+                        if not k.startswith("host_") and k != "freshness"]
+        is_worst = bool(worst and worst.get("target") == target)
+        if host_kinds and (device_kinds or is_worst):
+            phase = (slow.get("phase")
+                     or (worst.get("phase") if is_worst else "")
+                     or (device_kinds[0] if device_kinds else "slow"))
+            host_text = _host_verdict_bits(host_kinds,
+                                           digest.get("host") or {})
+            parts.append(f"{target}: {phase} spike co-occurs with "
+                         f"{host_text}")
+            data["correlated"][target] = {
+                "phase": phase,
+                "host": dict(host_kinds),
+                "host_values": dict(digest.get("host") or {}),
+            }
+    burns = []
+    for objective, state in sorted((payload.get("slo") or {}).items()):
+        windows = state.get("windows") or {}
+        rendered = []
+        for label in sorted(windows):
+            burn = windows[label].get("burn_rate", 0.0)
+            flag = "!" if burn > 1.0 else ""
+            if burn > 1.0:
+                status = WARN
+            rendered.append(f"{label}={burn:g}x{flag}")
+        if rendered:
+            burns.append(f"{objective} " + "/".join(rendered))
+    if burns:
+        parts.append("burn: " + "; ".join(burns)
+                     + " (>1x = over the error budget)")
+    if not parts:
+        parts.append("no anomalies, burn within budget, no slow-node "
+                     "attribution yet")
+    return status, "; ".join(parts), data
+
+
+def check_fleet(base: str) -> CheckResult:
+    """--fleet: read the RUNNING hub's fleet lens and print the slice
+    post-mortem (which node is dragging the job, which phase, which
+    anomalies co-occur, how fast the SLO budget is burning)."""
+    import urllib.error
+
+    try:
+        payload = _fetch_json(base + "/debug/fleet")
+    except urllib.error.HTTPError as exc:
+        if exc.code in (401, 403):
+            return _result(
+                "fleet", WARN,
+                f"{base}/debug/fleet requires authentication "
+                f"(HTTP {exc.code}); the fleet lens sits behind the "
+                f"hub's basic-auth gate by design")
+        if exc.code == 404:
+            from .hub import DEFAULT_PORT
+
+            return _result(
+                "fleet", WARN,
+                f"{base}: no /debug/fleet (hub predates the fleet lens, "
+                f"runs --no-fleet-lens, or this is a daemon — point "
+                f"--url at the hub, default port {DEFAULT_PORT})")
+        return _result("fleet", FAIL, f"{base}/debug/fleet: HTTP {exc.code}")
+    except Exception as exc:  # noqa: BLE001 - unreachable hub, bad JSON
+        return _result("fleet", FAIL,
+                       f"{base}: fleet lens unreadable ({exc})")
+    if not payload.get("targets"):
+        return _result(
+            "fleet", WARN,
+            f"no targets scored yet (refresh seq "
+            f"{payload.get('seq', 0)}); is the hub refreshing?")
+    status, detail, data = fleet_post_mortem(payload)
+    # Federation walk: any target that itself serves
+    # /debug/fleet is a leaf HUB — descend one level and fold its slice
+    # post-mortem in, so a root-hub doctor names the guilty NODE, not
+    # just the guilty leaf. Bounded: at most 8 probes, each with the
+    # same short fetch timeout; daemons (no /debug/fleet) just 404 out
+    # of the walk.
+    leaves: dict[str, str] = {}
+    for target in sorted(payload.get("targets") or {})[:8]:
+        if "://" not in target:
+            continue  # .prom file targets can't be hubs
+        try:
+            sub = _fetch_json(trace_base(target) + "/debug/fleet")
+        except Exception:  # noqa: BLE001 - a daemon or a dead leaf
+            continue
+        if not isinstance(sub, dict) or not sub.get("targets"):
+            continue
+        sub_status, sub_detail, sub_data = fleet_post_mortem(sub)
+        if _ORDER[sub_status] < _ORDER[status]:
+            status = sub_status
+        leaves[target] = sub_detail
+        data.setdefault("leaves", {})[target] = sub_data
+    for target, sub_detail in leaves.items():
+        detail += f" | leaf {target}: {sub_detail}"
+    return _result("fleet", status, detail, data=data)
+
+
+def parse_at(raw: str, now: float) -> float:
+    """``--at`` value -> unix seconds. Accepts absolute unix seconds
+    (anything past ~2001), or an ago-style offset: plain seconds, or a
+    number with an m/h suffix, optional leading '-' ("600", "10m",
+    "-2h" all mean that long before now). Raises ValueError with the
+    accepted forms — main() prints it as the usage error."""
+    text = raw.strip().lstrip("-")
+    if not text:
+        raise ValueError("--at requires a time (unix seconds, or an "
+                         "ago-offset like 600, 10m, 2h)")
+    scale = 1.0
+    if text[-1] in ("m", "h"):
+        scale = 60.0 if text[-1] == "m" else 3600.0
+        text = text[:-1]
+    try:
+        value = float(text)
+    except ValueError:
+        raise ValueError(f"--at: {raw!r} is not a time (unix seconds, "
+                         f"or an ago-offset like 600, 10m, 2h)")
+    if scale == 1.0 and value > 1e9:
+        return value  # absolute unix timestamp
+    return now - value * scale
+
+
+def fleet_at_verdict(steps_payload: dict, up_payload: dict,
+                     ratio_payload: dict, at_ts: float,
+                     links_payload: dict | None = None
+                     ) -> tuple[str, str, dict]:
+    """(status, detail, data) for a retroactive fleet post-mortem at
+    ``at_ts``, computed from the hub history ring's /query?at=
+    payloads (named-window nearest-sample semantics: each value is the
+    populated bucket nearest the timestamp from the finest tier still
+    covering it — the sample's own timestamp is printed as 'as of').
+    Pure so the fault-injection test drives it on canned payloads: a
+    straggler visible at the timestamp stays named here even after it
+    recovers, because the verdict reads the ring, not the live lens."""
+    data: dict = {"at": at_ts, "slices": {}, "targets_down": [],
+                  "links_suspect": []}
+    parts: list[str] = []
+    status = OK
+    # Per-slice straggler attribution from the per-worker step rates.
+    by_slice: dict[str, list[tuple[str, float, float]]] = {}
+    for entry in steps_payload.get("series") or []:
+        labels = entry.get("labels") or {}
+        slice_name = labels.get("slice", "")
+        worker = labels.get("worker", "")
+        by_slice.setdefault(slice_name, []).append(
+            (worker, float(entry.get("v", 0.0)),
+             float(entry.get("t", at_ts))))
+    ratios = {
+        (entry.get("labels") or {}).get("slice", ""):
+            float(entry.get("v", 0.0))
+        for entry in ratio_payload.get("series") or []
+    }
+    for slice_name in sorted(by_slice):
+        workers = by_slice[slice_name]
+        best = max(rate for _w, rate, _t in workers)
+        slowest = min(workers, key=lambda w: w[1])
+        ratio = ratios.get(
+            slice_name,
+            (slowest[1] / best) if best > 0 else 1.0)
+        data["slices"][slice_name] = {
+            "ratio": ratio,
+            "slowest_worker": slowest[0],
+            "slowest_rate": slowest[1],
+            "best_rate": best,
+            "sample_ts": slowest[2],
+        }
+        if best > 0 and ratio < 0.75:
+            status = WARN
+            parts.append(
+                f"slice {slice_name}: straggler worker {slowest[0]} at "
+                f"{slowest[1]:g} steps/s vs best {best:g} "
+                f"(ratio {ratio:.2f}, as of {_ts(slowest[2])})")
+    down = [
+        ((entry.get("labels") or {}).get("target", ""),
+         float(entry.get("t", at_ts)))
+        for entry in up_payload.get("series") or []
+        if float(entry.get("v", 1.0)) == 0.0
+    ]
+    for target, sample_ts in sorted(down):
+        status = WARN
+        data["targets_down"].append(target)
+        parts.append(f"{target} was down (as of {_ts(sample_ts)})")
+    # Retroactive link localization: the link-suspect rows
+    # the hub recorded into the ring every publish. Ring buckets hold
+    # the MEAN of their samples, so any positive value means the link
+    # was accused for part of the bucket; the 0.0 tombstones the
+    # recovery wrote keep later buckets (and a fully-recovered
+    # incident's tail) reading clean — exactly the post-incident
+    # semantics a post-mortem wants.
+    for entry in (links_payload or {}).get("series") or []:
+        if float(entry.get("v", 0.0)) <= 0.0:
+            continue
+        labels = entry.get("labels") or {}
+        link = labels.get("link", "")
+        reason = labels.get("reason", "")
+        sample_ts = float(entry.get("t", at_ts))
+        status = WARN
+        data["links_suspect"].append(
+            {"link": link, "reason": reason, "sample_ts": sample_ts})
+        parts.append(f"ICI link {link} was suspect ({reason}, "
+                     f"as of {_ts(sample_ts)})")
+    if not (steps_payload.get("series") or up_payload.get("series")
+            or (links_payload or {}).get("series")):
+        return (WARN,
+                f"history has no samples near {_ts(at_ts)} — the ring "
+                f"holds 1h/24h/7d tiers from THIS hub boot only (it "
+                f"intentionally does not survive a restart)", data)
+    if not parts:
+        parts.append(f"fleet healthy at {_ts(at_ts)}: no straggler "
+                     f"slice, no down target in the nearest samples")
+    return status, "; ".join(parts), data
+
+
+def _ts(ts: float) -> str:
+    """Compact UTC render for --at verdict lines."""
+    return time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime(ts))
+
+
+def check_fleet_at(base: str, at_ts: float) -> CheckResult:
+    """--fleet --at: replay the fleet verdict from the hub's history
+    ring at a past timestamp (three /query?at= reads; the ring's
+    nearest-sample answer, not the live lens)."""
+    import urllib.error
+
+    payloads = {}
+    for family in ("slice_worker_steps_per_second", "slice_target_up",
+                   "slice_straggler_ratio", "kts_fleet_link_suspect"):
+        try:
+            payloads[family] = _fetch_json(
+                f"{base}/query?family={family}&at={at_ts}")
+        except urllib.error.HTTPError as exc:
+            if exc.code in (401, 403):
+                return _result(
+                    "fleet-at", WARN,
+                    f"{base}/query requires authentication "
+                    f"(HTTP {exc.code}); /query sits behind the hub's "
+                    f"basic-auth gate by design")
+            if exc.code == 404:
+                # An unknown family 404s too (e.g. the ring holds no
+                # samples for it yet) — the no-samples verdict below
+                # covers it.
+                payloads[family] = {}
+                continue
+            return _result("fleet-at", FAIL,
+                           f"{base}/query: HTTP {exc.code}")
+        except Exception as exc:  # noqa: BLE001 - unreachable hub
+            return _result("fleet-at", FAIL,
+                           f"{base}: history unreadable ({exc})")
+        if payloads[family].get("enabled") is False:
+            return _result(
+                "fleet-at", WARN,
+                f"{base}: history disabled (hub runs --no-history or "
+                f"predates the history ring) — --at has nothing to "
+                f"replay from")
+    status, detail, data = fleet_at_verdict(
+        payloads.get("slice_worker_steps_per_second") or {},
+        payloads.get("slice_target_up") or {},
+        payloads.get("slice_straggler_ratio") or {},
+        at_ts,
+        links_payload=payloads.get("kts_fleet_link_suspect") or {})
+    return _result("fleet-at", status, detail, data=data)
+
+
+def check_efficiency(base: str, audit_key: str) -> CheckResult:
+    """--efficiency: read the hub's /debug/efficiency energy/waste
+    attestation, verify its HMAC with the locally configured
+    --energy-audit-key (the same contract as --energy: OK verified,
+    FAIL on tamper or a wrong key, WARN unsigned), and name the pods
+    the hub is accusing of wasting cards right now."""
+    import urllib.error
+
+    from .energy import verify_payload
+
+    try:
+        payload = _fetch_json(base + "/debug/efficiency")
+    except urllib.error.HTTPError as exc:
+        if exc.code in (401, 403):
+            return _result(
+                "efficiency", WARN,
+                f"{base}/debug/efficiency requires authentication "
+                f"(HTTP {exc.code}); the attestation sits behind the "
+                f"hub's basic-auth gate by design")
+        if exc.code == 404:
+            return _result(
+                "efficiency", WARN,
+                f"{base}: no /debug/efficiency (hub predates the "
+                f"efficiency lens, or runs --no-fleet-lens)")
+        return _result("efficiency", FAIL,
+                       f"{base}/debug/efficiency: HTTP {exc.code}")
+    except Exception as exc:  # noqa: BLE001 - unreachable hub, bad JSON
+        return _result(
+            "efficiency", FAIL,
+            f"{base}: efficiency attestation unreadable ({exc})")
+    if not payload.get("enabled", True):
+        return _result(
+            "efficiency", WARN,
+            "efficiency scoring disabled on the hub (--no-efficiency); "
+            "no waste ledger to attest")
+    totals = payload.get("totals") or {}
+    waste = payload.get("waste") or {}
+    suspects = waste.get("suspects") or {}
+    summary = (f"{totals.get('leaves', 0)} leaf energy digest(s) "
+               f"({totals.get('leaves_signed', 0)} signed), "
+               f"{totals.get('joules', 0.0):.1f} J attributed, "
+               f"{len(suspects)} waste suspect(s)")
+    data = {"attestation": payload}
+    if not audit_key:
+        return _result(
+            "efficiency", WARN,
+            f"{summary}; attestation NOT verified (no "
+            f"--energy-audit-key configured locally)", data=data)
+    if not payload.get("signed") or "hmac" not in payload:
+        return _result(
+            "efficiency", FAIL,
+            f"{summary}; hub serves an UNSIGNED attestation but a "
+            f"local audit key is configured — the energy/waste rollup "
+            f"is not attestable", data=data)
+    if not verify_payload(payload, audit_key):
+        return _result(
+            "efficiency", FAIL,
+            f"{summary}; attestation signature DOES NOT VERIFY — "
+            f"payload tampered in flight, or the hub holds a different "
+            f"audit key", data=data)
+    if suspects:
+        names = "; ".join(
+            f"{name}: {info.get('reason')} "
+            f"({info.get('chips', 0)} chip(s))"
+            for name, info in sorted(suspects.items()))
+        return _result(
+            "efficiency", WARN,
+            f"{summary}; signature verified; wasting now: {names}",
+            data=data)
+    return _result("efficiency", OK, f"{summary}; signature verified",
+                   data=data)
+
+
+def efficiency_at_verdict(waste_payload: dict,
+                          at_ts: float) -> tuple[str, str, dict]:
+    """(status, detail, data) for a retroactive "who was wasting cards"
+    read at ``at_ts`` from the ring's kts_fleet_waste_suspect rows.
+    Ring buckets hold sample MEANS, so any positive value means the pod
+    was accused for part of the bucket; the 0.0 tombstones the recovery
+    wrote keep later buckets reading clean. Pure so the waste scenario
+    drives it on canned payloads too."""
+    data: dict = {"at": at_ts, "waste_suspects": []}
+    parts: list[str] = []
+    status = OK
+    for entry in waste_payload.get("series") or []:
+        if float(entry.get("v", 0.0)) <= 0.0:
+            continue
+        labels = entry.get("labels") or {}
+        pod = labels.get("pod", "")
+        namespace = labels.get("namespace", "")
+        reason = labels.get("reason", "")
+        sample_ts = float(entry.get("t", at_ts))
+        status = WARN
+        data["waste_suspects"].append(
+            {"pod": pod, "namespace": namespace, "reason": reason,
+             "sample_ts": sample_ts})
+        parts.append(f"{namespace}/{pod} was wasting chips ({reason}, "
+                     f"as of {_ts(sample_ts)})")
+    if not waste_payload.get("series"):
+        return (WARN,
+                f"history has no waste samples near {_ts(at_ts)} — the "
+                f"ring holds 1h/24h/7d tiers from THIS hub boot only "
+                f"(it intentionally does not survive a restart)", data)
+    if not parts:
+        parts.append(f"no pod was wasting chips at {_ts(at_ts)} in the "
+                     f"nearest samples")
+    return status, "; ".join(parts), data
+
+
+def check_efficiency_at(base: str, at_ts: float) -> CheckResult:
+    """--efficiency --at: replay the waste verdict from the hub's
+    history ring at a past timestamp (one /query?at= read of the
+    kts_fleet_waste_suspect rows the hub records every publish)."""
+    import urllib.error
+
+    try:
+        payload = _fetch_json(
+            f"{base}/query?family=kts_fleet_waste_suspect&at={at_ts}")
+    except urllib.error.HTTPError as exc:
+        if exc.code in (401, 403):
+            return _result(
+                "efficiency-at", WARN,
+                f"{base}/query requires authentication "
+                f"(HTTP {exc.code}); /query sits behind the hub's "
+                f"basic-auth gate by design")
+        if exc.code == 404:
+            # Unknown family 404s too (no waste row ever recorded) —
+            # the no-samples verdict covers it.
+            payload = {}
+        else:
+            return _result("efficiency-at", FAIL,
+                           f"{base}/query: HTTP {exc.code}")
+    except Exception as exc:  # noqa: BLE001 - unreachable hub
+        return _result("efficiency-at", FAIL,
+                       f"{base}: history unreadable ({exc})")
+    if payload.get("enabled") is False:
+        return _result(
+            "efficiency-at", WARN,
+            f"{base}: history disabled (hub runs --no-history or "
+            f"predates the history ring) — --at has nothing to replay "
+            f"from")
+    status, detail, data = efficiency_at_verdict(payload, at_ts)
+    return _result("efficiency-at", status, detail, data=data)
+
+
 def check_url(target: str) -> list[CheckResult]:
     """Both --url rows — scrape contract + live breaker state — off ONE
     fetch: a node diagnosed because it is degraded must not render its
@@ -1260,7 +1782,11 @@ def run_checks(cfg: Config, url: str = "", trace: bool = False,
                host: bool = False, energy: bool = False,
                egress: bool = False, skew: bool = False,
                stores: bool = False,
-               cardinality: bool = False) -> list[CheckResult]:
+               cardinality: bool = False,
+               fleet: bool = False,
+               fleet_at: float | None = None,
+               efficiency: bool = False,
+               efficiency_at: float | None = None) -> list[CheckResult]:
     probes: list[tuple[str, Callable[[], object]]] = [
         ("nvml", lambda: check_nvml(cfg)),
         ("attribution", lambda: check_attribution(cfg)),
@@ -1323,6 +1849,42 @@ def run_checks(cfg: Config, url: str = "", trace: bool = False,
                      else f"http://127.0.0.1:{_HUB_PORT}")
         probes.append(("cardinality",
                        lambda: check_cardinality(card_base)))
+    if fleet:
+        # The fleet lens lives on the HUB, not the daemon: an http(s)
+        # --url names the hub to read; otherwise fall back to a local
+        # hub on its default port (9401 — hub.DEFAULT_PORT), NOT the
+        # daemon's listen port.
+        from .hub import DEFAULT_PORT as HUB_DEFAULT_PORT
+
+        fleet_base = (trace_base(url)
+                      if url.startswith(("http://", "https://"))
+                      else f"http://127.0.0.1:{HUB_DEFAULT_PORT}")
+        if fleet_at is not None:
+            # --at: retroactive post-mortem from the history ring
+            # instead of the live lens.
+            probes.append(("fleet-at",
+                           lambda: check_fleet_at(fleet_base, fleet_at)))
+        else:
+            probes.append(("fleet", lambda: check_fleet(fleet_base)))
+    if efficiency:
+        # The efficiency attestation lives on the HUB like the fleet
+        # lens; same base fallback (9401, hub.DEFAULT_PORT). The local
+        # --energy-audit-key verifies the rollup's HMAC — the same key
+        # contract as --energy.
+        from .hub import DEFAULT_PORT as _EFF_HUB_PORT
+
+        eff_base = (trace_base(url)
+                    if url.startswith(("http://", "https://"))
+                    else f"http://127.0.0.1:{_EFF_HUB_PORT}")
+        if efficiency_at is not None:
+            # --at: who was wasting cards during the incident — read
+            # from the ring, not the live ledger.
+            probes.append(("efficiency-at",
+                           lambda: check_efficiency_at(eff_base,
+                                                       efficiency_at)))
+        else:
+            probes.append(("efficiency", lambda: check_efficiency(
+                eff_base, cfg.energy_audit_key)))
     results: list[CheckResult] = []
     for name, probe in probes:
         results.extend(_bounded(name, probe))
@@ -1359,11 +1921,13 @@ def main(argv: Sequence[str] | None = None) -> int:
     skew = False
     stores = False
     cardinality = False
+    fleet = False
+    efficiency = False
     url = ""
+    at_raw = ""
     args: list[str] = []
     it = iter(raw)
     for token in it:
-        flag = token.partition("=")[0]
         if token == "--json":
             as_json = True
         elif token == "--trace":
@@ -1380,6 +1944,10 @@ def main(argv: Sequence[str] | None = None) -> int:
             stores = True
         elif token == "--cardinality":
             cardinality = True
+        elif token == "--fleet":
+            fleet = True
+        elif token == "--efficiency":
+            efficiency = True
         elif token == "--url":
             url = next(it, "")
             if not url or url.startswith("--"):
@@ -1392,17 +1960,45 @@ def main(argv: Sequence[str] | None = None) -> int:
                 print("--url requires a target (URL or .prom file)",
                       file=sys.stderr)
                 return 2
-        elif flag in NOT_PORTED_FLAGS:
-            print(f"doctor {flag}: not ported yet (its row reads a module "
-                  f"the port does not have yet)", file=sys.stderr)
-            return 2
+        elif token == "--at":
+            at_raw = next(it, "")
+            if not at_raw or at_raw.startswith("--"):
+                print("--at requires a time (unix seconds, or an "
+                      "ago-offset like 600, 10m, 2h)", file=sys.stderr)
+                return 2
+        elif token.startswith("--at="):
+            at_raw = token[len("--at="):]
+            if not at_raw:
+                print("--at requires a time (unix seconds, or an "
+                      "ago-offset like 600, 10m, 2h)", file=sys.stderr)
+                return 2
         else:
             args.append(token)
+    fleet_at = None
+    efficiency_at = None
+    if at_raw:
+        if not fleet and not efficiency:
+            print("--at only makes sense with --fleet or --efficiency "
+                  "(it replays the verdict from the hub's history "
+                  "ring)", file=sys.stderr)
+            return 2
+        try:
+            at_ts = parse_at(at_raw, time.time())
+        except ValueError as exc:
+            print(str(exc), file=sys.stderr)
+            return 2
+        if fleet:
+            fleet_at = at_ts
+        if efficiency:
+            efficiency_at = at_ts
     cfg = from_args(args)
     started = time.monotonic()
     results = run_checks(cfg, url=url, trace=trace, host=host,
                          energy=energy, egress=egress, skew=skew,
-                         stores=stores, cardinality=cardinality)
+                         stores=stores, cardinality=cardinality,
+                         fleet=fleet, fleet_at=fleet_at,
+                         efficiency=efficiency,
+                         efficiency_at=efficiency_at)
     results.sort(key=lambda r: _ORDER[r.status])
     if as_json:
         print(json.dumps({

@@ -19,8 +19,10 @@
   digest), ``/debug/stores`` (every disk-backed store's health, the
   accept fence, thread restarts), ``/debug/host`` (the host-signals
   snapshot), ``/debug/egress`` (the push senders' backlog, lag and loss)
-  ``/debug/skew`` (build and wire-protocol negotiation) and
-  ``/debug/cardinality`` (the hub's series ledger) when those are wired.
+  ``/debug/skew`` (build and wire-protocol negotiation),
+  ``/debug/cardinality`` (the hub's series ledger), ``/debug/fleet``
+  (the hub's fleet-lens rollup) and ``/debug/efficiency`` (the hub's
+  signed energy/waste attestation) when those are wired.
 - HTTP ``GET /query`` — the hub's history ring (``history.HistoryStore``),
   when a ``history_provider`` is wired: range and ``at=`` reads behind the
   auth gate, with their own ETag, 304 and gzip.
@@ -31,9 +33,7 @@
   (tmp + rename) after each poll tick.
 - Pushgateway — :class:`PushgatewayPusher` PUTs each published snapshot.
 
-The port's copy of the reference's exposition layer without the
-``/debug/*`` endpoints of modules not ported yet (fleet, efficiency):
-those paths answer 404.
+The port's copy of the reference's exposition layer.
 """
 
 from __future__ import annotations
@@ -315,6 +315,7 @@ class MetricsServer:
                  skew_provider=None, stores_provider=None,
                  ready_check=None, ingest_provider=None,
                  cardinality_provider=None, history_provider=None,
+                 fleet_provider=None, efficiency_provider=None,
                  ingest_read_deadline: float = 10.0):
         self._registry = registry
         # The hub's history ring: ``handle_query(params, client,
@@ -342,6 +343,19 @@ class MetricsServer:
         # by shed — what `doctor --cardinality` reads). None (daemons,
         # bare test servers) 404s.
         self._cardinality = cardinality_provider
+        # Fleet lens (fleetlens.FleetLens, duck-typed: anything with
+        # rollup() -> dict): serves /debug/fleet — per-target health,
+        # the anomaly list, SLO burn state, slow-node attribution.
+        # None = 404 (the hub wires it; daemons and --no-fleet-lens
+        # hubs don't serve a fleet view).
+        self._fleet = fleet_provider
+        # Fleet efficiency attestation, () -> dict: serves
+        # /debug/efficiency — the signed federation-wide energy/waste
+        # rollup `doctor --efficiency` verifies. A wired hub with
+        # --no-efficiency answers enabled:false (the --no-trace
+        # contract); None (daemons, bare test servers, --no-fleet-lens
+        # hubs) 404s.
+        self._efficiency = efficiency_provider
         # Flight recorder (tracing.Tracer): serves /debug/ticks,
         # /debug/trace and /debug/events behind the same auth gate as
         # /metrics. None = those paths 404.
@@ -824,6 +838,30 @@ class MetricsServer:
                             + "\n").encode()
                     self.send_response(200)
                     self.send_header("Content-Type", "application/json")
+                elif (path == "/debug/efficiency"
+                        and outer._efficiency is not None):
+                    # Fleet efficiency attestation: the HMAC-signed
+                    # energy/waste rollup — leaves' energy digests
+                    # folded with the hub's waste ledger — behind the
+                    # same auth gate as every non-probe path. doctor
+                    # --efficiency verifies the signature.
+                    try:
+                        payload = outer._efficiency()
+                    except Exception as exc:  # noqa: BLE001 - a status
+                        # walk must not 500 the whole debug surface.
+                        payload = {"enabled": False, "error": str(exc)}
+                    body = (json.dumps(payload, sort_keys=True)
+                            + "\n").encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "application/json")
+                elif path == "/debug/fleet" and outer._fleet is not None:
+                    # Fleet lens rollup (fleetlens.py): per-target
+                    # baselines/anomalies, SLO burn windows, slow-node
+                    # attribution — the payload doctor --fleet reads.
+                    body = (json.dumps(outer._fleet.rollup(),
+                                       sort_keys=True) + "\n").encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "application/json")
                 elif path == "/debug/threads":
                     # Live stack dump of every thread: enough to diagnose
                     # a wedged sampler or a stuck attribution refresh from
@@ -866,6 +904,10 @@ class MetricsServer:
                     if outer._trace is not None:
                         links += ["/debug/ticks", "/debug/trace?last=20",
                                   "/debug/events"]
+                    if outer._fleet is not None:
+                        links += ["/debug/fleet"]
+                    if outer._efficiency is not None:
+                        links += ["/debug/efficiency"]
                     if outer._burst is not None:
                         links += ["/debug/burst"]
                     if outer._energy is not None:

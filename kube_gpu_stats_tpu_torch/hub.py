@@ -42,11 +42,15 @@ serves. ``--ingest-procs N`` hands the public port to N acceptor
 processes (``ingestproc.py``) that relay each frame to this process, the
 one owner of the push sessions.
 
-Not ported yet, and off as in the reference's matching switches: the
-fleet lens and efficiency scoring (``/debug/fleet`` and
-``/debug/efficiency`` answer 404), and the native frame fold and slot
-store (the Python paths, which the reference keeps as its oracle, always
-run). The hub path imports no torch: it runs from the DaemonSet image.
+Each refresh also feeds the fleet lens (``fleetlens.FleetLens``, on by
+default, ``--no-fleet-lens`` turns it off): per-target baselines and
+anomalies, slow-node attribution from the daemons' trace digests, SLO
+burn windows, the link localizer and the efficiency lens, served as the
+``kts_fleet_*`` families, ``/debug/fleet`` and the signed
+``/debug/efficiency`` attestation. Not ported, and off as in the
+reference's matching switch: the native frame fold and slot store (the
+Python paths, which the reference keeps as its oracle, always run). The
+hub path imports no torch: it runs from the DaemonSet image.
 """
 
 
@@ -60,6 +64,7 @@ import time
 from typing import Mapping, Sequence
 
 from . import delta as delta_mod
+from . import efficiency as efficiency_mod
 from . import fleetlens, procstats, schema
 from . import wal as wal_mod
 from .cardinality import SeriesAccountant, clamp_series
@@ -142,6 +147,17 @@ for _fam in HIST_SPECS:
     _HIST_SUFFIXES[_fam + "_count"] = (_fam, "count")
 del _fam
 
+# Families feeding the cached fleet digest (fleetlens.digest_from_series):
+# a delta touching one of these invalidates the digest, nothing else does.
+_DIGEST_PHASE = schema.TICK_PHASE_SECONDS.name
+_DIGEST_SLOWEST = schema.SLOWEST_TICK_SECONDS.name
+_DIGEST_BURST = schema.BURST_WATTS.name  # burst-aware power baseline
+# Host-pressure signals: deltas to these patch the cached digest's host
+# dict, so the invalidation set must cover them too.
+_DIGEST_HOST = frozenset((schema.HOST_PRESSURE.name,
+                          schema.HOST_NIC_DROP_RATE.name,
+                          schema.HOST_THROTTLE_RATE.name))
+
 # Compiled patch-action kinds (_TargetCache._compile_patch): what a
 # delta to a given slot must touch beyond the series views and plans.
 _PATCH_PLAIN = 0    # nothing derived consumes this family's value
@@ -149,6 +165,7 @@ _PATCH_ROW = 1      # frame-fold ChipRow gauge/counter column
 _PATCH_ICI = 2      # frame-fold ChipRow summed ICI rate
 _PATCH_ROLLUP = 3   # frame-fold slice_* rollup cell
 _PATCH_HIST = 4     # drop the cached histogram fold
+_PATCH_DIGEST = 5   # drop the cached fleet digest
 
 # Merge-plan skeletons are pure functions of (target, interned series
 # shape), so they live in a hub-level memo instead of dying with the
@@ -201,7 +218,7 @@ class _TargetCache:
 
     __slots__ = ("body", "body_hash", "series", "series_dicts",
                  "chip_plan", "rollup_plan", "hist_local", "frame_rows",
-                 "frame_rollups", "stat_sig", "pushed",
+                 "frame_rollups", "fleet_digest", "stat_sig", "pushed",
                  "wants_rollup", "patch_actions", "shape")
 
     def __init__(self, body: str, series: list,
@@ -223,6 +240,10 @@ class _TargetCache:
         self.hist_local: dict | None = None
         self.frame_rows: dict[tuple, ChipRow] | None = None
         self.frame_rollups: dict[tuple, float] | None = None
+        # Flight-recorder digest harvested from the body (fleetlens):
+        # cached like the other derived artifacts, so an unchanged body
+        # replays it with zero re-extraction.
+        self.fleet_digest: dict | None = None
         self.stat_sig = stat_sig
         # Delta-push entries: series/series_dicts stay
         # resident (they ARE the session state deltas patch), body is
@@ -268,9 +289,10 @@ class _TargetCache:
         arrive as full replacements), so the per-refresh cost of an
         active push target is proportional to its churn, not its series
         count. Only the folds a change actually feeds are touched: a
-        histogram slot drops the cached histogram fold, and
-        accelerator_*/slice_* slots update the pristine cached
-        ChipRow/rollup entries directly — the same values a full refold
+        histogram slot drops the cached histogram fold, a trace-digest
+        slot drops the cached fleet digest, and accelerator_*/slice_*
+        slots update the pristine cached ChipRow/rollup entries
+        directly — the same values a full refold
         would compute. This is the reference's per-slot Python loop
         (its differential oracle); its native batch store is not
         ported."""
@@ -312,6 +334,9 @@ class _TargetCache:
             if kind == _PATCH_HIST:
                 self.hist_local = None
                 continue
+            if kind == _PATCH_DIGEST:
+                self.fleet_digest = None
+                continue
             rows = self.frame_rows
             if rows is None:
                 continue
@@ -346,6 +371,9 @@ class _TargetCache:
                         if self.rollup_plan is not None else -1)
         if name in _HIST_SUFFIXES:
             action = (_PATCH_HIST, None, None, chip_index, rollup_index)
+        elif (name in (_DIGEST_PHASE, _DIGEST_SLOWEST, _DIGEST_BURST)
+              or name in _DIGEST_HOST):
+            action = (_PATCH_DIGEST, None, None, chip_index, rollup_index)
         elif name.startswith("slice_"):
             action = (_PATCH_ROLLUP,
                       (target, name, tuple(sorted(label_dict.items()))),
@@ -398,6 +426,13 @@ class Hub:
                  delta_ingest: bool = True,
                  push_fence: float | None = None,
                  federate: bool = False,
+                 fleet_lens: bool = True,
+                 slo_freshness_target: float =
+                 fleetlens.DEFAULT_FRESHNESS_TARGET,
+                 slo_straggler_target: float =
+                 fleetlens.DEFAULT_STRAGGLER_TARGET,
+                 slo_straggler_ratio: float =
+                 fleetlens.DEFAULT_STRAGGLER_RATIO,
                  ingest_lanes: int = 0,
                  ingest_delta_rate: float = 0.0,
                  ingest_max_inflight: int = 0,
@@ -413,7 +448,15 @@ class Hub:
                  series_high_watermark: int = 0,
                  series_low_watermark: int = 0,
                  series_idle_refreshes: int = 5,
-                 history=None) -> None:
+                 history=None,
+                 efficiency: bool = True,
+                 waste_warmup_refreshes: int =
+                 efficiency_mod.DEFAULT_WARMUP_REFRESHES,
+                 waste_idle_refreshes: int =
+                 efficiency_mod.DEFAULT_IDLE_REFRESHES,
+                 waste_idle_duty: float = efficiency_mod.DEFAULT_IDLE_DUTY,
+                 waste_top_k: int = efficiency_mod.DEFAULT_TOP_K,
+                 energy_audit_key: str = "") -> None:
         if not targets and targets_provider is None and not delta_ingest:
             raise ValueError("hub needs at least one target")
         # Order-preserving dedup: a target listed twice (positional +
@@ -538,6 +581,36 @@ class Hub:
         # hands the same tracer to its MetricsServer as the /debug
         # provider.
         self.tracer = tracer if tracer is not None else Tracer()
+        # Fleet lens: per-target rolling baselines + anomaly flagging
+        # into the event journal, cross-node slow-node attribution from
+        # the daemons' flight-recorder digests, and multi-window SLO
+        # burn rates — scored once per refresh, served as kts_fleet_*
+        # gauges, /debug/fleet, and doctor --fleet. None when disabled
+        # (--no-fleet-lens): /debug/fleet 404s.
+        self.fleet = fleetlens.FleetLens(
+            tracer=self.tracer,
+            freshness_target=slo_freshness_target,
+            straggler_target=slo_straggler_target,
+            straggler_ratio=slo_straggler_ratio,
+            efficiency=efficiency,
+            waste_warmup_refreshes=waste_warmup_refreshes,
+            waste_idle_refreshes=waste_idle_refreshes,
+            waste_idle_duty=waste_idle_duty,
+            waste_top_k=waste_top_k,
+        ) if fleet_lens else None
+        # Federation energy/waste attestation: the hub-side audit key
+        # signs the /debug/efficiency rollup (the daemon-side key signs
+        # /debug/energy; they are usually the same secret). Leaves'
+        # /debug/energy digests are fetched lazily from the HTTP handler
+        # thread with a short TTL cache — never from the refresh loop,
+        # which must not block on N extra fetches.
+        self._energy_audit_key = energy_audit_key
+        self._efficiency_enabled = efficiency and fleet_lens
+        self._energy_digest_cache: tuple[float, dict] | None = None
+        self._energy_digest_lock = threading.Lock()
+        # Injectable for tests: fetcher(url) -> digest dict (raises on
+        # failure). None = the default urllib fetch.
+        self._energy_fetcher = None
         # Delta-push ingest: daemons and leaf hubs
         # POST seq-numbered change-sets to /ingest/delta; the refresh
         # drains them straight onto the _TargetCache interned state,
@@ -1099,6 +1172,36 @@ class Hub:
                                 emit_series=not self._rollups_only)
         if not self._rollups_only:
             self._merge_histograms(builder, entries)
+        # Fleet lens scoring (before the parse views drop below: the
+        # digest harvest is the last consumer of series_dicts, cached on
+        # the entry like every other derived artifact).
+        if self.fleet is not None:
+            fleet_mark = tracer.mark()
+            digests: dict[str, dict] = {}
+            for target, entry in entries:
+                digest = entry.fleet_digest
+                if digest is None:
+                    digest = entry.fleet_digest = \
+                        fleetlens.digest_from_series(entry.series_dicts)
+                digests[target] = digest
+            # Push-aware fetch signal: a push-served target's 0.0
+            # fetch_seconds says the HUB paid nothing, but scoring it
+            # would blind the lens to a publisher falling behind — feed
+            # the delta-frame inter-arrival gap as that target's
+            # freshness signal instead (same units: seconds of telemetry
+            # latency the fleet actually experienced).
+            fetch_signal = fetch_seconds
+            if self.delta is not None and push_entries:
+                gaps = self.delta.frame_gaps()
+                fetch_signal = dict(fetch_seconds)
+                for target in push_entries:
+                    gap = gaps.get(target)
+                    if gap:
+                        fetch_signal[target] = gap
+            self.fleet.observe(self._cycle_seq, time.time(),
+                               self._targets, reachable, fetch_signal,
+                               frame, digests)
+            tracer.add_span("fleet_score", fleet_mark)
         # The parse views are consumed exactly once: every derived
         # artifact this hub's mode replays (frame fold, chip plan,
         # histogram fold) is now cached on the entry, so drop them — at
@@ -1153,6 +1256,78 @@ class Hub:
                 out[source] = entry
         return out
 
+    # -- federation energy/waste attestation ---------------------------------
+
+    # Leaves folded per attestation: bounds the handler-thread fetch
+    # fan-out on a big fleet (the bound is attested — totals carries
+    # targets_total vs leaves so a truncated fold is visible, never
+    # silent). The TTL keeps a scrape storm on /debug/efficiency from
+    # re-fetching every leaf per request.
+    _ENERGY_FOLD_CAP = 8
+    _ENERGY_FOLD_TTL = 30.0
+
+    def _fetch_energy_digest(self, url: str) -> dict:
+        import json
+        import urllib.request
+
+        request = urllib.request.Request(url)
+        if self._headers_provider is not None:
+            try:
+                for key, value in (self._headers_provider() or {}).items():
+                    request.add_header(key, value)
+            except Exception:  # noqa: BLE001 - a token-file hiccup must
+                # not kill the fold; the leaf then answers 401 and rides
+                # the attestation as an {"error": ...} stub.
+                pass
+        with urllib.request.urlopen(
+                request, timeout=self._fetch_timeout) as resp:
+            return json.loads(resp.read().decode("utf-8"))
+
+    def _leaf_energy_digests(self) -> tuple[dict[str, dict], int]:
+        """(target -> /debug/energy digest, eligible-target count) for
+        the attestation fold. Runs on HTTP handler threads (never the
+        refresh loop — N extra fetches must not blow the refresh
+        deadline), TTL-cached so scrapes amortize. Unreachable leaves
+        ride along as {"error": ...} stubs: a partial fold is still an
+        attestation, and the stub names the gap."""
+        http_targets = [t for t in self._targets
+                        if t.startswith(("http://", "https://"))]
+        with self._energy_digest_lock:
+            cached = self._energy_digest_cache
+            if (cached is not None
+                    and time.monotonic() - cached[0] < self._ENERGY_FOLD_TTL):
+                return cached[1], len(http_targets)
+        fetcher = self._energy_fetcher or self._fetch_energy_digest
+        leaves: dict[str, dict] = {}
+        for target in http_targets[:self._ENERGY_FOLD_CAP]:
+            base = target.rstrip("/")
+            if base.endswith("/metrics"):
+                base = base[:-len("/metrics")]
+            try:
+                leaves[target] = fetcher(base + "/debug/energy")
+            except Exception as exc:  # noqa: BLE001 - the stub is the
+                # evidence; the leaf's reachability already has its own
+                # freshness anomaly on the lens side.
+                leaves[target] = {"error": str(exc)}
+        with self._energy_digest_lock:
+            self._energy_digest_cache = (time.monotonic(), leaves)
+        return leaves, len(http_targets)
+
+    def efficiency_payload(self) -> dict:
+        """The /debug/efficiency provider: the leaves' signed
+        /debug/energy digests folded with this hub's waste ledger into
+        one canonical-JSON HMAC-signed attestation (efficiency.py owns
+        the shape; `doctor --efficiency` verifies the signature)."""
+        if not self._efficiency_enabled or self.fleet is None:
+            return {"enabled": False, "reason": "--no-efficiency"}
+        leaves, targets_total = self._leaf_energy_digests()
+        return efficiency_mod.build_attestation(
+            self.fleet.efficiency_summary(), leaves,
+            self._energy_audit_key,
+            node=os.environ.get("HOSTNAME", ""),
+            generated_at=time.time(),
+            targets_total=targets_total)
+
     def _blame_failed_fetch(self, target: str, what: str,
                             budget: float) -> None:
         """Record a target_fetch aux span for a fetch that blew the
@@ -1190,6 +1365,29 @@ class Hub:
         # The hub's own cycle digest (same families the daemons export),
         # so a hub-of-hubs attributes slow hubs exactly like slow nodes.
         fleetlens.contribute_trace_digest(builder, self.tracer)
+        # Fleet-lens gauges: anomaly counts, SLO burn windows, worst
+        # node. Contributed on EVERY publish branch (zero-targets too):
+        # the burn state must not vanish mid-incident.
+        if self.fleet is not None:
+            self.fleet.contribute(builder)
+            # Link-suspect verdicts ride the history ring so
+            # `doctor --fleet --at` can name a sick link after the
+            # incident cleared. Tombstone rows (0.0) are recorded too:
+            # nearest-sample reads must see the recovery.
+            if self.history is not None:
+                for link, reason, value in self.fleet.link_history_rows():
+                    self.history.record(
+                        schema.FLEET_LINK_SUSPECT.name,
+                        (("link", link), ("reason", reason)), value)
+                # Waste verdicts ride the ring too: `doctor --efficiency
+                # --at` answers "who was wasting cards during the
+                # incident" after the pod recovered.
+                for pod, namespace, reason, value in \
+                        self.fleet.waste_history_rows():
+                    self.history.record(
+                        schema.FLEET_WASTE_SUSPECT.name,
+                        (("pod", pod), ("namespace", namespace),
+                         ("reason", reason)), value)
         # Delta-ingest self-metrics: frame mix, wire bytes,
         # resync rate, and how much of the fleet rides push vs pull.
         if self.delta is not None:
@@ -1400,7 +1598,7 @@ class Hub:
         # release departed sources' footprints, then — above the high
         # watermark — LRU-evict idle sources. Evicted PUSH sources
         # leave the target list right here, so the prune loops below
-        # (parse cache, breakers, delta session) sweep
+        # (parse cache, breakers, fleet baselines, delta session) sweep
         # their state on the one churn path that already exists;
         # evicted CONFIGURED pull targets stay listed (the operator
         # chose them — only their cached state is released, and the
@@ -1442,6 +1640,8 @@ class Hub:
         # and so does delta-session state: a target
         # churned out of the list must not keep a live seq chain that a
         # restarted worker's frames could splice onto.
+        if self.fleet is not None:
+            self.fleet.evict(alive)
         if self.delta is not None:
             self.delta.evict(alive)
         # The stuck-fetch map prunes only FINISHED futures: a target
@@ -1565,9 +1765,10 @@ class Hub:
                             sum(r.ici_bps for r in rows), labels)
             # Per-worker step rate = mean over the worker's chips (SPMD:
             # every chip participates in each step, so chips of one
-            # worker report the same counter — mean, not sum). The one
-            # definition (fleetlens.worker_step_rates) that the fleet
-            # lens's straggler SLO will share when it is ported.
+            # worker report the same counter — mean, not sum). One
+            # definition shared with the fleet lens's straggler SLO
+            # (fleetlens.worker_step_rates), so the SLO can never
+            # desynchronize from the exported rollup.
             worker_rates = fleetlens.worker_step_rates(rows)
             rates = []
             for worker in sorted(worker_rates):
@@ -2215,24 +2416,44 @@ def main(argv: Sequence[str] | None = None) -> int:
                              "push cycle while catching up")
     parser.add_argument("--log-level", default="info",
                         choices=("debug", "info", "warning", "error"))
-    # Delta-push knobs: the SAME flag definitions the daemon parser
-    # carries (config.add_delta_push_flags), so spellings, env vars and
-    # defaults cannot drift between the two CLIs. On a hub, --hub-url
-    # points at the PARENT (root) hub of a federation tree.
+    # Fleet-lens / SLO + delta-push knobs: the SAME flag definitions the
+    # daemon parser carries (config.add_fleet_lens_flags /
+    # add_delta_push_flags), so spellings, env vars and defaults cannot
+    # drift between the two CLIs. On a hub, --hub-url points at the
+    # PARENT (root) hub of a federation tree.
     from .config import (add_cardinality_flags, add_delta_push_flags,
+                         add_efficiency_flags, add_fleet_lens_flags,
                          add_history_flags, add_hub_noop_flags,
                          add_ingest_guard_flags,
                          validate_cardinality_args,
                          validate_delta_push_args,
+                         validate_efficiency_args,
+                         validate_fleet_lens_args,
                          validate_history_args,
                          validate_ingest_guard_args)
 
+    add_fleet_lens_flags(parser)
     add_delta_push_flags(parser)
     add_ingest_guard_flags(parser)
     add_cardinality_flags(parser)
     add_history_flags(parser)
+    add_efficiency_flags(parser)
+    # Hub-side audit key: signs the /debug/efficiency energy/waste
+    # attestation — same spelling, env var and caveat as the daemon's
+    # /debug/energy key (usually the same secret).
+    parser.add_argument("--energy-audit-key",
+                        default=os.environ.get("KTS_ENERGY_AUDIT_KEY", ""),
+                        help="HMAC-SHA256 key signing the "
+                             "/debug/efficiency energy/waste rollup; "
+                             "the same key verifies it via `doctor "
+                             "--efficiency`. Empty serves it unsigned. "
+                             "Prefer the KTS_ENERGY_AUDIT_KEY env var "
+                             "(a flag value is visible in `ps`)")
     add_hub_noop_flags(parser)
     args = parser.parse_args(argv)
+    fleet_error = validate_fleet_lens_args(args)
+    if fleet_error:
+        parser.error(fleet_error)
     push_error = validate_delta_push_args(args)
     if push_error:
         parser.error(push_error)
@@ -2245,6 +2466,9 @@ def main(argv: Sequence[str] | None = None) -> int:
     history_error = validate_history_args(args)
     if history_error:
         parser.error(history_error)
+    efficiency_error = validate_efficiency_args(args)
+    if efficiency_error:
+        parser.error(efficiency_error)
     if args.ingest_lanes < 0 or args.ingest_lanes > 256:
         parser.error("--ingest-lanes must be 0 (auto) or 1..256")
     if args.ingest_procs < 0 or args.ingest_procs > 64:
@@ -2441,6 +2665,10 @@ def main(argv: Sequence[str] | None = None) -> int:
               delta_ingest=not args.no_delta_ingest,
               push_fence=args.push_fence or None,
               federate=args.federate,
+              fleet_lens=not args.no_fleet_lens,
+              slo_freshness_target=args.slo_freshness_target,
+              slo_straggler_target=args.slo_straggler_target,
+              slo_straggler_ratio=args.slo_straggler_ratio,
               ingest_lanes=args.ingest_lanes,
               ingest_delta_rate=args.ingest_delta_rate,
               ingest_max_inflight=args.ingest_max_inflight,
@@ -2456,7 +2684,13 @@ def main(argv: Sequence[str] | None = None) -> int:
               series_high_watermark=args.series_high_watermark,
               series_low_watermark=args.series_low_watermark,
               series_idle_refreshes=args.series_idle_refreshes,
-              history=history_store)
+              history=history_store,
+              efficiency=not args.no_efficiency,
+              waste_warmup_refreshes=args.waste_warmup_refreshes,
+              waste_idle_refreshes=args.waste_idle_refreshes,
+              waste_idle_duty=args.waste_idle_duty,
+              waste_top_k=args.waste_top_k,
+              energy_audit_key=args.energy_audit_key)
 
     # Push senders follow registry publishes, so they ship each merged
     # snapshot unmodified — the hub as a slice-level egress point.
@@ -2586,12 +2820,18 @@ def main(argv: Sequence[str] | None = None) -> int:
         ready_check=hub.ready,
         health_provider=supervisor.health_report,
         trace_provider=hub.tracer,
+        fleet_provider=hub.fleet,
         ingest_provider=hub.delta.handle if hub.delta is not None else None,
         egress_provider=egress_payload,
         skew_provider=skew_payload,
         stores_provider=stores_payload,
         cardinality_provider=cardinality_payload,
-        history_provider=history_store)
+        history_provider=history_store,
+        # Wired even under --no-efficiency: the provider then answers
+        # enabled:false (config diagnosis), while a hub with the lens
+        # off 404s — the established debug-endpoint contract.
+        efficiency_provider=hub.efficiency_payload
+        if hub.fleet is not None else None)
     # SIGTERM/SIGINT stop cleanly like the daemon (daemon.run): the push
     # senders flush the final snapshot on stop, so a pod reschedule is
     # not a data gap upstream.

@@ -10,8 +10,9 @@
   interconnect rates from the second tick, the textfile mirrors a scrape,
   ``/healthz`` names its components, SIGTERM exits 0.
 - ``--backend null``, the null → NVML upgrade through the watcher, the
-  flag surface (the reference's defaults; unwired flags rejected) and
-  the subcommands and doctor flags not ported yet.
+  flag surface (the reference's defaults; unwired flags rejected, the
+  fleet-lens flags accepted with the reference's values) and the
+  subcommands' usage errors.
 """
 
 import pathlib
@@ -329,11 +330,53 @@ def test_backend_nvml_failure_exits_non_zero(monkeypatch, caplog):
     ["--backend", "gpu"],
 ])
 def test_unwired_reference_flags_are_rejected(argv, capsys):
-    ref_config.from_args(argv)  # the reference accepts each of them
+    """The reference accepts each of them. The port refuses the ones it
+    does not wire; the fleet-lens flags it carries, as the reference's
+    daemon does, so a manifest written for either parses alike."""
+    want = ref_config.from_args(argv)
+    if argv[0].startswith(("--slo-", "--no-fleet-lens")):
+        got = config.from_args(argv)
+        for field in ("fleet_lens", "slo_freshness_target",
+                      "slo_straggler_target", "slo_straggler_ratio"):
+            assert getattr(got, field) == getattr(want, field), field
+        return
     with pytest.raises(SystemExit) as info:
         config.from_args(argv)
     assert info.value.code == 2
     assert "usage:" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,env", [
+    (["--slo-freshness-target", "0.9", "--slo-straggler-target", "0.6",
+      "--slo-straggler-ratio", "1"], {}),
+    (["--no-fleet-lens"], {}),
+    ([], {"KTS_SLO_FRESHNESS_TARGET": "0.995",
+          "KTS_SLO_STRAGGLER_RATIO": "0.1", "KTS_NO_FLEET_LENS": "1"}),
+], ids=range(3))
+def test_the_fleet_lens_flags_parse_as_the_reference(monkeypatch, argv, env):
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    got, want = config.from_args(argv), ref_config.from_args(argv)
+    for field in ("fleet_lens", "slo_freshness_target",
+                  "slo_straggler_target", "slo_straggler_ratio"):
+        assert getattr(got, field) == getattr(want, field), field
+
+
+@pytest.mark.parametrize("argv", [["--slo-freshness-target", "1"],
+                                  ["--slo-straggler-target", "0"],
+                                  ["--slo-straggler-ratio", "0"],
+                                  ["--slo-straggler-ratio", "1.01"]],
+                         ids=range(4))
+def test_bad_fleet_lens_values_are_refused_as_the_reference(argv, capsys):
+    messages = []
+    for mod in (config, ref_config):
+        with pytest.raises(SystemExit) as info:
+            mod.from_args(argv)
+        assert info.value.code == 2
+        messages.append(capsys.readouterr().err.strip().splitlines()[-1]
+                        .split("error: ", 1)[-1])
+    assert messages[0] == messages[1]
+    assert "must be in" in messages[0]
 
 
 def test_flags_keep_the_reference_defaults_and_environment(monkeypatch):
@@ -371,12 +414,12 @@ def test_config_file_layers_under_flags(tmp_path):
 
 @pytest.mark.parametrize("sub", ["doctor", "top", "hub"])
 def test_subcommands_not_ported_exit_2(sub, capsys, tmp_path):
-    """Every subcommand runs; what exits 2 is a part not ported yet. The
-    doctor names its later rows; the hub's parser refuses a flag that
-    configures an unported part; top, whole, exits 2 the reference's
-    way when no target answered."""
-    argv = {"doctor": ["doctor", "--fleet"],
-            "hub": ["hub", "--slo-freshness-target", "0.9", "--once"],
+    """Every subcommand runs, and exits 2 on a usage error the
+    reference's way: the doctor's ``--at`` with neither ``--fleet`` nor
+    ``--efficiency``, the hub's SLO target out of range, top when no
+    target answered."""
+    argv = {"doctor": ["doctor", "--at", "10m"],
+            "hub": ["hub", "--slo-freshness-target", "2", "--once"],
             "top": ["top", "--once", str(tmp_path / "absent.prom")]}[sub]
     try:
         rc = cli.main(argv)
@@ -384,8 +427,8 @@ def test_subcommands_not_ported_exit_2(sub, capsys, tmp_path):
         rc = exc.code
     assert rc == 2
     err = capsys.readouterr().err
-    assert {"doctor": "not ported yet",
-            "hub": "unrecognized arguments: --slo-freshness-target",
+    assert {"doctor": "--at only makes sense with --fleet or --efficiency",
+            "hub": "--slo-freshness-target must be in (0, 1)",
             "top": "absent.prom"}[sub] in err
 
 

@@ -13,6 +13,13 @@
   the versions and per-card UUID/minor; its NVML reference is its own.
 - ``_bounded``, ``check_embedded_viability`` and ``main``'s flags, exit
   codes and ``--json`` shape.
+- The fleet-lens rows: ``fleet_post_mortem`` on canned rollups (the
+  worst node, anomalies, the joined host verdict, a suspect link whose
+  endpoints it suppresses, burn over budget, a clean fleet), and
+  ``check_fleet`` and ``check_fleet_at`` against live servers (a rollup
+  served, a leaf hub walked, 404, unreachable, a ring with a straggler
+  and a suspect link, a disabled ring): the reference's status, text
+  and data.
 """
 
 import dataclasses
@@ -458,12 +465,39 @@ def test_url_without_a_target_exits_2(argv, capsys):
     assert "--url requires a target" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag", list(doctor.NOT_PORTED_FLAGS)
-                         + ["--at=10m", "--fleet=x"])
+@pytest.mark.parametrize("flag", ["--fleet", "--efficiency", "--at",
+                                  "--at=10m", "--fleet=x"])
 def test_later_item_flags_exit_2(flag, capsys):
-    assert doctor.main(["--backend", "mock", flag]) == 2
-    err = capsys.readouterr().err
-    assert f"doctor {flag.partition('=')[0]}: not ported yet" in err
+    """The flags whose rows came with the fleet lens: ``--fleet`` and
+    ``--efficiency`` run their rows (FAIL with no hub at the --url:
+    exit 1); what still exits 2 is what the reference's doctor also
+    refuses as usage (``--at`` with no time, ``--at`` without
+    ``--fleet``/``--efficiency``, a value on ``--fleet``), with the
+    reference's message."""
+    argv = ["--backend", "mock", "--json", flag, "--url",
+            "http://127.0.0.1:9/metrics"]
+    if flag in ("--fleet", "--efficiency"):
+        assert doctor.main(argv) == 1
+        rows = {r["name"]: r
+                for r in json.loads(capsys.readouterr().out)["checks"]}
+        assert rows[flag[2:]]["status"] == "fail"
+        return
+    argv = ["--backend", "mock", flag]
+    got = _exit_code(doctor.main, argv)
+    got_err = capsys.readouterr().err
+    want = _exit_code(ref_doctor.main, argv)
+    want_err = capsys.readouterr().err
+    assert got == want == 2
+    assert got_err.strip().splitlines()[-1].split(": ")[-1] == \
+        want_err.strip().splitlines()[-1].split(": ")[-1]
+    assert "not ported yet" not in got_err
+
+
+def _exit_code(main, argv) -> int:
+    try:
+        return main(argv)
+    except SystemExit as exc:
+        return exc.code
 
 
 def _json_shape(payload: dict) -> tuple:
@@ -632,19 +666,218 @@ def test_doctor_host_reads_a_running_daemon(capsys):
 
 
 def test_doctor_energy_still_exits_2(capsys):
-    """``--energy``, ``--stores``, ``--egress``, ``--skew`` and
-    ``--cardinality`` are ported now: with no server listening they run
-    their rows (FAIL: unreachable) and exit 1, never 2; the flags still
-    to come exit 2."""
+    """``--energy``, ``--stores``, ``--egress``, ``--skew``,
+    ``--cardinality``, ``--fleet`` and ``--efficiency`` are ported: with
+    no server listening they run their rows (FAIL: unreachable) and exit
+    1, never 2; ``--fleet --at`` runs its ring row the same way."""
     for flag in ("--energy", "--stores", "--egress", "--skew",
-                 "--cardinality"):
-        assert flag not in doctor.NOT_PORTED_FLAGS
+                 "--cardinality", "--fleet", "--efficiency"):
         assert doctor.main(["--backend", "mock", "--json", flag,
                             "--listen-port", "9", "--url",
                             "http://127.0.0.1:9/metrics"]) == 1
         payload = json.loads(capsys.readouterr().out)
         rows = {row["name"]: row for row in payload["checks"]}
         assert rows[flag[2:]]["status"] == "fail"
-    assert doctor.main(["--backend", "mock", "--fleet"]) == 2
-    assert "doctor --fleet: not ported yet" in capsys.readouterr().err
-    assert "--host" not in doctor.NOT_PORTED_FLAGS
+    assert doctor.main(["--backend", "mock", "--json", "--fleet", "--at",
+                        "10m", "--url", "http://127.0.0.1:9/metrics"]) == 1
+    rows = {row["name"]: row
+            for row in json.loads(capsys.readouterr().out)["checks"]}
+    assert rows["fleet-at"]["status"] == "fail"
+    assert not hasattr(doctor, "NOT_PORTED_FLAGS")
+
+
+# -- the fleet-lens rows -------------------------------------------------------
+
+def _canned_rollup() -> dict:
+    return {
+        "enabled": True, "seq": 42,
+        "targets": {
+            "http://w0:9400/metrics": {"anomalous": {}, "signals": {}},
+            "http://w3:9400/metrics": {
+                "anomalous": {"stale_fraction": 9.5, "freshness": 3.0},
+                "missed": 5, "signals": {},
+                "digest": {"slowest": {"seconds": 0.4,
+                                       "phase": "env_round",
+                                       "blame": "device=0"}}},
+        },
+        "anomalies": [],
+        "slo": {
+            "freshness": {"target": 0.99, "windows": {
+                "5m": {"bad_ratio": 0.25, "burn_rate": 25.0, "events": 30},
+                "1h": {"bad_ratio": 0.02, "burn_rate": 2.0,
+                       "events": 360}}},
+            "straggler": {"target": 0.95, "ratio_min": 0.75, "windows": {
+                "5m": {"bad_ratio": 0.0, "burn_rate": 0.0, "events": 30},
+                "1h": {"bad_ratio": 0.0, "burn_rate": 0.0,
+                       "events": 360}}},
+        },
+        "attribution": {"target": "http://w7:9400/metrics",
+                        "seconds": 1.2, "phase": "fetch_wait",
+                        "blame": "device=3"},
+    }
+
+
+def _rollup_case(case: str) -> dict:
+    payload = _canned_rollup()
+    targets = payload["targets"]
+    if case == "joined-host":
+        targets["http://w7:9400/metrics"] = {
+            "anomalous": {"fetch": 6.2, "host_mem_stall": 9.0,
+                          "host_throttle": 4.5, "host_weird": 2.0},
+            "signals": {},
+            "digest": {"slowest": {"seconds": 1.2, "phase": "fetch_wait",
+                                   "blame": "device=3"},
+                       "host": {"mem_full_avg10": 18.0,
+                                "throttle_rate": 2.0}}}
+    elif case == "host-only":
+        targets["http://w1:9400/metrics"] = {
+            "anomalous": {"host_io_stall": 5.0}, "signals": {},
+            "digest": {"host": {"io_full_avg10": 7.0}}}
+    elif case == "worst-with-host":
+        targets["http://w7:9400/metrics"] = {
+            "anomalous": {"host_mem_stall": 12.0}, "signals": {},
+            "digest": {"host": {}}}
+    elif case == "link":
+        for worker, kinds in (("1", {"ici": 5.0, "steps": 4.2}),
+                              ("2", {"fetch": 7.0, "host_nic_drops": 9.0}),
+                              ("4", {"ici": 6.0, "duty": 5.0})):
+            targets[f"http://w{worker}:9400/metrics"] = {
+                "anomalous": kinds, "signals": {}}
+        payload["links"] = {"suspects": {"1-2": {
+            "reason": "ici-rate+anomaly-correlated+host-counter-confirmed",
+            "endpoints": ["1", "2"],
+            "targets": ["http://w1:9400/metrics",
+                        "http://w2:9400/metrics"],
+            "drop": 0.62}}}
+    elif case == "clean":
+        targets["http://w3:9400/metrics"]["anomalous"] = {}
+        for objective in payload["slo"].values():
+            for window in objective["windows"].values():
+                window["burn_rate"] = 0.5
+    elif case == "empty":
+        payload = {"enabled": True, "targets": {"a": {}}}
+    return payload
+
+
+@pytest.mark.parametrize("case", ["canned", "joined-host", "host-only",
+                                  "worst-with-host", "link", "clean",
+                                  "empty"])
+def test_fleet_post_mortem_equals_the_reference(case):
+    payload = _rollup_case(case)
+    got = doctor.fleet_post_mortem(payload)
+    assert got == ref_doctor.fleet_post_mortem(payload)
+    status = {"clean": "ok", "empty": "ok"}.get(case, "warn")
+    assert got[0] == status, got[1]
+    if case == "link":
+        assert "shared ICI link 1-2 suspect, host-counter-confirmed" \
+            in got[1]
+        assert got[2]["link_explained"] == {
+            "http://w1:9400/metrics": "1-2", "http://w2:9400/metrics": "1-2"}
+        assert "http://w4:9400/metrics" in got[2]["anomalous"]
+
+
+def _fleet_server(provider=None, history=None):
+    from kube_gpu_stats_tpu_torch.exposition import MetricsServer
+    from kube_gpu_stats_tpu_torch.registry import Registry
+
+    server = MetricsServer(Registry(), host="127.0.0.1", port=0,
+                           fleet_provider=provider,
+                           history_provider=history)
+    server.start()
+    return server
+
+
+class _Rollup:
+    def __init__(self, payload: dict) -> None:
+        self.payload = payload
+
+    def rollup(self) -> dict:
+        return self.payload
+
+
+def _fleet_rows(base: str, at: float | None = None) -> tuple:
+    if at is None:
+        got, want = doctor.check_fleet(base), ref_doctor.check_fleet(base)
+    else:
+        got = doctor.check_fleet_at(base, at)
+        want = ref_doctor.check_fleet_at(base, at)
+    assert (got.name, got.status, got.detail, got.data) == \
+        (want.name, want.status, want.detail, want.data)
+    return got
+
+
+@pytest.mark.parametrize("case", ["canned", "clean", "no-targets",
+                                  "missing", "unreachable", "leaf-hub"])
+def test_check_fleet_equals_the_reference(case):
+    servers = []
+    try:
+        if case == "unreachable":
+            import socket
+
+            with socket.socket() as probe:
+                probe.bind(("127.0.0.1", 0))
+                base = f"http://127.0.0.1:{probe.getsockname()[1]}"
+            assert _fleet_rows(base).status == "fail"
+            return
+        if case == "leaf-hub":
+            leaf = _fleet_server(_Rollup(_rollup_case("canned")))
+            servers.append(leaf)
+            root = _rollup_case("clean")
+            root["targets"] = {
+                f"http://127.0.0.1:{leaf.port}/metrics":
+                    {"anomalous": {}, "signals": {}}}
+            provider = _Rollup(root)
+        else:
+            provider = {"canned": _Rollup(_rollup_case("canned")),
+                        "clean": _Rollup(_rollup_case("clean")),
+                        "no-targets": _Rollup({"enabled": True,
+                                               "targets": {}, "seq": 3}),
+                        "missing": None}[case]
+        server = _fleet_server(provider)
+        servers.append(server)
+        row = _fleet_rows(f"http://127.0.0.1:{server.port}")
+        assert row.status == {"canned": "warn", "clean": "ok",
+                              "no-targets": "warn", "missing": "warn",
+                              "leaf-hub": "warn"}[case]
+        if case == "leaf-hub":
+            assert "| leaf http://127.0.0.1:" in row.detail
+    finally:
+        for server in servers:
+            server.stop()
+
+
+@pytest.mark.parametrize("case", ["straggler", "healthy", "disabled",
+                                  "empty"])
+def test_check_fleet_at_equals_the_reference(case):
+    import time as time_mod
+
+    from kube_gpu_stats_tpu_torch import history
+
+    store = history.HistoryStore(enabled=case != "disabled")
+    t0 = time_mod.time() - 900.0
+    if case != "empty":
+        for worker, rate in (("w0", 10.0), ("w1", 10.0), ("w2", 2.0)):
+            store.record("slice_worker_steps_per_second",
+                         (("slice", "s0"), ("worker", worker)), rate)
+        store.record("slice_target_up", (("target", "node-2:9400"),), 0.0)
+        store.record("kts_fleet_link_suspect",
+                     (("link", "1-2"), ("reason", "ici-rate")), 1.0)
+        store.commit(t0, 1)
+        for worker in ("w0", "w1", "w2"):
+            store.record("slice_worker_steps_per_second",
+                         (("slice", "s0"), ("worker", worker)), 10.0)
+        store.record("slice_target_up", (("target", "node-2:9400"),), 1.0)
+        store.record("kts_fleet_link_suspect",
+                     (("link", "1-2"), ("reason", "ici-rate")), 0.0)
+        store.commit(t0 + 600.0, 2)
+    server = _fleet_server(history=store)
+    try:
+        at = t0 + (600.0 if case == "healthy" else 0.0)
+        row = _fleet_rows(f"http://127.0.0.1:{server.port}", at)
+        assert row.status == {"straggler": "warn", "healthy": "ok",
+                              "disabled": "warn", "empty": "warn"}[case]
+        if case == "straggler":
+            assert "straggler worker w2" in row.detail
+            assert "ICI link 1-2 was suspect" in row.detail
+    finally:
+        server.stop()

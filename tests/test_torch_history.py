@@ -9,8 +9,11 @@ identity churn, ``QueryGate``'s verdicts on an injected clock, and the
 equal. The reference's own cases (``tests/test_history.py``: the bucket
 mean against a brute-force oracle, the fixed memory bound, the ring
 that a restart does not keep and the ETags that keep restarts apart,
-the 304, gzip, validation, the gate) run on the port the same way; the
-doctor's ``--at`` replay waits for the fleet lens.
+the 304, gzip, validation, the gate) run on the port the same way, and
+so does ``TestDoctorAt``: the doctor's ``--fleet --at`` and
+``--efficiency --at`` verdicts replayed from both packages' rings
+through a straggler and waste episode and its recovery, each package's
+verdict on its own ring equal to the other's.
 
 Exact throughout: the same float operations in the same order.
 """
@@ -472,3 +475,111 @@ def test_contribute_renders_the_references_text(enabled):
     assert texts[0] == texts[1]
     assert "kts_history_series_shed_total" in texts[0]
     assert "kts_query_requests_total" in texts[0]
+
+
+# -- the doctor's --at replay ---------------------------------------------------
+
+class TestDoctorAt:
+    """`doctor --fleet --at` and `--efficiency --at` replay the verdict
+    from ring payloads: a real store of each package through a
+    straggler episode (and a waste verdict, and a suspect link) and its
+    recovery. The past still names the straggler in both."""
+
+    STEPS = "slice_worker_steps_per_second"
+    UP = "slice_target_up"
+    RATIO = "slice_straggler_ratio"
+    LINKS = "kts_fleet_link_suspect"
+    WASTE = "kts_fleet_waste_suspect"
+
+    def make_history(self) -> tuple[Pair, float]:
+        pair = Pair()
+        t0 = BASE
+        # t0: worker w2 straggling at 2 steps/s, target node-2 down, a
+        # link accused, a pod wasting cards.
+        for worker, rate in (("w0", 10.0), ("w1", 10.0), ("w2", 2.0)):
+            pair.record(self.STEPS, (("slice", "s0"), ("worker", worker)),
+                        rate)
+        pair.record(self.RATIO, (("slice", "s0"),), 0.2)
+        pair.record(self.UP, (("target", "node-2:9400"),), 0.0)
+        pair.record(self.LINKS, (("link", "1-2"), ("reason", "ici-rate")),
+                    1.0)
+        pair.record(self.WASTE, (("pod", "train-1"), ("namespace", "ml"),
+                                 ("reason", "idle-reservation")), 1.0)
+        pair.commit(t0, 1)
+        # t0+600: fully recovered (tombstones for the verdicts).
+        for worker in ("w0", "w1", "w2"):
+            pair.record(self.STEPS, (("slice", "s0"), ("worker", worker)),
+                        10.0)
+        pair.record(self.RATIO, (("slice", "s0"),), 1.0)
+        pair.record(self.UP, (("target", "node-2:9400"),), 1.0)
+        pair.record(self.LINKS, (("link", "1-2"), ("reason", "ici-rate")),
+                    0.0)
+        pair.record(self.WASTE, (("pod", "train-1"), ("namespace", "ml"),
+                                 ("reason", "idle-reservation")), 0.0)
+        pair.commit(t0 + 600.0, 2)
+        return pair, t0
+
+    def verdicts_at(self, pair: Pair, ts: float):
+        from kube_gpu_stats_tpu import doctor as ref_doctor
+        from kube_gpu_stats_tpu_torch import doctor
+
+        out = []
+        for store, mod in ((pair.port, doctor), (pair.ref, ref_doctor)):
+            fleet = mod.fleet_at_verdict(
+                store.at_payload(self.STEPS, ts),
+                store.at_payload(self.UP, ts),
+                store.at_payload(self.RATIO, ts), ts,
+                links_payload=store.at_payload(self.LINKS, ts))
+            waste = mod.efficiency_at_verdict(
+                store.at_payload(self.WASTE, ts), ts)
+            out.append((fleet, waste))
+        assert out[0] == out[1]
+        return out[0]
+
+    def test_straggler_ten_minutes_ago_stays_named_after_recovery(self):
+        pair, t0 = self.make_history()
+        (status, detail, data), waste = self.verdicts_at(pair, t0)
+        assert status == "warn"
+        assert "straggler worker w2" in detail
+        assert "ratio 0.20" in detail
+        assert "as of" in detail
+        assert "node-2:9400 was down" in detail
+        assert "ICI link 1-2 was suspect (ici-rate" in detail
+        assert data["slices"]["s0"]["slowest_worker"] == "w2"
+        assert data["targets_down"] == ["node-2:9400"]
+        assert waste[0] == "warn"
+        assert "ml/train-1 was wasting chips (idle-reservation" in waste[1]
+
+    def test_now_is_healthy_after_recovery(self):
+        pair, t0 = self.make_history()
+        (status, detail, _data), waste = self.verdicts_at(pair, t0 + 600.0)
+        assert status == "ok"
+        assert "fleet healthy" in detail
+        assert waste[0] == "ok" and "no pod was wasting chips" in waste[1]
+
+    def test_empty_ring_says_it_does_not_survive_restarts(self):
+        from kube_gpu_stats_tpu import doctor as ref_doctor
+        from kube_gpu_stats_tpu_torch import doctor
+
+        empty = {"series": []}
+        got = doctor.fleet_at_verdict(empty, empty, empty, BASE)
+        assert got == ref_doctor.fleet_at_verdict(empty, empty, empty, BASE)
+        assert got[0] == "warn"
+        assert "does not survive a restart" in got[1]
+        got = doctor.efficiency_at_verdict(empty, BASE)
+        assert got == ref_doctor.efficiency_at_verdict(empty, BASE)
+        assert got[0] == "warn" and "no waste samples" in got[1]
+
+    @pytest.mark.parametrize("raw", ["600", "10m", "-2h", "1700000000",
+                                     "1.5h", "", "x", "-"])
+    def test_parse_at_equals_the_reference(self, raw):
+        from kube_gpu_stats_tpu import doctor as ref_doctor
+        from kube_gpu_stats_tpu_torch import doctor
+
+        def parsed(mod):
+            try:
+                return mod.parse_at(raw, BASE)
+            except ValueError as exc:
+                return str(exc)
+
+        assert parsed(doctor) == parsed(ref_doctor)

@@ -1,13 +1,15 @@
 """The port's hub against the reference's on the same targets.
 
-The port's ``Hub`` and the reference's ``Hub(fleet_lens=False,
-efficiency=False, history=None, native_ingest=False)`` (the parts the
-port leaves off, in their off state) get the same targets: ``.prom``
-files, HTTP targets served by a small server, and push sessions whose
-frames reach both hubs' ingests (from the port's and the reference's
-``DeltaPublisher`` over HTTP, through a receiver that hands each frame
-to both). The monotonic clock is pinned and stepped between refreshes,
-so every rate has the same denominator in both. After each
+The port's ``Hub`` and the reference's ``Hub(history=None,
+native_ingest=False)`` (the native store the port leaves off, in its off
+state; the fleet lens and the efficiency lens on in both, at their
+defaults) get the same targets: ``.prom`` files, HTTP targets served by
+a small server, and push sessions whose frames reach both hubs' ingests
+(from the port's and the reference's ``DeltaPublisher`` over HTTP,
+through a receiver that hands each frame to both). The monotonic clock
+is pinned and stepped between refreshes, so every rate has the same
+denominator in both, and the wall clock with it, so the lens's SLO
+windows hold the same instants. After each
 ``refresh_once`` the rendered, uncompressed ``/metrics`` text is equal,
 except for the families that time the hub itself (``TIMED``) and the
 hub's own process readings (``PROCESS``), named below; the build label
@@ -23,7 +25,14 @@ refusals counted; a warm restart from the ingest checkpoint; the
 history ring fed by both hubs (each with its package's
 ``HistoryStore``, the wall clock pinned too), its ``/query`` answers for
 every family, window and a spread of ``at=`` times, its cap and its
-disabled form.
+disabled form; the same hubs with both lenses off (no ``kts_fleet_*``);
+and a lens scenario (a card gone idle in its pod, a straggler, a
+silent node, churn) that holds ``/debug/fleet``, ``/debug/efficiency``
+(up to ``generated_at``, over an injected energy fetcher), the ring's
+link and waste rows and the lens's eviction equal too; and four workers
+of a 4x1 torus whose shared link is accused and cleared alike, through
+both rings (the 1.0 row, then its 0.0 tombstone) and both packages'
+servers.
 
 Exact throughout: the rollups are sums, means, mins and maxes over the
 same floats in the same order, formatted by the same ``format_value``.
@@ -33,6 +42,7 @@ from __future__ import annotations
 
 import http.server
 import json
+import os
 import threading
 import time
 
@@ -101,7 +111,8 @@ def _comparable(text: str, port: bool) -> list[str]:
 class Clock:
     """time.monotonic pinned between steps: every call inside one
     refresh reads the same instant, so fetch stamps, push stamps and
-    rate denominators are equal in both hubs."""
+    rate denominators are equal in both hubs. time.time follows it at
+    a fixed offset (the fleet lens stamps each refresh with it)."""
 
     def __init__(self) -> None:
         self.now = 5000.0
@@ -125,13 +136,14 @@ def fresh_store_registries():
 def clock(monkeypatch):
     c = Clock()
     monkeypatch.setattr(time, "monotonic", c)
+    monkeypatch.setattr(time, "time", lambda: 1_700_000_000.0 + c.now)
     return c
 
 
 def _hubs(targets, **kwargs):
     port = hub.Hub(list(targets), **kwargs)
-    ref = ref_hub.Hub(list(targets), fleet_lens=False, efficiency=False,
-                      history=None, native_ingest=False, **kwargs)
+    ref = ref_hub.Hub(list(targets), history=None, native_ingest=False,
+                      **kwargs)
     return port, ref
 
 
@@ -478,7 +490,6 @@ def test_file_target_churn(tmp_path, clock):
                 port = hub.Hub([], interval=1.0, targets_provider=provider)
                 ref = ref_hub.Hub([], interval=1.0,
                                   targets_provider=ref_provider,
-                                  fleet_lens=False, efficiency=False,
                                   history=None, native_ingest=False)
             clock.now += 1.0
             text = _refresh(port, ref)
@@ -626,7 +637,7 @@ def _history_hubs(targets, store_kwargs=None, **kwargs):
     store_kwargs = store_kwargs or {}
     port = hub.Hub(list(targets),
                    history=history.HistoryStore(**store_kwargs), **kwargs)
-    ref = ref_hub.Hub(list(targets), fleet_lens=False, efficiency=False,
+    ref = ref_hub.Hub(list(targets),
                       history=ref_history.HistoryStore(**store_kwargs),
                       native_ingest=False, **kwargs)
     return port, ref
@@ -752,3 +763,258 @@ def test_a_disabled_ring_answers_enabled_false(tmp_path, clock, monkeypatch):
         assert status == 200 and json.loads(body)["enabled"] is False
     finally:
         _stop(port, ref)
+
+
+# -- the fleet lens through the hub ----------------------------------------------
+
+def test_lens_off_hubs_equal_the_reference(tmp_path, clock):
+    """``--no-fleet-lens --no-efficiency`` on both: the off state, with
+    no kts_fleet_* family of the lens on either exposition."""
+    rng = np.random.default_rng(40)
+    paths = [str(tmp_path / f"o{i}.prom") for i in range(2)]
+    port = hub.Hub(paths, interval=1.0, fleet_lens=False, efficiency=False)
+    ref = ref_hub.Hub(paths, interval=1.0, fleet_lens=False,
+                      efficiency=False, history=None, native_ingest=False)
+    try:
+        assert port.fleet is None
+        for step in range(1, 4):
+            for i, path in enumerate(paths):
+                with open(path, "w") as handle:
+                    handle.write(_node(rng, f"node-{i:02d}", 2, step))
+            clock.now += 1.0
+            text = _refresh(port, ref)
+        assert not [line for line in text.splitlines()
+                    if line.startswith("kts_fleet_")
+                    and not line.startswith("kts_fleet_version_count")]
+        assert port.efficiency_payload() == ref.efficiency_payload() == {
+            "enabled": False, "reason": "--no-efficiency"}
+    finally:
+        _stop(port, ref)
+
+
+def _lens_node(rng, worker: int, step: int, *, idle: bool = False,
+               collapsed: bool = False, slow: float = 0.0) -> str:
+    """One node of two cards held by the pod ``job-<worker>``, with the
+    daemon's trace digest and per-pod energy."""
+    lines = []
+    for card in range(2):
+        base = (f'chip="{card}",namespace="ml",pod="job-{worker}",'
+                f'slice="h100-a",worker="{worker}"')
+        duty = 0.0 if idle else 70.0 + float(rng.normal(0.0, 1.0))
+        if collapsed:
+            duty = 4.0
+        lines += [
+            f"accelerator_up{{{base}}} 1",
+            f"accelerator_duty_cycle{{{base}}} {duty:.4f}",
+            f"accelerator_memory_used_bytes{{{base}}} "
+            f"{40 * 2**30 + float(rng.normal(0.0, 2**26)):.1f}",
+            f"accelerator_power_watts{{{base}}} "
+            f"{(90.0 if idle else 600.0) + float(rng.normal(0.0, 2.0)):.4f}",
+            f"accelerator_workload_steps_total{{{base}}} "
+            f"{(0 if idle else 10) * step + 1000}",
+            f'accelerator_ici_link_bandwidth_bytes_per_second{{{base},'
+            f'link="nvlink{card}"}} {1e11 + float(rng.normal(0, 1e8)):.1f}',
+        ]
+    lines += [
+        f'kts_slowest_tick_seconds{{phase="env_round",blame="device=1"}} '
+        f'{0.004 + slow + float(rng.uniform(0.0, 1e-3)):.6f}',
+        f'kts_tick_phase_seconds{{phase="env_round",quantile="p50"}} 0.002',
+        f'kts_energy_pod_joules_total{{pod="job-{worker}",namespace="ml"}} '
+        f'{1200.0 * step + worker}',
+        "kts_energy_coverage_ratio 0.25",
+    ]
+    return "\n".join(lines) + "\n"
+
+
+def test_the_fleet_lens_through_both_hubs(tmp_path, exporters, clock,
+                                         monkeypatch):
+    """Six nodes (four files, two HTTP) through 24 refreshes, the ring
+    on: node 1's duty collapses (9-12), pod job-2 holds its cards idle
+    (13-22), node 4 is the slowest tick from 5 on, node 3's file
+    vanishes (15-18). After each refresh the /metrics text, the
+    /debug/fleet rollup, the /debug/efficiency attestation over an
+    injected energy fetcher (up to generated_at and the HMAC over it)
+    and the ring's link and waste rows (tombstones included) are equal;
+    then nodes 4 and 5 leave the target list and the lens evicts them
+    in both."""
+    from kube_gpu_stats_tpu import history as ref_history
+    from kube_gpu_stats_tpu import resilience as ref_resilience
+    from kube_gpu_stats_tpu_torch import energy, history, resilience
+
+    # The targets' breakers on the pinned clock too: the vanished file's
+    # breaker opens at its third miss and half-opens after two intervals
+    # of this clock, in both hubs alike.
+    for mod in (resilience, ref_resilience):
+        monkeypatch.setitem(mod.CircuitBreaker.__init__.__kwdefaults__,
+                            "clock", clock)
+    rng = np.random.default_rng(41)
+    paths = [str(tmp_path / f"f{i}.prom") for i in range(4)]
+    urls = [exporters.url("h4"), exporters.url("h5")]
+    listed = paths + urls
+    leaf = {"version": 1, "node": "n", "generated_at": 1.0,
+            "per_pod": [["job-4", "ml", 99.0]], "coverage_ratio": 0.25,
+            "enabled": True, "signed": False}
+
+    def fetcher(url):
+        if "h5" in url:
+            raise OSError("connection refused")
+        return dict(leaf)
+
+    port = hub.Hub([], targets_provider=lambda: list(listed), interval=10.0,
+                   history=history.HistoryStore(query_qps=0.0),
+                   energy_audit_key="k")
+    ref = ref_hub.Hub([], targets_provider=lambda: list(listed),
+                      interval=10.0, native_ingest=False,
+                      history=ref_history.HistoryStore(query_qps=0.0),
+                      energy_audit_key="k")
+    port._energy_fetcher = ref._energy_fetcher = fetcher
+    try:
+        for step in range(1, 25):
+            for w in range(6):
+                body = _lens_node(rng, w, step,
+                                  idle=(w == 2 and 13 <= step <= 22),
+                                  collapsed=(w == 1 and 9 <= step <= 12),
+                                  slow=0.2 if (w == 4 and step >= 5) else 0)
+                if w < 4:
+                    if w == 3 and 15 <= step <= 18:
+                        if os.path.exists(paths[3]):
+                            os.unlink(paths[3])
+                        continue
+                    with open(paths[w], "w") as handle:
+                        handle.write(body)
+                else:
+                    exporters.bodies[f"h{w}"] = body
+            clock.now += 10.0
+            port._energy_digest_cache = ref._energy_digest_cache = None
+            text = _refresh(port, ref)
+            assert json.dumps(port.fleet.rollup(), sort_keys=True) == \
+                json.dumps(ref.fleet.rollup(), sort_keys=True)
+            got, want = port.efficiency_payload(), ref.efficiency_payload()
+            assert energy.verify_payload(got, "k")
+            for payload in (got, want):
+                payload.pop("generated_at")
+                payload.pop("hmac")
+            assert got == want
+            for family in ("kts_fleet_waste_suspect",
+                           "kts_fleet_link_suspect"):
+                wall = time.time()
+                assert port.history.at_payload(family, wall) == \
+                    ref.history.at_payload(family, wall)
+        rollup = port.fleet.rollup()
+        assert rollup["attribution"]["target"] == urls[0]
+        assert rollup["links"]["suspects"] == {}
+        events = [e for e in port.tracer.events()["events"]
+                  if e["kind"].startswith("fleet_")]
+        ref_events = [e for e in ref.tracer.events()["events"]
+                      if e["kind"].startswith("fleet_")]
+        assert [(e["kind"], e["detail"], e["attrs"]) for e in events] == \
+            [(e["kind"], e["detail"], e["attrs"]) for e in ref_events]
+        kinds = {(e["kind"], e["attrs"].get("anomaly")) for e in events}
+        assert ("fleet_anomaly", "duty") in kinds
+        assert ("fleet_anomaly", "freshness") in kinds
+        assert ("fleet_recovered", "freshness") in kinds
+        assert ("fleet_waste", None) in kinds
+        assert ("fleet_waste_cleared", None) in kinds
+        assert ('kts_fleet_waste_suspect{pod="job-2",namespace="ml",'
+                'reason="idle-reservation"} 0') in text
+        ring = port.history.at_payload("kts_fleet_waste_suspect",
+                                       time.time())["series"]
+        assert [s["v"] for s in ring] == [0.0]
+        assert got["leaves"][urls[1]] == {"error": "connection refused"}
+        assert got["totals"]["targets_total"] == 2
+        # Churn: the HTTP nodes leave the list.
+        del listed[4:]
+        clock.now += 10.0
+        _refresh(port, ref)
+        rollup = port.fleet.rollup()
+        assert json.dumps(rollup, sort_keys=True) == \
+            json.dumps(ref.fleet.rollup(), sort_keys=True)
+        assert sorted(rollup["targets"]) == sorted(paths)
+        assert rollup["attribution"]["target"] != urls[0]
+    finally:
+        _stop(port, ref)
+
+
+def _torus_node(rng, worker: int, step: int, sick: bool) -> str:
+    """Worker ``worker`` of a 4x1 torus: two cards, each carrying the
+    worker's x0 and x1 link rates; ``sick`` cuts the link 1-2 (worker
+    1's x1, worker 2's x0) to a tenth."""
+    lines = []
+    for card in range(2):
+        base = (f'chip="{card}",slice="h100-t",topology="4x1",'
+                f'worker="{worker}"')
+        lines += [f"accelerator_up{{{base}}} 1",
+                  f"accelerator_duty_cycle{{{base}}} 80"]
+        for label in ("x0", "x1"):
+            rate = 3e7 + float(rng.normal(0.0, 3e5))
+            if sick and (worker, label) in ((1, "x1"), (2, "x0")):
+                rate *= 0.1
+            lines.append(f"accelerator_ici_link_bandwidth_bytes_per_second"
+                         f"{{{base},link=\"{label}\"}} {rate:.1f}")
+    return "\n".join(lines) + "\n"
+
+
+def test_link_verdicts_ride_both_rings_and_servers(tmp_path, clock):
+    """Four workers of a 4x1 torus whose link 1-2 collapses for six
+    refreshes: both hubs accuse it and clear it alike, both rings hold
+    the 1.0 row and then its 0.0 tombstone, and both packages' servers
+    answer /debug/fleet and /debug/efficiency (generated_at and the
+    HMAC over it aside) with the same bodies."""
+    import urllib.request
+
+    from kube_gpu_stats_tpu import history as ref_history
+    from kube_gpu_stats_tpu.exposition import MetricsServer as RefServer
+    from kube_gpu_stats_tpu_torch import history
+    from kube_gpu_stats_tpu_torch.exposition import MetricsServer
+
+    rng = np.random.default_rng(42)
+    paths = [str(tmp_path / f"t{w}.prom") for w in range(4)]
+    port = hub.Hub(paths, interval=10.0, energy_audit_key="k",
+                   history=history.HistoryStore(query_qps=0.0))
+    ref = ref_hub.Hub(paths, interval=10.0, energy_audit_key="k",
+                      native_ingest=False,
+                      history=ref_history.HistoryStore(query_qps=0.0))
+    servers = [MetricsServer(port.registry, host="127.0.0.1", port=0,
+                             fleet_provider=port.fleet,
+                             efficiency_provider=port.efficiency_payload),
+               RefServer(ref.registry, host="127.0.0.1", port=0,
+                         fleet_provider=ref.fleet, prewarm_renders=False,
+                         efficiency_provider=ref.efficiency_payload)]
+    for server in servers:
+        server.start()
+    rows = []
+    try:
+        for step in range(1, 24):
+            for w, path in enumerate(paths):
+                with open(path, "w") as handle:
+                    handle.write(_torus_node(rng, w, step,
+                                             sick=10 <= step <= 15))
+            clock.now += 10.0
+            _refresh(port, ref)
+            at = time.time()
+            got = port.history.at_payload("kts_fleet_link_suspect", at)
+            assert got == ref.history.at_payload("kts_fleet_link_suspect",
+                                                 at)
+            rows.append([s["v"] for s in got["series"]])
+        bodies = []
+        for server in servers:
+            base = f"http://127.0.0.1:{server.port}"
+            fleet_body = json.loads(urllib.request.urlopen(
+                base + "/debug/fleet").read())
+            eff_body = json.loads(urllib.request.urlopen(
+                base + "/debug/efficiency").read())
+            eff_body.pop("generated_at")
+            eff_body.pop("hmac")
+            bodies.append((fleet_body, eff_body))
+        assert bodies[0] == bodies[1]
+        assert bodies[0][0]["links"]["graph"]["kind"] == "torus"
+    finally:
+        for server in servers:
+            server.stop()
+        _stop(port, ref)
+    assert [1.0] in rows and rows[-1] == [0.0]
+    events = [(e["kind"], e["attrs"].get("link"))
+              for e in port.tracer.events()["events"]
+              if e["kind"].startswith("fleet_link")]
+    assert events == [("fleet_link_suspect", "1-2"),
+                      ("fleet_link_cleared", "1-2")]

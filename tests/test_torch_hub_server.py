@@ -10,17 +10,21 @@ its command line and its doctor row.
   targets and pushes: ``/debug/cardinality``, ``/debug/skew`` and
   ``/debug/stores`` answer the same payloads, build, version, times and
   paths excepted; under ``--no-history`` both answer ``/query`` with
-  ``enabled: false``; ``hub --once`` prints the same exposition,
-  ``kts_history_*`` and ``kts_query_*`` included.
+  ``enabled: false``; under ``--no-fleet-lens --no-efficiency`` the
+  port answers 404 on ``/debug/fleet`` and ``/debug/efficiency``, and
+  with the lenses on both answer a rollup of the same shape and a
+  signed attestation that verifies; ``hub --once`` prints the same
+  exposition, ``kts_history_*`` and ``kts_query_*`` included, with the
+  lenses off and on.
 - Two hub processes with ``--ingest-procs 2``: frames through the
   children, ``kts_ingest_proc_*`` and its conservation law, ``/query``
   and ``/readyz`` through the proxy, SIGTERM ending the children too.
-- The hub's flag set is the reference's less the flags of parts still
-  unported; every hub flag the port wires reaches the hub with the
-  reference's value (the history store built alike), and bad values are
-  refused by the same checks with the same message; every flag of an
-  unported part is refused by argparse, and the flags that only switch
-  such a part off are accepted.
+- The hub's flag set is the reference's; every hub flag the port wires
+  reaches the hub with the reference's value (the history store built
+  alike, the ``--slo-*``/``--waste-*`` flags and their ``KTS_*``
+  variables too), and bad values are refused by the same checks with
+  the same message; the lens flags the port once refused now run as
+  the reference's do.
 - ``cardinality_verdict``/``check_cardinality`` give the reference's
   status and text on canned payloads and on a live port hub;
   ``check_skew`` and ``stores_verdict`` on a hub's payloads too.
@@ -162,8 +166,8 @@ def test_readyz_gates_on_the_replay_as_the_reference(tmp_path):
     port_hub = hub.Hub([], targets_provider=lambda: [], interval=1.0,
                        ingest_checkpoint=path)
     ref = ref_hub.Hub([], targets_provider=lambda: [], interval=1.0,
-                      ingest_checkpoint=path, fleet_lens=False,
-                      efficiency=False, history=None, native_ingest=False)
+                      ingest_checkpoint=path, history=None,
+                      native_ingest=False)
     servers = [
         MetricsServer(port_hub.registry, host="127.0.0.1", port=0,
                       ready_check=port_hub.ready),
@@ -316,6 +320,64 @@ def test_two_hub_processes_answer_the_same_debug_payloads(tmp_path):
             assert proc.wait(timeout=15) == 0
 
 
+def _shape(value):
+    """Keys all the way down, values dropped: two processes' payloads of
+    the same make."""
+    if isinstance(value, dict):
+        return {k: _shape(v) for k, v in value.items()}
+    if isinstance(value, list):
+        return [_shape(v) for v in value]
+    return type(value).__name__
+
+
+def test_two_hub_processes_serve_the_fleet_lens(tmp_path):
+    """The lenses on (the default) with an audit key: both processes
+    answer /debug/fleet with a rollup of the same shape over the same
+    targets, and /debug/efficiency with a signed attestation that the
+    other package's doctor verifies; /metrics carries kts_fleet_*."""
+    target = tmp_path / "node.prom"
+    target.write_text(
+        'accelerator_up{chip="0",slice="s",worker="w0"} 1\n'
+        'accelerator_duty_cycle{chip="0",slice="s",worker="w0"} 70\n')
+    procs = []
+    try:
+        ports = []
+        for package in ("kube_gpu_stats_tpu_torch", "kube_gpu_stats_tpu"):
+            work = tmp_path / package
+            work.mkdir()
+            proc, port = _start_hub(package, [
+                str(target), "--interval", "0.2", "--no-history",
+                "--no-native-ingest", "--energy-audit-key", "k"],
+                str(work / "log"))
+            procs.append(proc)
+            ports.append(port)
+        time.sleep(1.0)                       # a few refreshes
+        fleets = [_get_json(port, "/debug/fleet") for port in ports]
+        # Each process scores its own wall-timed fetches on its own
+        # refresh count: the payloads agree in shape, not in value.
+        assert _shape(fleets[0]) == _shape(fleets[1])
+        assert fleets[0]["enabled"] is True
+        assert list(fleets[0]["targets"]) == [str(target)]
+        effs = [_get_json(port, "/debug/efficiency") for port in ports]
+        assert _shape(effs[0]) == _shape(effs[1])
+        assert effs[0]["signed"] is True
+        for mod in (doctor, ref_doctor):
+            for port in ports:
+                row = mod.check_efficiency(f"http://127.0.0.1:{port}", "k")
+                assert row.status == "ok", row.detail
+        for port in ports:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/metrics", timeout=5) as resp:
+                text = resp.read().decode()
+            assert "kts_fleet_targets_anomalous 0" in text
+            assert "kts_fleet_efficiency_unknown_pods 0" in text
+    finally:
+        for proc in procs:
+            proc.terminate()
+        for proc in procs:
+            assert proc.wait(timeout=15) == 0
+
+
 # Both CLIs always wire a history store (disabled under --no-history),
 # and a disabled store serves these at 0: compared like the rest.
 HISTORY = {"kts_history_series", "kts_history_bytes",
@@ -368,6 +430,34 @@ def test_hub_once_prints_the_same_exposition(tmp_path):
               if not line.startswith("#")}
     assert HISTORY <= served
     assert "kts_history_series 0" in outs[0][1]
+    assert not any(line.startswith("kts_fleet_") for line in outs[0][1])
+
+
+def test_hub_once_with_the_lenses_prints_the_same_exposition(tmp_path):
+    """One refresh with the fleet and efficiency lenses on: the
+    kts_fleet_* families (cold baselines, one SLO sample, the waste
+    ledger of one attributed pod) print alike."""
+    target = tmp_path / "node.prom"
+    labels = 'chip="0",namespace="ml",pod="train-0",slice="s",worker="w0"'
+    target.write_text(
+        f'accelerator_up{{{labels}}} 1\n'
+        f'accelerator_duty_cycle{{{labels}}} 70\n'
+        f'accelerator_power_watts{{{labels}}} 312.5\n')
+    outs = []
+    for package in ("kube_gpu_stats_tpu_torch", "kube_gpu_stats_tpu"):
+        proc = subprocess.run(
+            [sys.executable, "-m", package, "hub", "--once", str(target),
+             "--expect-workers", "1", "--no-native-ingest", "--no-history",
+             "--slo-straggler-ratio", "0.5", "--waste-top-k", "3"],
+            cwd=ROOT, capture_output=True, text=True, timeout=60,
+            env={**os.environ, "JAX_PLATFORMS": "cpu"})
+        outs.append((proc.returncode, _hub_filter(proc.stdout)))
+    assert outs[0] == outs[1]
+    assert outs[0][0] == 0
+    lines = outs[0][1]
+    assert "kts_fleet_targets_anomalous 0" in lines
+    assert ('kts_fleet_efficiency_score{pod="train-0",namespace="ml"} 0.7'
+            in lines)
 
 
 # -- flags ---------------------------------------------------------------------
@@ -410,6 +500,11 @@ WIRED = [
     ["--history-series-max", "10", "--history-query-qps", "1",
      "--history-query-burst", "1"],
     ["--history-query-qps", "0", "--ingest-procs", "64"],
+    ["--slo-freshness-target", "0.9", "--slo-straggler-target", "0.8",
+     "--slo-straggler-ratio", "0.5", "--waste-warmup-refreshes", "2",
+     "--waste-idle-refreshes", "3", "--waste-idle-duty", "5",
+     "--waste-top-k", "4", "--energy-audit-key", "k"],
+    ["--no-efficiency", "--slo-straggler-ratio", "1"],
 ]
 
 
@@ -433,7 +528,8 @@ def _refusal(main, argv) -> tuple[int, str]:
             rc = main(argv)
         except SystemExit as exc:
             rc = exc.code
-    return rc, err.getvalue().strip().splitlines()[-1].split(": ", 1)[-1]
+    lines = err.getvalue().strip().splitlines() or [""]
+    return rc, lines[-1].split(": ", 1)[-1]
 
 
 @pytest.mark.parametrize("argv", [
@@ -456,6 +552,13 @@ def _refusal(main, argv) -> tuple[int, str]:
     ["--history-series-max", "0"],
     ["--history-query-qps", "-1"],
     ["--history-query-burst", "0.5"],
+    ["--slo-freshness-target", "1"],
+    ["--slo-straggler-target", "0"],
+    ["--slo-straggler-ratio", "1.5"],
+    ["--waste-warmup-refreshes", "0"],
+    ["--waste-idle-refreshes", "0"],
+    ["--waste-idle-duty", "101"],
+    ["--waste-top-k", "0"],
 ])
 def test_bad_values_are_refused_by_the_same_checks(argv):
     assert _refusal(hub.main, argv) == _refusal(ref_hub.main, argv)
@@ -469,15 +572,57 @@ def test_bad_values_are_refused_by_the_same_checks(argv):
     ["--waste-top-k", "3"], ["--energy-audit-key", "k"],
 ])
 def test_flags_of_unported_parts_are_refused(flag):
-    rc, message = _refusal(hub.main, flag + ["--once", "x.prom"])
-    assert rc == 2
-    assert f"unrecognized arguments: {flag[0]}" in message
+    """The lens flags the port's hub once refused: accepted now, and a
+    ``--once`` run over a missing target ends as the reference's does
+    (exit 2, no target answered), not as an argparse refusal."""
+    out = io.StringIO()
+    with redirect_stdout(out):
+        got = _refusal(hub.main, flag + ["--once", "x.prom"])
+        want = _refusal(ref_hub.main, flag + ["--once", "x.prom"])
+    assert got[0] == want[0] == 2
+    assert "unrecognized arguments" not in got[1]
+    assert "kts_fleet_targets_anomalous" in out.getvalue()
 
 
-STILL_REFUSED = {"--slo-freshness-target", "--slo-straggler-target",
-                 "--slo-straggler-ratio", "--waste-warmup-refreshes",
-                 "--waste-idle-refreshes", "--waste-idle-duty",
-                 "--waste-top-k", "--energy-audit-key"}
+LENS_ENV = [
+    {"KTS_SLO_FRESHNESS_TARGET": "0.95", "KTS_SLO_STRAGGLER_TARGET": "0.5",
+     "KTS_SLO_STRAGGLER_RATIO": "0.25", "KTS_NO_FLEET_LENS": "1"},
+    {"KTS_WASTE_WARMUP_REFRESHES": "3", "KTS_WASTE_IDLE_REFRESHES": "4",
+     "KTS_WASTE_IDLE_DUTY": "2.5", "KTS_WASTE_TOP_K": "7",
+     "KTS_NO_EFFICIENCY": "1", "KTS_ENERGY_AUDIT_KEY": "s"},
+]
+
+
+@pytest.mark.parametrize("env", LENS_ENV, ids=["slo", "waste"])
+def test_the_lens_env_reaches_the_hub_with_the_references_values(
+        monkeypatch, env):
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    got = _parsed(hub.main, hub, monkeypatch, [])
+    want = _parsed(ref_hub.main, ref_hub, monkeypatch, [])
+    keys = ("fleet_lens", "slo_freshness_target", "slo_straggler_target",
+            "slo_straggler_ratio", "efficiency", "waste_warmup_refreshes",
+            "waste_idle_refreshes", "waste_idle_duty", "waste_top_k",
+            "energy_audit_key")
+    assert {k: got[k] for k in keys} == {k: want[k] for k in keys}
+    assert (got["fleet_lens"], got["efficiency"]) == \
+        ((False, True) if "KTS_NO_FLEET_LENS" in env else (True, False))
+
+
+@pytest.mark.parametrize("env", [{"KTS_SLO_STRAGGLER_RATIO": "0"},
+                                 {"KTS_WASTE_TOP_K": "0"},
+                                 {"KTS_SLO_FRESHNESS_TARGET": "1.0"}],
+                         ids=range(3))
+def test_bad_lens_env_is_refused_as_the_reference(monkeypatch, env):
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    got = _refusal(hub.main, ["--once", "x.prom"])
+    assert got == _refusal(ref_hub.main, ["--once", "x.prom"])
+    assert got[0] == 2 and "must be" in got[1]
+
+
+# Every reference hub flag is the port's now.
+STILL_REFUSED: set[str] = set()
 
 
 def _options(main, monkeypatch) -> set[str]:
@@ -502,7 +647,9 @@ def test_the_hubs_flags_are_the_references_but_the_refused(monkeypatch):
     assert STILL_REFUSED <= want
     assert got == want - STILL_REFUSED
     assert {"--ingest-procs", "--no-history", "--history-series-max",
-            "--history-query-qps", "--history-query-burst"} <= got
+            "--history-query-qps", "--history-query-burst",
+            "--no-fleet-lens", "--no-efficiency", "--slo-straggler-ratio",
+            "--waste-top-k", "--energy-audit-key"} <= got
 
 
 @pytest.mark.parametrize("argv,env", [

@@ -60,7 +60,8 @@ def test_importing_the_port_loads_no_jax():
                    "testing.faultfs", "snappy", "spillq", "remote_write",
                    "proto.prompb", "proto.prompb2", "delta",
                    "testing.egress_sink", "hub", "top", "cardinality",
-                   "fleetlens", "history", "ingestproc"):
+                   "fleetlens", "history", "ingestproc", "efficiency",
+                   "linkloc", "ici", "topology"):
         assert f"kube_gpu_stats_tpu_torch.{module}" in report["imported"]
     assert [m for m in report["loaded"] if _forbidden(m)] == []
 
@@ -245,6 +246,58 @@ def test_the_hub_and_top_import_no_torch():
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["rc"] == [0, 0, 200]
+    assert _no_torch(report["loaded"]) == []
+
+
+# The fleet lens's five modules alone, then a hub with the lens on over a
+# saved exposition, served with /debug/fleet and /debug/efficiency, read
+# by the doctor's --fleet, --efficiency and --fleet --at rows.
+_RUN_FLEET_LENS = """
+import json, os, sys, tempfile
+import kube_gpu_stats_tpu_torch.efficiency
+import kube_gpu_stats_tpu_torch.fleetlens
+import kube_gpu_stats_tpu_torch.ici
+import kube_gpu_stats_tpu_torch.linkloc
+import kube_gpu_stats_tpu_torch.topology
+alone = sorted(sys.modules)
+from kube_gpu_stats_tpu_torch import doctor, history, hub
+from kube_gpu_stats_tpu_torch.exposition import MetricsServer
+work = tempfile.mkdtemp()
+target = os.path.join(work, "node.prom")
+with open(target, "w") as handle:
+    handle.write('accelerator_up{chip="0",pod="p",namespace="n",'
+                 'slice="s",worker="w"} 1\\n')
+store = history.HistoryStore()
+h = hub.Hub([target], interval=1.0, history=store, energy_audit_key="k")
+h.refresh_once()
+server = MetricsServer(h.registry, host="127.0.0.1", port=0,
+                       fleet_provider=h.fleet, history_provider=store,
+                       efficiency_provider=h.efficiency_payload)
+server.start()
+try:
+    base = f"http://127.0.0.1:{server.port}"
+    rows = [doctor.check_fleet(base).status,
+            doctor.check_efficiency(base, "k").status,
+            doctor.check_fleet_at(base, 1.0).status]
+finally:
+    server.stop()
+    h.stop()
+print(json.dumps({"rows": rows, "alone": alone,
+                  "loaded": sorted(sys.modules)}))
+"""
+
+
+def test_the_fleet_lens_imports_no_torch():
+    """fleetlens, efficiency, linkloc, ici and topology import neither
+    torch, nor JAX, nor the reference: alone, and under a hub refresh
+    with the lens on that the doctor's lens rows read."""
+    proc = subprocess.run([sys.executable, "-c", _RUN_FLEET_LENS],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["rows"] == ["ok", "ok", "warn"]
+    assert _no_torch(report["alone"]) == []
     assert _no_torch(report["loaded"]) == []
 
 
