@@ -6,9 +6,9 @@ Run from the repository root on a machine with one H100:
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py egress:3 hub:2`` instead builds the kernel and
-runs only the named host-side phases (``doctor``, ``c5``, ``burst``,
-``energy``, ``egress``, ``hub``, ``fleet``), each the given number of
-times, and
+runs only the named phases (``doctor``, ``c5``, ``burst``,
+``energy``, ``egress``, ``hub``, ``fleet``, ``bench``), each the given
+number of times, and
 prints one ``phases_alone`` line with each run's outcome: the way to
 measure how often a phase's check fails.
 
@@ -200,6 +200,24 @@ prints its result line after one):
    the ``fleet_score`` span and refresh ms, the hub's RSS, and the
    pod's steps per joule within 15% of the burn's steps/s over
    ``nvidia-smi``'s power draw;
+8i. ``bench``: the measurement module (``bench.py``) at the reference's
+   defaults (no cut; the line's ``cuts`` is empty): ``try_real_harness`` (the
+   NVML backend through the pipelined poll loop while a co-launched
+   ``python -m kube_gpu_stats_tpu_torch.loadgen --kernel cuda`` loads the
+   card: card 0's duty in the loop's last snapshot at least 90, the burn
+   reaped), ``try_embedded_harness`` at 4096 (the ``cuda`` burn in this
+   process through B1, launch counter set to 0 before, read after: busy
+   fraction at least 0.9, MFU, the sweep at 2048-8192 with no error),
+   every host measurement (hub merge, delta federation, the ingest storm
+   in process and through the acceptor processes, warm restart, sheds,
+   the cardinality accountant, ``/query``, the partition drain, the
+   degraded stores, the burst sampler, host signals, the fleet localizer
+   and the efficiency lens), ``tracing.measure_overhead_ns`` and
+   ``profiler.profile_ingest``: each returns a dict with the reference's
+   keys and its exact figures (bytes, series, frames, sheds counted once,
+   conservation, none dropped), every other figure finite; each timing
+   is printed beside the budget the reference's ``tests/test_latency.py``
+   pins on it, with ``budget_ok`` (reported, not required);
 9. time the kernel, its plain version and one library call
    (``torch.mm`` with f32 out) at the main path's and the sweep's sizes,
    each as the median of batches of back-to-back calls;
@@ -221,7 +239,9 @@ import collections
 import ctypes
 import gzip
 import hashlib
+import inspect
 import json
+import logging
 import math
 import os
 import pathlib
@@ -3346,6 +3366,9 @@ class SyntheticFleet:
                     "hub: the synthetic nodes' first frames did not land "
                     "in 60 s")
             time.sleep(0.05)
+        # The generation published while the first frames landed: the
+        # first republish follows the next refresh, as every later one.
+        self.hub_refreshed()
         self._thread.start()
         return time.monotonic() - t0
 
@@ -3635,12 +3658,21 @@ def wait_converged(port: int, from_refresh: float, what: str, match,
                 misses.append((view["refreshes"], str(exc)[:300]))
 
 
-def hub_cycles_ms(port: int) -> list[float]:
-    """Every recorded refresh's whole-cycle ms (the hub's /debug/trace)."""
+def hub_cycles_ms(port: int, slowest: list | None = None) -> list[float]:
+    """Every recorded refresh's whole-cycle ms (the hub's /debug/trace);
+    appends the slowest one's ms and its spans' ms to ``slowest``."""
     status, body, _ = fetch(f"http://127.0.0.1:{port}/debug/trace?last=128")
     require(status == 200, f"hub /debug/trace answered {status}")
-    return [event["dur"] / 1e3 for event in json.loads(body)["traceEvents"]
-            if event["cat"] == "cycle"]
+    events = json.loads(body)["traceEvents"]
+    cycles = [event for event in events if event["cat"] == "cycle"]
+    if slowest is not None and cycles:
+        worst = max(cycles, key=lambda event: event["dur"])
+        end = worst["ts"] + worst["dur"]
+        slowest.append({"ms": worst["dur"] / 1e3, "spans": {
+            event["name"]: event["dur"] / 1e3 for event in events
+            if event["cat"] == "span"
+            and worst["ts"] <= event["ts"] <= end}})
+    return [event["dur"] / 1e3 for event in cycles]
 
 
 def lane_apply(view: dict) -> tuple[float, float, float]:
@@ -4101,6 +4133,7 @@ request = (f"GET {path} HTTP/1.1\\r\\nHost: 127.0.0.1\\r\\n"
            "Connection: close\\r\\n\\r\\n").encode()
 
 def read(_):
+    start = time.monotonic()
     with socket.create_connection(("127.0.0.1", port), timeout=30) as sock:
         sock.sendall(request)
         chunks = []
@@ -4112,7 +4145,8 @@ def read(_):
     head = b"".join(chunks).split(b"\\r\\n\\r\\n", 1)[0].decode()
     lines = head.split("\\r\\n")
     headers = dict(line.split(": ", 1) for line in lines[1:] if ": " in line)
-    return int(lines[0].split()[1]), headers.get("Retry-After")
+    return (int(lines[0].split()[1]), headers.get("Retry-After"),
+            time.monotonic() - start)
 
 t0 = time.monotonic()
 with concurrent.futures.ThreadPoolExecutor(threads) as pool:
@@ -4134,9 +4168,16 @@ def query_stampede(rec: HubRecorder, port: int) -> dict:
     result = json.loads(proc.stdout)
     elapsed = result["elapsed"]
     shed = [{"Retry-After": retry or "0"}
-            for status, retry in result["answers"] if status == 429]
+            for status, retry, _ in result["answers"] if status == 429]
     rec.shed += len(shed)
-    require(elapsed < 1.0, f"hub: the stampede took {elapsed:.3f} s")
+    reads_ms = sorted(took * 1e3 for _, _, took in result["answers"])
+    if elapsed >= 1.0:
+        slowest: list = []
+        hub_cycles_ms(port, slowest)
+        require(False, f"hub: the stampede took {elapsed:.3f} s (reads "
+                       f"p50 {reads_ms[len(reads_ms) // 2]:.1f} ms, max "
+                       f"{reads_ms[-1]:.1f} ms; the hub's slowest recent "
+                       f"refresh {slowest})")
     require(all(int(got.get("Retry-After", "0")) >= 1 for got in shed),
             "hub: a 429 without Retry-After")
     least = HUB_STAMPEDE - HUB_QUERY_BURST - math.ceil(
@@ -4154,7 +4195,9 @@ def query_stampede(rec: HubRecorder, port: int) -> dict:
     time.sleep(HUB_QUERY_BURST / HUB_QUERY_QPS)     # the bucket refills
     rec.quiet.clear()
     return {"requests": HUB_STAMPEDE, "shed": len(shed),
-            "elapsed_s": elapsed, "shed_served": served}
+            "elapsed_s": elapsed, "shed_served": served,
+            "reads_ms": {"p50": reads_ms[len(reads_ms) // 2],
+                         "max": reads_ms[-1]}}
 
 
 def check_restart_etags(old: HubRecorder, new: HubRecorder,
@@ -4427,7 +4470,8 @@ def phase_hub(card_line: str, c5_tick_ms: dict,
                     out["live_apply"] = lane_apply(out["live"][0])
                     out["live_window"] = (t0, time.monotonic())
                     out["live_rates"] = rates_in(hub_port, HUB_RATE_REFRESHES)
-                    out["cycles_live"] = hub_cycles_ms(hub_port)
+                    out["cycles_live"] = hub_cycles_ms(
+                        hub_port, out.setdefault("slowest_cycles", []))
                     out["rss"] = out["live"][0]["one"](
                         "process_resident_memory_bytes")
                     out["series"] = len(out["live"][0]["series"])
@@ -4514,7 +4558,8 @@ def phase_hub(card_line: str, c5_tick_ms: dict,
                         "the second live window", match)
                     out["after_restart"] = lane_apply(out["live2"][0])
                     out["fleet_after"] = fleet.frames()
-                    out["cycles_live2"] = hub_cycles_ms(hub_port)
+                    out["cycles_live2"] = hub_cycles_ms(
+                        hub_port, out.setdefault("slowest_cycles", []))
                     out["restart_ring"] = check_restart_etags(rec1, rec2,
                                                               wall_down)
                     try:
@@ -4672,7 +4717,8 @@ def phase_hub(card_line: str, c5_tick_ms: dict,
                     "after a child was killed",
                     match)[1]["refreshes"] - kill_refresh
                 out["kill_frames"] = (before_kill, fleet.frames())
-                out["cycles_procs"] = hub_cycles_ms(hub_port)
+                out["cycles_procs"] = hub_cycles_ms(
+                    hub_port, out.setdefault("slowest_procs_cycles", []))
 
             def rates_in(hub_port_: int, refreshes: int) -> list:
                 """slice_worker_steps_per_second for node-00 at each of
@@ -4862,7 +4908,8 @@ def phase_hub(card_line: str, c5_tick_ms: dict,
         "doctor_rc": rc_doc,
         "census": census,
         "refresh_ms": {"p50": statistics.median(cycles), "max": max(cycles),
-                       "cycles": len(cycles)},
+                       "cycles": len(cycles),
+                       "slowest": out["slowest_cycles"]},
         "ingest_apply_ms": {"per_full": per_full_s * 1e3,
                             "per_delta": per_delta_s * 1e3,
                             "fulls": start_apply[1],
@@ -4901,7 +4948,7 @@ def phase_hub(card_line: str, c5_tick_ms: dict,
             f"hub: daemon tick p50 {tick_window['tick']}")
     require(max(cycles) < HUB_INTERVAL_S * 1e3,
             f"hub: a refresh took {max(cycles)} ms of a "
-            f"{HUB_INTERVAL_S} s interval")
+            f"{HUB_INTERVAL_S} s interval: {out['slowest_cycles']}")
     emit("hub_history", {
         "card": card_line, "identities": out["ring"],
         "series_bytes": SERIES_BYTES, "duty_1h": out["duty_1h"],
@@ -4942,7 +4989,8 @@ def phase_hub(card_line: str, c5_tick_ms: dict,
         "refresh_ms": {"p50": statistics.median(procs_cycles),
                        "max": max(procs_cycles),
                        "single_process_p50": statistics.median(cycles),
-                       "single_process_max": max(cycles)},
+                       "single_process_max": max(cycles),
+                       "slowest": out["slowest_procs_cycles"]},
         "rss_mib": {"hub": hub_rss3, "children": kids_rss,
                     "total": hub_rss3 + sum(kids_rss.values()),
                     "single_process_hub": (out["rss"] or 0) / MIB},
@@ -4974,7 +5022,7 @@ def phase_hub(card_line: str, c5_tick_ms: dict,
             f"{fleet_resyncs3} and the probes {2 * HUB_PROBES}")
     require(max(procs_cycles) < HUB_INTERVAL_S * 1e3,
             f"hub: a refresh took {max(procs_cycles)} ms with "
-            f"--ingest-procs")
+            f"--ingest-procs: {out['slowest_procs_cycles']}")
     return launches
 
 
@@ -6024,6 +6072,352 @@ def fleet_checks(out: dict, synth: FleetSynth, embedded_rec,
     }
 
 
+# -- bench: the measurement module on the card ---------------------------
+
+BENCH_TICKS = 50
+BENCH_WARMUP = 5
+BENCH_SIZE = 4096
+BUSY_MIN = 0.9
+SWEEP_BENCH = (2048, 4096, 8192)
+BENCH_SOFT_S = 240.0
+# Every host measurement of the phase, each at the reference's defaults
+# (the phase makes no cut: it runs in about 140 s of its 240 s).
+BENCH_MEASUREMENTS = (
+    "measure_quiet_tick_delta", "measure_delta_federation",
+    "measure_hub_merge", "measure_ingest_storm",
+    "measure_ingest_storm_procs", "measure_warm_restart",
+    "measure_overload_shed", "measure_cardinality_admission",
+    "measure_query_serving", "measure_partition_drain",
+    "measure_degraded_overhead", "measure_burst_overhead",
+    "measure_hoststats", "measure_fleet_localize",
+    "measure_efficiency_score")
+PROFILE_INGEST_ARGS = {"sources": 1000, "waves": 5}
+# measure_collector's keys, as the reference's returns them (a collector
+# without rpc_stats, as the NVML and embedded ones are).
+COLLECTOR_KEYS = frozenset((
+    "chips", "ticks", "durations_ms", "mean_ms", "p50_ms", "p90_ms",
+    "p99_ms", "metrics_per_chip", "max_hz", "scrape_p50_ms",
+    "scrape_p99_ms", "gc_collections", "gc_max_pause_ms",
+    "tick_alloc_objects_per_tick", "tick_series_per_tick",
+    "tick_series_reused_per_tick", "tick_spans_per_tick",
+    "trace_overhead_ns_per_span"))
+REAL_KEYS = COLLECTOR_KEYS | {"mode", "path"}
+EMBEDDED_KEYS = COLLECTOR_KEYS | {
+    "mode", "path", "device_kind", "workload_steps_per_s_during_bench",
+    "workload_busy_fraction_during_bench",
+    "workload_mfu_pct_during_bench", "mfu_sweep"}
+# Each measurement's keys, as the reference's returns them
+# (tests/test_torch_bench_smoke.py holds this table against it).
+BENCH_KEYS = {
+    "measure_quiet_tick_delta": ("full_bytes", "quiet_delta_bytes",
+                                 "ratio"),
+    "measure_delta_federation": (
+        "workers", "leaves", "root_merge_p50_ms", "root_merge_cold_ms",
+        "delta_ingest_ms_per_refresh", "delta_bytes_per_refresh",
+        "full_bytes_total", "root_series"),
+    "measure_hub_merge": ("p50_ms", "cold_ms", "body_cache_hit_rate",
+                          "parse_mb_per_s", "render_cache_hits",
+                          "fleet_score_ms_per_refresh"),
+    "measure_ingest_storm": (
+        "pushers", "lanes", "native", "seed_s", "cold_refresh_ms",
+        "warm_refresh_ms", "delta_ingest_10k_ms_per_refresh",
+        "ingest_cpu_pct", "resync_storm_recovery_s",
+        "resync_storm_sessions", "resync_storm_dropped",
+        "resync_storm_served"),
+    "measure_ingest_storm_procs": (
+        "procs", "pushers", "seed_ms", "delta_ingest_procs_ms_per_refresh",
+        "ingest_procs_cpu_pct", "accepted_total", "hub_frames_total",
+        "conserved", "per_proc_accepted"),
+    "measure_warm_restart": ("pushers", "warm_restart_sessions",
+                             "resumed_fraction", "resyncs", "replay_s",
+                             "recovery_s", "dropped"),
+    "measure_overload_shed": ("pushers", "delta_shed", "full_refused",
+                              "fence_held", "sessions_alive",
+                              "sources_served_fraction", "shed_counts"),
+    "measure_cardinality_admission": (
+        "cardinality_admission_ns_per_series", "ingest_ns_per_series",
+        "cardinality_admission_overhead_pct", "hub_rss_mb_under_bomb",
+        "bomb_series_attempted", "bomb_live_series"),
+    "measure_query_serving": (
+        "query_p50_ms_256readers", "query_p99_ms_256readers",
+        "scrape_304_ratio", "history_write_ns_per_refresh",
+        "history_rss_mb", "query_requests"),
+    "measure_partition_drain": (
+        "frames", "spill_spool_ms_per_frame", "spill_bytes_per_tick",
+        "partition_drain_frames_per_s", "partition_catchup_s",
+        "spill_dropped"),
+    "measure_degraded_overhead": (
+        "healthy_store_ms_per_tick", "degraded_store_ms_per_tick",
+        "degraded_overhead_pct", "degraded_lost_counted"),
+    "measure_burst_overhead": ("burst_overhead_pct",
+                               "burst_fold_ms_per_tick",
+                               "burst_samples_per_sec",
+                               "burst_thread_cpu_pct"),
+    "measure_hoststats": ("hoststats_read_ms_per_tick",
+                          "hoststats_read_p99_ms", "hoststats_families"),
+    "measure_fleet_localize": ("fleet_localize_ms",),
+    "measure_efficiency_score": ("fleet_efficiency_ms_per_refresh",),
+}
+# The figures that do not depend on the host's speed, at the defaults:
+# what the reference computes there on the CPU
+# (tests/test_torch_bench_smoke.py holds this table against it).
+BENCH_EXACT = {
+    "measure_quiet_tick_delta": {"full_bytes": 1308,
+                                 "quiet_delta_bytes": 31, "ratio": 42.2},
+    "measure_delta_federation": {"workers": 4096, "leaves": 64,
+                                 "delta_bytes_per_refresh": 9269,
+                                 "full_bytes_total": 132967,
+                                 "root_series": 9192},
+    "measure_hub_merge": {"body_cache_hit_rate": 0.889,
+                          "render_cache_hits": 3},
+    "measure_warm_restart": {"pushers": 2000,
+                             "warm_restart_sessions": 2000,
+                             "resumed_fraction": 0.98, "resyncs": 40,
+                             "dropped": 0},
+    "measure_cardinality_admission": {"bomb_series_attempted": 400000,
+                                      "bomb_live_series": 2036},
+    "measure_query_serving": {"scrape_304_ratio": 1.0,
+                              "history_rss_mb": 2.872,
+                              "query_requests": 1536},
+    "measure_partition_drain": {"frames": 200,
+                                "spill_bytes_per_tick": 528.0,
+                                "spill_dropped": 0},
+    "measure_degraded_overhead": {"degraded_lost_counted": 200},
+    "measure_hoststats": {"hoststats_families": 18},
+}
+# profile_ingest's ingest counters at PROFILE_INGEST_ARGS (the same
+# test holds them against the reference's).
+PROFILE_INGEST_EXACT = {"full_frames": 1000, "delta_frames": 6000,
+                        "duplicate_frames": 0, "bytes": 1077718,
+                        "resyncs": 0, "sessions": 1000, "quarantined": 0,
+                        "shed": 0, "warm_restart_pending": 0,
+                        "skew_refused": 0}
+# The budgets the reference's tests/test_latency.py pins on each timing:
+# (key, "<" or ">" or ">=", limit). Reported beside each figure, not
+# required: these are host timings on the card machine's shared host.
+BENCH_BUDGETS = {
+    "real": (("p50_ms", "<", 50.0), ("scrape_p50_ms", "<", 5.0),
+             ("trace_overhead_ns_per_span", "<", 25_000.0)),
+    "embedded": (("p50_ms", "<", 50.0), ("scrape_p50_ms", "<", 5.0),
+                 ("trace_overhead_ns_per_span", "<", 25_000.0)),
+    "measure_delta_federation": (("root_merge_p50_ms", "<", 10.0),
+                                 ("delta_ingest_ms_per_refresh", "<", 9.0)),
+    "measure_hub_merge": (("cold_ms", "<", 90.0),),
+    "measure_ingest_storm": (
+        ("delta_ingest_10k_ms_per_refresh", "<", 2500.0),
+        ("ingest_cpu_pct", "<", 25.0),
+        ("resync_storm_recovery_s", "<", 10.0)),
+    "measure_warm_restart": (("replay_s", "<", 10.0),
+                             ("recovery_s", "<", 20.0)),
+    "measure_overload_shed": (("sources_served_fraction", ">=", 0.9),),
+    "measure_cardinality_admission": (
+        ("cardinality_admission_overhead_pct", "<", 2.0),),
+    "measure_query_serving": (("query_p99_ms_256readers", "<", 25.0),
+                              ("query_p50_ms_256readers", "<", 15.0),
+                              ("history_write_ns_per_refresh", "<", 10e6),
+                              ("history_rss_mb", "<", 20.0)),
+    "measure_partition_drain": (("spill_spool_ms_per_frame", "<", 50.0),
+                                ("spill_bytes_per_tick", "<", 16_384),
+                                ("partition_drain_frames_per_s", ">", 100.0),
+                                ("partition_catchup_s", "<", 10.0)),
+    "measure_degraded_overhead": (("degraded_overhead_pct", "<", 10.0),),
+    "measure_burst_overhead": (("burst_overhead_pct", "<", 2.0),
+                               ("burst_samples_per_sec", ">", 100.0)),
+    "measure_hoststats": (("hoststats_read_ms_per_tick", "<", 10.0),),
+}
+
+
+def budgets(name: str, result: dict) -> dict:
+    """Each budgeted figure beside its limit, with ``budget_ok``."""
+    out = {}
+    for key, op, limit in BENCH_BUDGETS.get(name, ()):
+        value = result[key]
+        ok = {"<": value < limit, ">": value > limit,
+              ">=": value >= limit}[op]
+        out[key] = {"value": value, "limit": f"{op} {limit:g}",
+                    "budget_ok": ok}
+    return out
+
+
+class LogTail(logging.Handler):
+    """Prints, and keeps, the formatted records (tracebacks included) that
+    the port's loggers send while the bench phase runs, so a
+    measurement's None names its exception in the failure."""
+
+    def __init__(self) -> None:
+        super().__init__(logging.WARNING)
+        self.records: list[str] = []
+
+    def emit(self, record: logging.LogRecord) -> None:
+        text = self.format(record)
+        self.records.append(text)
+        print(text, file=sys.stderr, flush=True)
+
+
+def require_bench(result, name: str, tail: LogTail) -> dict:
+    require(isinstance(result, dict),
+            f"{name} returned {result!r}; logged: {tail.records[-3:]}")
+    return result
+
+
+def bench_invariants(name: str, r: dict, kwargs: dict) -> None:
+    """The exact figures that follow from a measurement's arguments
+    (``kwargs`` over its defaults)."""
+    from kube_gpu_stats_tpu_torch import bench
+
+    args = {key: param.default for key, param in inspect.signature(
+        getattr(bench, name)).parameters.items()}
+    args.update(kwargs)
+    if name == "measure_ingest_storm":
+        pushers = args["pushers"]
+        require(r["pushers"] == pushers and r["native"] is False
+                and r["resync_storm_sessions"] == pushers
+                and r["resync_storm_served"] == pushers
+                and r["resync_storm_dropped"] == 0, f"{name}: {r}")
+    elif name == "measure_ingest_storm_procs":
+        require(r["conserved"] is True
+                and r["accepted_total"] == r["hub_frames_total"]
+                == args["pushers"] * (args["waves"] + 1)
+                and sum(r["per_proc_accepted"].values())
+                == r["accepted_total"]
+                and len(r["per_proc_accepted"]) == args["procs"],
+                f"{name}: {r}")
+    elif name == "measure_overload_shed":
+        pushers = args["pushers"]
+        # Every shed counted once: the deltas refused for the rate, the
+        # one new source refused by the session fence.
+        require(r["delta_shed"] > 0 and r["full_refused"] == 0
+                and r["fence_held"] is True
+                and r["sessions_alive"] == pushers
+                and r["shed_counts"] == {"memory": 1,
+                                         "delta_rate": r["delta_shed"]},
+                f"{name}: {r}")
+
+
+def finite_times(name: str, r: dict) -> None:
+    exact = set(BENCH_EXACT.get(name, ()))
+    for key, value in r.items():
+        if key in exact or isinstance(value, (bool, dict, list, str)):
+            continue
+        require(value is not None and math.isfinite(value) and value >= 0,
+                f"{name}: {key} = {value!r}")
+
+
+def phase_bench(card_line: str) -> int:
+    """The measurement module (``kube_gpu_stats_tpu_torch/bench.py``) on
+    the card; returns the kernel launches of its in-process burns."""
+    from kube_gpu_stats_tpu_torch import bench, profiler, tracing
+
+    tail = LogTail()
+    logging.getLogger("kube_gpu_stats_tpu_torch").addHandler(tail)
+    t0 = time.monotonic()
+    out: dict = {"card": card_line, "cuts": [], "seconds": {}}
+    try:
+        # The NVML harness under its co-launched cuda burn.
+        start = time.monotonic()
+        real, probe = bench.try_real_harness(ticks=BENCH_TICKS,
+                                             warmup=BENCH_WARMUP)
+        out["seconds"]["try_real_harness"] = time.monotonic() - start
+        out["probe"] = probe
+        require_bench(real, "try_real_harness", tail)
+        require(set(real) == REAL_KEYS,
+                f"try_real_harness keys: {sorted(set(real) ^ REAL_KEYS)}")
+        require(real["mode"] == "real" and real["path"] == "nvml"
+                and real["ticks"] == BENCH_TICKS
+                and len(real["durations_ms"]) == BENCH_TICKS,
+                f"try_real_harness: {real['mode']}, {real['path']}")
+        colaunch = probe["burn_colaunch"]
+        require(colaunch["loaded"] and colaunch["returncode"] is not None
+                and colaunch["returncode"] <= 0,
+                f"the co-launched burn: {colaunch}")
+        duty0 = probe["nvml_attempt"]["last_duty"].get("0")
+        require(duty0 is not None and duty0 >= DUTY_MIN,
+                f"card 0's duty in the NVML harness's last snapshot: "
+                f"{duty0} (< {DUTY_MIN})")
+        finite_times("try_real_harness", {
+            k: v for k, v in real.items() if k != "durations_ms"})
+        out["real"] = {"figures": real, "budgets": budgets("real", real)}
+
+        # The embedded harness: the cuda burn and the sweep in this
+        # process, through B1.
+        tiled_burn.launches = 0
+        start = time.monotonic()
+        emb = bench.try_embedded_harness(probe, ticks=BENCH_TICKS,
+                                         warmup=BENCH_WARMUP,
+                                         size=BENCH_SIZE)
+        launches = tiled_burn.launches
+        out["seconds"]["try_embedded_harness"] = time.monotonic() - start
+        require_bench(emb, "try_embedded_harness", tail)
+        require(set(emb) == EMBEDDED_KEYS,
+                f"try_embedded_harness keys: "
+                f"{sorted(set(emb) ^ EMBEDDED_KEYS)}")
+        require(emb["mode"] == "real" and emb["path"] == "embedded"
+                and emb["device_kind"] == torch.cuda.get_device_name(0),
+                f"try_embedded_harness: {emb['mode']}, {emb['path']}, "
+                f"{emb['device_kind']}")
+        require(emb["workload_busy_fraction_during_bench"] >= BUSY_MIN
+                and emb["workload_steps_per_s_during_bench"] > 0,
+                f"the embedded harness's card was not loaded: busy "
+                f"{emb['workload_busy_fraction_during_bench']}, steps/s "
+                f"{emb['workload_steps_per_s_during_bench']}")
+        mfu = emb["workload_mfu_pct_during_bench"]
+        require(mfu is not None and 0 < mfu <= MFU_MAX, f"MFU {mfu}")
+        sweep = emb["mfu_sweep"]
+        require([row.get("size") for row in sweep] == list(SWEEP_BENCH)
+                and all("tflops_per_s" in row and row["tflops_per_s"] > 0
+                        and "error" not in row and "skipped" not in row
+                        for row in sweep), f"the sweep: {sweep}")
+        require(launches > 0, "the embedded harness did not launch B1")
+        finite_times("try_embedded_harness", {
+            k: v for k, v in emb.items() if k != "durations_ms"})
+        out["embedded"] = {"figures": emb,
+                           "budgets": budgets("embedded", emb),
+                           "launches": launches}
+
+        # The host measurements. The stores' health registry is process
+        # wide and the hub serves a series set per store: each
+        # measurement starts from an empty one, as in a fresh process
+        # (and as measure_degraded_overhead leaves it).
+        for name in BENCH_MEASUREMENTS:
+            wal.reset_store_stats()
+            start = time.monotonic()
+            result = require_bench(getattr(bench, name)(), name, tail)
+            out["seconds"][name] = time.monotonic() - start
+            keys = set(BENCH_KEYS[name])
+            require(set(result) == keys,
+                    f"{name} keys: {sorted(set(result) ^ keys)}")
+            want = BENCH_EXACT.get(name, {})
+            got = {key: result[key] for key in want}
+            require(got == want, f"{name}: {got} != {want}")
+            bench_invariants(name, result, {})
+            finite_times(name, result)
+            out[name] = {"figures": result, "budgets": budgets(name, result)}
+        start = time.monotonic()
+        span_ns = tracing.measure_overhead_ns()
+        require(math.isfinite(span_ns) and span_ns > 0, f"span {span_ns}")
+        out["measure_overhead_ns"] = {
+            "figures": span_ns, "budgets": {"trace_overhead_ns_per_span": {
+                "value": span_ns, "limit": "< 25000",
+                "budget_ok": span_ns < 25_000}}}
+        report, summary = profiler.profile_ingest(**PROFILE_INGEST_ARGS)
+        out["seconds"]["profile_ingest"] = time.monotonic() - start
+        require(summary["path"] == "python"
+                and summary["ingest"] == PROFILE_INGEST_EXACT
+                and "function calls" in report,
+                f"profile_ingest: {summary}")
+        out["profile_ingest"] = summary
+    finally:
+        logging.getLogger("kube_gpu_stats_tpu_torch").removeHandler(tail)
+    out["seconds"]["phase"] = time.monotonic() - t0
+    out["over_soft_limit"] = out["seconds"]["phase"] > BENCH_SOFT_S
+    out["budget_misses"] = sorted(
+        f"{name}.{key}" for name, entry in out.items()
+        if isinstance(entry, dict) and "budgets" in entry
+        for key, row in entry["budgets"].items() if not row["budget_ok"])
+    emit("bench", out)
+    return launches
+
+
 def library_call():
     """The yardstick: one PyTorch call computing the same function. Returns
     (name, fn(a, b))."""
@@ -6163,6 +6557,7 @@ def phases() -> None:
     launches += phase_egress(card, c5_tick_ms)
     launches += phase_hub(card, c5_tick_ms, cuda_steps_per_s)
     launches += phase_fleet(card)
+    launches += phase_bench(card)
     t = phase_timing(card)
     emit("kernels", [{
         "name": KERNEL_NAME, "route": "cuda", "source": KERNEL_SOURCE,
@@ -6181,6 +6576,7 @@ ALONE = {
     "egress": lambda card: phase_egress(card, {}),
     "hub": lambda card: phase_hub(card, {}, 0.0),
     "fleet": phase_fleet,
+    "bench": phase_bench,
 }
 
 

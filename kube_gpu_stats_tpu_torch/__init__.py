@@ -28,7 +28,9 @@ the series accountant, the merged exposition with slice rollups, the
 history ring behind ``/query``, the SO_REUSEPORT ingest processes, and
 the fleet lens: per-target baselines, slow-node attribution, SLO burn
 windows, the link localizer and the efficiency lens with its signed
-attestation) and ``top``; the H100 deploy assets (``deploy/``); and the
+attestation) and ``top``; the measurement module (``bench.py``: the
+reference's measurements and its two real-mode harnesses, over NVML and
+the embedded collector); the H100 deploy assets (``deploy/``); and the
 entry points (``entry.py``). The daemon, hub, top and doctor paths
 import no torch. Still off in the hub: the native frame fold and slot
 store (the Python paths always run).
@@ -86,9 +88,14 @@ Layer map:
     snappy.py         snappy block codec (remote write, delta frames)
     proto/            protobuf codec: PodResources, prompb, prompb2
     testing/egress_sink.py  one receiver for all three push paths
+    testing/host_fixture.py  fake /proc, /sys and cgroup trees
     tracing.py        the flight recorder: tick spans, event journal, and
                       their read side (/debug/ticks|trace|events)
-    profiler.py       stack sampling behind /debug/profile
+    profiler.py       stack sampling behind /debug/profile;
+                      profile_ingest (cProfile of the delta apply path)
+    bench.py          the measurements: hub, ingest, query, stores, node
+                      costs, fleet lens; try_real_harness (NVML under a
+                      co-launched burn), try_embedded_harness
     poll.py           PollLoop: per-device sampling with a deadline,
                       pipelined rounds, tick plans
     hoststats.py      PSI, IRQ, NIC, thermal and pod-cgroup signals

@@ -474,6 +474,11 @@ class LabelFence:
     def fenced_totals(self) -> dict[str, int]:
         return dict(self._fenced)
 
+    def admitted_values(self, key: str) -> int:
+        """Distinct values of ``key`` admitted so far (at most the cap)."""
+        seen = self._seen.get(key)
+        return len(seen) if seen is not None else 0
+
 
 def clamp_series(series: list, admitted: int) -> list:
     """Clamp a parsed FULL to its admitted prefix. A helper (not a

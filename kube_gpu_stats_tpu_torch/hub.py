@@ -214,12 +214,19 @@ class _TargetCache:
     only ``body`` must stay resident to fund the byte-compare.
     chip_plan/hist_local/frame_rows are filled lazily by the merge phase
     (refresh thread); fetch pool threads only ever install fresh entries,
-    which is a GIL-atomic dict store."""
+    which is a GIL-atomic dict store.
+
+    A push entry's lazy builds race its delta patches: a frame landing
+    between a build's read of the values and the install of its view
+    finds no view to patch. ``version`` is a seqlock against that, with
+    ``apply_patch`` (one writer: the ingest applies a source's frames
+    under its lane's lock) as the write side and ``view`` as the read
+    side; neither side ever waits for the other."""
 
     __slots__ = ("body", "body_hash", "series", "series_dicts",
                  "chip_plan", "rollup_plan", "hist_local", "frame_rows",
                  "frame_rollups", "fleet_digest", "stat_sig", "pushed",
-                 "wants_rollup", "patch_actions", "shape")
+                 "wants_rollup", "patch_actions", "shape", "version")
 
     def __init__(self, body: str, series: list,
                  stat_sig: tuple | None = None,
@@ -266,6 +273,8 @@ class _TargetCache:
         # target churn. Lazy: computed the first time a plan or program
         # wants it, while ``series`` is still resident.
         self.shape: tuple | None = None
+        # Odd while apply_patch runs; see view().
+        self.version = 0
 
     def shape_key(self) -> tuple:
         """Two flat tuples of interned objects (names, label tuples):
@@ -296,6 +305,34 @@ class _TargetCache:
         would compute. This is the reference's per-slot Python loop
         (its differential oracle); its native batch store is not
         ported."""
+        self.version += 1
+        try:
+            self._patch(slots, values, target)
+        finally:
+            self.version += 1
+
+    def view(self, names: tuple[str, ...], build) -> tuple:
+        """The derived views ``names`` (attributes), from ``build()``
+        when one is missing. A build that a patch overlapped (the
+        version moved, or was odd when the build read the values) is
+        used by this refresh, which may show a frame landing during it
+        half applied, but is not kept: the patch found no view to
+        update. The next refresh builds again."""
+        views = tuple(getattr(self, name) for name in names)
+        if None not in views:
+            return views
+        before = self.version
+        views = build()
+        if before % 2 == 0:
+            for name, built in zip(names, views):
+                setattr(self, name, built)
+            if self.version != before:
+                for name in names:
+                    setattr(self, name, None)
+        return views
+
+    def _patch(self, slots, values, target: str) -> None:
+        """apply_patch's work, inside its version bumps."""
         series = self.series
         dicts = self.series_dicts
         actions = self.patch_actions
@@ -1130,16 +1167,10 @@ class Hub:
         rows: dict[tuple, ChipRow] = {}
         rollups: dict[tuple, float] = {}
         for (target, entry), at in zip(entries, ats):
-            trows = entry.frame_rows
-            if trows is None:
-                trows = {}
-                trollups: dict[tuple, float] = {}
-                fold_target(entry.series_dicts, target, 0.0, trows, trollups)
-                entry.frame_rows = trows
-                entry.frame_rollups = trollups
+            trows, trollups = self._entry_fold(target, entry)
             for key, row in trows.items():
                 rows[key] = row.clone_at(at)
-            rollups.update(entry.frame_rollups)
+            rollups.update(trollups)
         frame = Frame(rows, errors, rollups)
         frame.rates(self._previous)
         self._previous = frame
@@ -1179,11 +1210,7 @@ class Hub:
             fleet_mark = tracer.mark()
             digests: dict[str, dict] = {}
             for target, entry in entries:
-                digest = entry.fleet_digest
-                if digest is None:
-                    digest = entry.fleet_digest = \
-                        fleetlens.digest_from_series(entry.series_dicts)
-                digests[target] = digest
+                digests[target] = self._entry_digest(entry)
             # Push-aware fetch signal: a push-served target's 0.0
             # fetch_seconds says the HUB paid nothing, but scoring it
             # would blind the lens to a publisher falling behind — feed
@@ -1876,6 +1903,22 @@ class Hub:
                 emit.append(series)
         return duplicates
 
+    @staticmethod
+    def _entry_fold(target: str, entry: _TargetCache) -> tuple[dict, dict]:
+        """The target's cached frame fold (rows, rollups)."""
+        def build() -> tuple[dict, dict]:
+            rows: dict[tuple, ChipRow] = {}
+            rollups: dict[tuple, float] = {}
+            fold_target(entry.series_dicts, target, 0.0, rows, rollups)
+            return rows, rollups
+        return entry.view(("frame_rows", "frame_rollups"), build)
+
+    @staticmethod
+    def _entry_digest(entry: _TargetCache) -> dict:
+        """The target's cached fleet digest."""
+        return entry.view(("fleet_digest",), lambda: (
+            fleetlens.digest_from_series(entry.series_dicts),))[0]
+
     def _replay_chip_plans(self, entries, emit: list | None,
                            rollup_emit: list | None = None) -> int:
         """Replay every answered target's chip plan into ``emit`` and,
@@ -1891,16 +1934,12 @@ class Hub:
         duplicates = 0
         rollup_dups: list = []
         for target, entry in entries:
-            plan = entry.chip_plan
-            if plan is None:
-                plan = entry.chip_plan = self._build_merge_plan(
-                    target, entry, PER_CHIP_SPECS)
+            plan, = entry.view(("chip_plan",), lambda: (
+                self._build_merge_plan(target, entry, PER_CHIP_SPECS),))
             duplicates += self._replay_plan(plan, seen, emit)
             if self._federate:
-                rollup = entry.rollup_plan
-                if rollup is None:
-                    rollup = entry.rollup_plan = self._build_merge_plan(
-                        target, entry, FEDERATED_SPECS)
+                rollup, = entry.view(("rollup_plan",), lambda: (
+                    self._build_merge_plan(target, entry, FEDERATED_SPECS),))
                 duplicates += self._replay_plan(rollup, seen, rollup_emit,
                                                 rollup_dups)
         if rollup_dups:
@@ -2018,10 +2057,8 @@ class Hub:
         per-target fold (buckets are copied into the accumulator), so
         replaying a fold across refreshes is safe."""
         for target, entry in entries:
-            local = entry.hist_local
-            if local is None:
-                local = entry.hist_local = self._build_hist_local(
-                    target, entry.series_dicts)
+            local, = entry.view(("hist_local",), lambda: (
+                self._build_hist_local(target, entry.series_dicts),))
             # An answered target replaces its cached contribution (its
             # own counter reset is a legitimate reset downstream); a
             # failed target keeps its previous entry.

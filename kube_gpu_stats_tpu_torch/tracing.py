@@ -28,6 +28,7 @@ thread's trace. Sampler threads record completed observations through
 finishing trace. The ring and journal are deques; the read side and the
 journal take the cold-path lock, never the span path.
 
+``measure_overhead_ns()`` prices one enabled span for the bench.
 ``log_every(key, interval)`` also lives here: the shared rate limiter for
 warning sites that can emit one line per tick during a sustained outage.
 """
@@ -495,6 +496,26 @@ class Tracer:
         # apart from tracing disabled. The viewers ignore unknown keys.
         return {"traceEvents": events, "displayTimeUnit": "ms",
                 "enabled": self.enabled}
+
+
+def measure_overhead_ns(spans: int = 4000) -> float:
+    """Mean wall nanoseconds per enabled no-op span (enter + exit on an
+    open trace). ``bench.measure_collector`` reports it as
+    ``trace_overhead_ns_per_span``: tracing is on by default, so its cost
+    is part of every tick."""
+    tracer = Tracer(capacity=4, max_spans=128)
+    tracer.begin("bench", 0)
+    per_trace = 100  # under the span cap; end/begin cost amortizes
+    start = time.perf_counter_ns()
+    done = 0
+    while done < spans:
+        for _ in range(per_trace):
+            with tracer.span("overhead"):
+                pass
+        done += per_trace
+        tracer.end()
+        tracer.begin("bench", 0)
+    return (time.perf_counter_ns() - start) / done
 
 
 # -- rate-limited logging ----------------------------------------------------

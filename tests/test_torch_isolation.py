@@ -61,7 +61,8 @@ def test_importing_the_port_loads_no_jax():
                    "proto.prompb", "proto.prompb2", "delta",
                    "testing.egress_sink", "hub", "top", "cardinality",
                    "fleetlens", "history", "ingestproc", "efficiency",
-                   "linkloc", "ici", "topology"):
+                   "linkloc", "ici", "topology", "bench",
+                   "testing.host_fixture"):
         assert f"kube_gpu_stats_tpu_torch.{module}" in report["imported"]
     assert [m for m in report["loaded"] if _forbidden(m)] == []
 
@@ -246,6 +247,45 @@ def test_the_hub_and_top_import_no_torch():
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["rc"] == [0, 0, 200]
+    assert _no_torch(report["loaded"]) == []
+
+
+# The measurement module alone (its import must load no torch: only the
+# two real-mode harnesses import it, inside the call), then host
+# measurements over the hub, the ingest, the stores and host_fixture, the
+# ingest profile, and the NVML harness as far as this machine lets it go.
+_RUN_BENCH = """
+import json, sys
+import kube_gpu_stats_tpu_torch.bench as bench
+import kube_gpu_stats_tpu_torch.profiler
+import kube_gpu_stats_tpu_torch.testing.host_fixture
+alone = sorted(sys.modules)
+from kube_gpu_stats_tpu_torch import profiler
+results = [bench.measure_quiet_tick_delta(),
+           bench.measure_hub_merge(workers=2, chips=1, refreshes=2),
+           bench.measure_warm_restart(pushers=8),
+           bench.measure_degraded_overhead(ticks=4),
+           bench.measure_hoststats(reads=2, pods=2)]
+_report, summary = profiler.profile_ingest(sources=4, waves=1)
+_real, probe = bench.try_real_harness(ticks=2, warmup=1, colaunch=False)
+print(json.dumps({"ok": [r is not None for r in results],
+                  "path": summary["path"], "nvml": probe["nvml_init"],
+                  "alone": alone, "loaded": sorted(sys.modules)}))
+"""
+
+
+def test_the_measurement_module_imports_no_torch():
+    """``import kube_gpu_stats_tpu_torch.bench`` loads no torch, and
+    neither do its host measurements, ``profile_ingest`` or the NVML
+    harness; bench, profiler and testing.host_fixture load neither JAX
+    nor the reference."""
+    proc = subprocess.run([sys.executable, "-c", _RUN_BENCH], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["ok"] == [True] * 5 and report["path"] == "python"
+    assert report["nvml"]
+    assert _no_torch(report["alone"]) == []
     assert _no_torch(report["loaded"]) == []
 
 
