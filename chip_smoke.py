@@ -6,7 +6,7 @@ Run from the repository root on a machine with one H100:
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py egress:3 hub:2`` instead builds the kernel and
-runs only the named phases (``doctor``, ``c5``, ``burst``,
+runs only the named phases (``native``, ``doctor``, ``c5``, ``burst``,
 ``energy``, ``egress``, ``hub``, ``fleet``, ``bench``), each the given
 number of times, and
 prints one ``phases_alone`` line with each run's outcome: the way to
@@ -18,6 +18,17 @@ prints its result line after one):
 1. the card: ``nvidia-smi`` name and power limit, capability; TF32 off;
 2. build the tiled GEMM kernel from ``csrc/`` (nvcc, first use) and print
    what ptxas reports for it: registers, shared memory, spills, warnings;
+2b. ``native``: the host extension (``native/wirefast.cc``, built by g++ at
+   first use; host code, not a kernel): the g++ version, the paths of
+   ``Python.h`` and ``zlib.h`` and one fresh build's seconds; then, byte
+   for byte against the Python paths on this interpreter, the render and
+   gzip (levels 1, 3, 6, 9) of an 8-card daemon snapshot and of a
+   ~6,000-series hub snapshot in both formats, 10,000 seeded DELTA frames
+   (a tenth of them corrupted) through both decoders with equal frames or
+   verdicts, snappy round trips and cut streams, and the data series of a
+   65-target hub fed one seeded frame sequence with its native paths
+   against the same hub under ``--no-native-ingest``; one line with the
+   render, gzip, decode, snappy and apply ms of both paths;
 3. hold the kernel against its plain version at small shapes, at the
    shapes that reach the edges of its design (K shorter than the ring, a
    partial last wave, the 128-wide instance, several tiles per block, two
@@ -131,7 +142,8 @@ prints its result line after one):
    bytes, the publisher's render and encode ms, the writer's serialize
    ms and a shard WAL append's ms;
 8g. ``hub``: the hub core over a 64-node H100 cluster as one hub sees
-   it. ``python -m kube_gpu_stats_tpu_torch hub --interval 1
+   it, on its host fast paths (the default; its ``kts_ingest_native``
+   must read 1, the line's ``native_active``). ``python -m kube_gpu_stats_tpu_torch hub --interval 1
    --ingest-checkpoint <tmp> --expect-workers 64 --targets-file <tmp>`` as
    a subprocess; the NVML daemon at 10 Hz (``KTS_SLICE=h100-a
    KTS_WORKER=node-00``) pushing to it with ``--hub-url``; the ``cuda``
@@ -217,7 +229,10 @@ prints its result line after one):
    keys and its exact figures (bytes, series, frames, sheds counted once,
    conservation, none dropped), every other figure finite; each timing
    is printed beside the budget the reference's ``tests/test_latency.py``
-   pins on it, with ``budget_ok`` (reported, not required);
+   pins on it, with ``budget_ok`` (reported, not required); the hub runs
+   them with its host fast paths on (the default), and the delta
+   federation, hub merge and ingest storm run again with them off
+   (``native=False``), each pair beside its budget (``native_pairs``);
 9. time the kernel, its plain version and one library call
    (``torch.mm`` with f32 out) at the main path's and the sweep's sizes,
    each as the median of batches of back-to-back calls;
@@ -1770,6 +1785,8 @@ class DaemonWatcher:
         self.ups: dict[int, dict[str, float]] = {}
         self.burst: dict[int, dict] = {}
         self.seen_at: dict[int, float] = {}
+        # The spill queue's spooled total served with each tick.
+        self.spooled: dict[int, float] = {}
         self.traced: dict[int, dict] = {}
         self.failure: list = []
         self._stop = threading.Event()
@@ -1815,6 +1832,9 @@ class DaemonWatcher:
                           if family == schema.DEVICE_UP.name}
         burst: dict = {}
         for family, labels, value in series:
+            if (family == schema.SPILL_FRAMES.name
+                    and labels.get("state") == "spooled"):
+                self.spooled[tick] = value
             if labels.get("chip", "0") != "0":
                 continue
             if family == schema.BURST_WATTS.name:
@@ -1945,7 +1965,10 @@ def check_doctor_run(out: dict, smi_cards: int, driver: str) -> dict:
             "wall_s": out["doctor_wall_s"],
             "host_detail": host["detail"],
             "poll_p50_ms": poll["data"]["p50_ms"],
-            "poll_detail": poll["detail"], "nvml_detail": nvml["detail"],
+            "poll_detail": poll["detail"],
+            "poll_ticks": {"ms": poll["data"]["ticks_ms"],
+                           "up": poll["data"]["ticks_up"]},
+            "nvml_detail": nvml["detail"],
             "scrape_series": count, "trace_detail": trace["detail"],
             "rows": {name: row["status"] for name, row in rows.items()}}
 
@@ -2671,6 +2694,15 @@ def drained(egress: dict, _skew=None) -> bool:
                     for shard in egress["remote_write"]["shards"]))
 
 
+def watched_spool(watch: DaemonWatcher) -> tuple[int, float]:
+    """The newest tick the watcher has seen and the spooled total served
+    in the same scrape: a frame spooled after that scrape counts in
+    neither, where a separate read of ``/debug/egress`` could count it
+    before the watcher saw its tick."""
+    tick = max(watch.seen_at, default=0)
+    return tick, watch.spooled.get(tick, 0.0)
+
+
 def tick_at(watch: DaemonWatcher, at: float) -> int:
     """The newest tick the watcher had seen by monotonic time ``at``."""
     seen = [tick for tick, t in watch.seen_at.items() if t <= at]
@@ -2933,9 +2965,7 @@ def phase_egress(card_line: str, c5_tick_ms: dict) -> int:
                         sink.url + "/api/v1/write",
                         "--remote-write-protocol", "2.0")
                     egress, _ = egress_state(port)
-                    marks["cut"] = (time.monotonic(),
-                                    max(watch.seen_at, default=0),
-                                    egress["spill"]["spooled_total"],
+                    marks["cut"] = (time.monotonic(), *watched_spool(watch),
                                     egress["senders"]["delta"][
                                         "skipped_total"])
                     sink.blackout()
@@ -2946,8 +2976,7 @@ def phase_egress(card_line: str, c5_tick_ms: dict) -> int:
                     time.sleep(max(0.0, remaining))
                     egress, _ = egress_state(port)
                     marks["restore"] = (time.monotonic(),
-                                        max(watch.seen_at, default=0),
-                                        egress["spill"]["spooled_total"],
+                                        *watched_spool(watch),
                                         egress["senders"]["delta"][
                                             "skipped_total"])
                     out["blackout_egress"] = egress
@@ -3029,7 +3058,7 @@ def phase_egress(card_line: str, c5_tick_ms: dict) -> int:
     final = out["final_egress"]
     spill = final["spill"]
     cut_tick, restore_tick = marks["cut"][1], marks["restore"][1]
-    spooled_in_blackout = marks["restore"][2] - marks["cut"][2]
+    spooled_in_blackout = int(marks["restore"][2] - marks["cut"][2])
     blackout_ticks = restore_tick - cut_tick
     windows = {
         "live": window_p50(watch.traced, first_tick, cut_tick),
@@ -4468,6 +4497,8 @@ def phase_hub(card_line: str, c5_tick_ms: dict,
                         hub_port, hub_view(hub_port)["refreshes"],
                         "the live window", match)
                     out["live_apply"] = lane_apply(out["live"][0])
+                    out["native_active"] = out["live"][0]["one"](
+                        schema.INGEST_NATIVE.name)
                     out["live_window"] = (t0, time.monotonic())
                     out["live_rates"] = rates_in(hub_port, HUB_RATE_REFRESHES)
                     out["cycles_live"] = hub_cycles_ms(
@@ -4857,6 +4888,10 @@ def phase_hub(card_line: str, c5_tick_ms: dict,
     continued = sessions - fulls_after
     ready_view = out["ready_view"]
     saw_gate = [body for status, body in out["readyz"] if status == 503]
+    # The hub runs its host fast paths by default (kts_ingest_native).
+    require(out.get("native_active") == 1.0,
+            f"the hub's kts_ingest_native is {out.get('native_active')}: "
+            f"its native slot store did not run")
     rc_doc, rows = out["doctor"]
     skew = rows["skew"]["data"]["skew"] if "data" in rows["skew"] else {}
     census = (skew.get("ingest") or {}).get("fleet_versions", {})
@@ -4873,6 +4908,7 @@ def phase_hub(card_line: str, c5_tick_ms: dict,
     row = {
         "card": card_line, "interval_s": HUB_INTERVAL_S,
         "nodes": HUB_NODES, "targets": HUB_NODES + 1,
+        "native_active": out["native_active"] == 1.0,
         "cards": float(out["live"][1]["rollups"]["slice_chips"]),
         "fleet_start_s": out["fleet_start_s"],
         "convergence_refreshes": {
@@ -6074,6 +6110,329 @@ def fleet_checks(out: dict, synth: FleetSynth, embedded_rec,
 
 # -- bench: the measurement module on the card ---------------------------
 
+NATIVE_SEED = 16
+NATIVE_FRAMES = 10_000
+NATIVE_MUTATED = 0.1        # share of the frames given a corrupt byte or cut
+NATIVE_NODES = 64           # the hub snapshot's synthetic nodes (+1 target)
+NATIVE_CARDS = 8
+NATIVE_WAVES = 6            # delta waves through the two hubs
+NATIVE_GZIP_LEVELS = (1, 3, 6, 9)  # 3: the server's scrape level
+NATIVE_REPEATS = 5
+# Wall-clock-derived hub families: each hub computes them from its own
+# refresh timestamps, so they are equal in shape but not in digits.
+NATIVE_CLOCK_FAMILIES = ("slice_worker_steps_per_second",
+                         "slice_straggler_ratio",
+                         "slice_target_fetch_seconds")
+
+
+def native_toolchain() -> dict:
+    """The compiler and headers the host extension builds with here, and
+    the seconds of one fresh build (into a scratch directory, whatever
+    the package's build directory already holds)."""
+    from kube_gpu_stats_tpu_torch.native import _hostbuild
+
+    version = subprocess.run([_hostbuild.CXX, "--version"],
+                             capture_output=True, text=True, timeout=60)
+    dirs = [*_hostbuild.include_dirs(), "/usr/include", "/usr/local/include"]
+
+    def header(name: str) -> str | None:
+        return next((str(pathlib.Path(d) / name) for d in dirs
+                     if (pathlib.Path(d) / name).is_file()), None)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            _hostbuild.command(pathlib.Path(tmp) / "_wirefast.so"),
+            capture_output=True, text=True,
+            timeout=_hostbuild.BUILD_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"g++ failed on the host extension: {proc.stderr[-3000:]}")
+    return {"cxx": version.stdout.splitlines()[0] if version.stdout
+            else version.stderr.strip(),
+            "python_h": header("Python.h"), "zlib_h": header("zlib.h"),
+            "build_s": seconds,
+            "warnings": [line for line in (proc.stderr + proc.stdout)
+                         .splitlines() if "warning" in line.lower()]}
+
+
+def native_node_body(node: int, values) -> str:
+    """One synthetic H100 node's exposition: ``NATIVE_CARDS`` cards with
+    the daemon's per-card gauges and counters, two links each, and a
+    workload step histogram. ``values``: a numpy generator."""
+    from kube_gpu_stats_tpu_torch.registry import (HistogramState,
+                                                   SnapshotBuilder)
+
+    builder = SnapshotBuilder()
+    for card in range(NATIVE_CARDS):
+        labels = (("accel_type", "h100-sxm"), ("chip", str(card)),
+                  ("device_path", f"/dev/nvidia{card}"),
+                  ("uuid", f"GPU-{node:04d}-{card}"),
+                  ("pod", f"train-{node // 8}"), ("namespace", "ml"),
+                  ("container", "w"), ("slice", f"s{node // 16}"),
+                  ("worker", str(node)), ("topology", "8x8"))
+        duty = float(values.integers(0, 101))
+        builder.add(schema.DEVICE_UP, 1.0, labels)
+        builder.add(schema.DUTY_CYCLE, duty, labels)
+        builder.add(schema.TENSORCORE_UTIL, duty * 0.8, labels)
+        builder.add(schema.MEMORY_USED, float(values.integers(1, 80)) * MIB
+                    * 1024, labels)
+        builder.add(schema.MEMORY_TOTAL, 80.0 * 1024 * MIB, labels)
+        builder.add(schema.POWER, float(values.uniform(80.0, 700.0)), labels)
+        builder.add(schema.ENERGY, float(values.uniform(0.0, 1e9)), labels)
+        builder.add(schema.TEMPERATURE, float(values.integers(30, 90)),
+                    labels)
+        builder.add(schema.WORKLOAD_STEPS, float(values.integers(0, 10**6)),
+                    labels)
+        for link in range(2):
+            builder.add(schema.ICI_BANDWIDTH,
+                        float(values.uniform(0.0, 4.5e11)),
+                        labels + (("link", f"nvlink{link}"),))
+    state = HistogramState.empty(schema.WORKLOAD_STEP_DURATION,
+                                 (0.001, 0.01, 0.1, 1.0),
+                                 labels=(("worker", str(node)),))
+    for _ in range(int(values.integers(0, 20))):
+        state = state.observe(float(values.uniform(0.0, 2.0)))
+    builder.add_histogram(state)
+    return builder.build().render()
+
+
+def native_frames(values) -> list[bytes]:
+    """``NATIVE_FRAMES`` seeded DELTA frames, decompressed, a share of
+    them with a corrupt byte or cut short: every verdict of the decode
+    (frames, FULL fallbacks, skew, truncation, bad UTF-8, slots past
+    2^62) comes up."""
+    import numpy as np
+
+    from kube_gpu_stats_tpu_torch import snappy
+
+    raws = []
+    specials = (float("nan"), float("inf"), float("-inf"), -0.0, 1e300)
+    for i in range(NATIVE_FRAMES):
+        count = int(values.integers(0, 48))
+        gaps = values.integers(1, 300, count)
+        if count and values.random() < 0.01:
+            gaps[-1] = 2**62
+        slots = np.cumsum(gaps, dtype=object) if count else []
+        vals = values.standard_normal(count) * 10.0 ** values.integers(-3, 12)
+        vals = [specials[int(values.integers(0, len(specials)))]
+                if values.random() < 0.05 else float(v) for v in vals]
+        proto = int(values.integers(1, 3))
+        build = f"b{i % 7}" if proto == 2 and values.random() < 0.5 else ""
+        wire = delta.encode_delta(
+            f"http://node-{i % 97:03d}:9400/metrics", 1 + i % 13, 2 + i,
+            list(zip((int(s) for s in slots), vals)), proto=proto,
+            caps=int(values.integers(0, 4)) if proto == 2 else 0,
+            build=build)
+        raw = bytearray(snappy.decompress(wire))
+        if values.random() < NATIVE_MUTATED:
+            if values.random() < 0.5:
+                raw = raw[:int(values.integers(0, len(raw)))]
+            else:
+                raw[int(values.integers(0, len(raw)))] = int(
+                    values.integers(0, 256))
+        raws.append(bytes(raw))
+    return raws
+
+
+def decode_outcome(decode, raw: bytes):
+    """A decode's frame (values as their bit patterns) or its verdict."""
+    import struct
+
+    try:
+        f = decode(raw)
+    except ValueError as exc:
+        return (type(exc).__name__, str(exc))
+    return (f.kind, f.source, f.generation, f.seq, f.body, f.slots,
+            struct.pack(f"<{len(f.values)}d", *f.values), f.proto, f.caps,
+            f.build)
+
+
+def native_hub_lines(hub) -> list[str]:
+    """The hub's served data series, clock-derived families left out."""
+    text = hub.registry.rendered()[0].decode()
+    return [line for line in text.splitlines()
+            if line.startswith(("accelerator_", "slice_"))
+            and not line.startswith(NATIVE_CLOCK_FAMILIES)]
+
+
+def phase_native(card_line: str) -> None:
+    """The host extension (``kube_gpu_stats_tpu_torch/native/wirefast.cc``)
+    on the card's host: the toolchain it found, then each fast path held
+    byte for byte against its Python path on this interpreter, and both
+    paths' times."""
+    import numpy as np
+
+    from kube_gpu_stats_tpu_torch import bench, native, snappy
+    from kube_gpu_stats_tpu_torch.collectors.mock import MockCollector
+    from kube_gpu_stats_tpu_torch.hub import Hub
+    from kube_gpu_stats_tpu_torch.poll import PollLoop
+    from kube_gpu_stats_tpu_torch.registry import Registry
+
+    t0 = time.monotonic()
+    out: dict = {"card": card_line, "toolchain": native_toolchain()}
+    start = time.perf_counter()
+    module = native.load_render()
+    native.load_ingest()
+    out["load_s"] = time.perf_counter() - start
+    out["library"] = str(native.library_path())
+    values = np.random.default_rng(NATIVE_SEED)
+    ms: dict = {}
+
+    def best_ms(fn) -> float:
+        times = []
+        for _ in range(NATIVE_REPEATS):
+            start = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - start) * 1e3)
+        return min(times)
+
+    # Render and gzip: an 8-card daemon snapshot and a ~6,000-series hub
+    # snapshot, both formats, three gzip levels.
+    daemon_registry = Registry(native=False)
+    loop = PollLoop(MockCollector(num_devices=NATIVE_CARDS), daemon_registry,
+                    pipeline_fetch=False)
+    loop.tick()
+    loop.tick()
+    bodies = [native_node_body(node, values) for node in range(NATIVE_NODES)]
+    sources = [f"http://node-{node:03d}:9400/metrics"
+               for node in range(NATIVE_NODES)] + ["http://embedded:9401/metrics"]
+    bodies.append(bench.build_pusher_body(NATIVE_NODES))
+    hubs = {"native": Hub([], targets_provider=lambda: [], interval=10.0,
+                          push_fence=1e9),
+            "python": Hub([], targets_provider=lambda: [], interval=10.0,
+                          push_fence=1e9, native_ingest=False)}
+    encoders = {path: [delta.DeltaEncoder(source, generation=i + 1)
+                       for i, source in enumerate(sources)]
+                for path in hubs}
+    apply_ms = {path: 0.0 for path in hubs}
+
+    def feed(path: str, i: int, body: str) -> None:
+        encoder = encoders[path][i]
+        wire, _kind = encoder.encode_next(body)
+        start = time.perf_counter()
+        code, _resp, _hdrs = hubs[path].delta.handle(wire)
+        apply_ms[path] += (time.perf_counter() - start) * 1e3
+        require(code == 200, f"{path} hub answered {code} to {sources[i]}")
+        encoder.ack()
+
+    def refresh_both(wave: int) -> None:
+        for path, hub in hubs.items():
+            with native.python_paths(
+                    "--no-native-ingest" if path == "python" else None):
+                hub.refresh_once()
+        got, want = (native_hub_lines(hubs["native"]),
+                     native_hub_lines(hubs["python"]))
+        require(got == want,
+                f"wave {wave}: the native hub's /metrics differs from the "
+                f"--no-native-ingest hub's: "
+                f"{[l for l in want if l not in got][:5]}")
+
+    try:
+        for i, body in enumerate(bodies):
+            for path in hubs:
+                with native.python_paths(
+                        "--no-native-ingest" if path == "python" else None):
+                    feed(path, i, body)
+        refresh_both(0)
+        for path in hubs:
+            apply_ms[path] = 0.0
+        for wave in range(1, NATIVE_WAVES + 1):
+            bodies = [native_node_body(node, values)
+                      for node in range(NATIVE_NODES)] + [
+                bench.build_pusher_body(NATIVE_NODES, duty=50.0 + wave)]
+            for path in hubs:
+                with native.python_paths(
+                        "--no-native-ingest" if path == "python" else None):
+                    for i, body in enumerate(bodies):
+                        feed(path, i, body)
+            refresh_both(wave)
+        require(hubs["native"].delta.native_active
+                and not hubs["python"].delta.native_active
+                and all(hubs["native"]._parse_cache.get(s).patch_program
+                        is not None for s in sources),
+                "the native hub did not apply through its slot store")
+        hub_snapshot = hubs["native"].registry.snapshot()
+        out["hub"] = {"targets": len(sources),
+                      "series": len(hub_snapshot.series),
+                      "histograms": len(hub_snapshot.histograms),
+                      "waves": NATIVE_WAVES,
+                      "lines_compared": len(native_hub_lines(hubs["native"]))}
+        ms["apply_per_wave"] = {path: apply_ms[path] / NATIVE_WAVES
+                                for path in hubs}
+    finally:
+        for hub in hubs.values():
+            hub.stop()
+
+    renders = {}
+    for what, snapshot in (("daemon_8_cards", daemon_registry.snapshot()),
+                           ("hub", hub_snapshot)):
+        for om in (False, True):
+            want = snapshot.render(openmetrics=om).encode()
+            got = module.render_exposition(snapshot.series,
+                                           snapshot.histograms, om)
+            require(got == want, f"native render of the {what} snapshot "
+                                 f"(openmetrics={om}) differs")
+            for level in NATIVE_GZIP_LEVELS:
+                require(module.gzip_compress(want, level)
+                        == gzip.compress(want, compresslevel=level, mtime=0),
+                        f"native gzip level {level} of the {what} snapshot "
+                        f"differs from gzip.compress")
+        renders[what] = {"series": len(snapshot.series), "bytes": len(want)}
+    out["renders"] = renders
+    text = hub_snapshot.render().encode()
+    ms["render_hub"] = {
+        "native": best_ms(lambda: module.render_exposition(
+            hub_snapshot.series, hub_snapshot.histograms, False)),
+        "python": best_ms(lambda: hub_snapshot.render().encode())}
+    ms["gzip_hub_level3"] = {
+        "native": best_ms(lambda: module.gzip_compress(text, 3)),
+        "python": best_ms(lambda: gzip.compress(text, compresslevel=3,
+                                                mtime=0))}
+
+    # Decode: every seeded frame through both decoders, then snappy.
+    raws = native_frames(values)
+    start = time.perf_counter()
+    got = [decode_outcome(delta.decode_frame_raw, raw) for raw in raws]
+    native_decode_ms = (time.perf_counter() - start) * 1e3
+    with native.python_paths("--no-native"):
+        start = time.perf_counter()
+        want = [decode_outcome(delta.decode_frame_raw, raw) for raw in raws]
+        python_decode_ms = (time.perf_counter() - start) * 1e3
+    diverged = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    require(not diverged, f"{len(diverged)} frames decode differently, "
+                          f"first {raws[diverged[0]].hex() if diverged else ''}")
+    errors = collections.Counter(w[0] for w in want if isinstance(w[0], str))
+    out["decode"] = {"frames": len(raws), "decoded": len(raws) - sum(
+        errors.values()), "verdicts": dict(errors)}
+    ms["decode_10k_frames"] = {"native": native_decode_ms,
+                               "python": python_decode_ms}
+    wires = [snappy.compress(raw) for raw in raws]
+    for wire, raw in zip(wires, raws):
+        require(snappy.decompress(wire) == raw == snappy._decompress_py(wire),
+                "a snappy round trip differs")
+    cut = [wire[:len(wire) // 2] for wire in wires[:1000]]
+    for wire in cut:
+        outcomes = []
+        for decoder in (snappy.decompress, snappy._decompress_py):
+            try:
+                outcomes.append(decoder(wire))
+            except ValueError as exc:
+                outcomes.append(str(exc))
+        require(outcomes[0] == outcomes[1],
+                f"snappy verdicts differ on {wire.hex()}: {outcomes}")
+    ms["snappy_10k_frames"] = {
+        "native": best_ms(lambda: [snappy.decompress(w) for w in wires]),
+        "python": best_ms(lambda: [snappy._decompress_py(w)
+                                   for w in wires])}
+    out["snappy"] = {"round_trips": len(wires), "cut_streams": len(cut)}
+    out["ms"] = ms
+    out["faults"] = native.faults()
+    require(not out["faults"], f"a fast path faulted: {out['faults']}")
+    out["seconds"] = time.monotonic() - t0
+    emit("native", out)
+
+
 BENCH_TICKS = 50
 BENCH_WARMUP = 5
 BENCH_SIZE = 4096
@@ -6092,6 +6451,19 @@ BENCH_MEASUREMENTS = (
     "measure_hoststats", "measure_fleet_localize",
     "measure_efficiency_score")
 PROFILE_INGEST_ARGS = {"sources": 1000, "waves": 5}
+# The hub measurements run again with the host fast paths off
+# (native=False: --no-native-ingest and the Python snappy and delta
+# decode): each figure with native on and off, beside its budget. A
+# measurement's later runs in one process find warm intern pools and
+# memos, so the cheap ones alternate (on, off, on, off) and every run is
+# reported in order; the storm runs once each way.
+NATIVE_PAIRS = {
+    "measure_delta_federation": (("delta_ingest_ms_per_refresh",
+                                  "root_merge_p50_ms"), 2),
+    "measure_hub_merge": (("cold_ms", "p50_ms"), 2),
+    "measure_ingest_storm": (("delta_ingest_10k_ms_per_refresh",
+                              "ingest_cpu_pct"), 1),
+}
 # measure_collector's keys, as the reference's returns them (a collector
 # without rpc_stats, as the NVML and embedded ones are).
 COLLECTOR_KEYS = frozenset((
@@ -6270,7 +6642,7 @@ def bench_invariants(name: str, r: dict, kwargs: dict) -> None:
     args.update(kwargs)
     if name == "measure_ingest_storm":
         pushers = args["pushers"]
-        require(r["pushers"] == pushers and r["native"] is False
+        require(r["pushers"] == pushers and r["native"] is args["native"]
                 and r["resync_storm_sessions"] == pushers
                 and r["resync_storm_served"] == pushers
                 and r["resync_storm_dropped"] == 0, f"{name}: {r}")
@@ -6392,6 +6764,32 @@ def phase_bench(card_line: str) -> int:
             bench_invariants(name, result, {})
             finite_times(name, result)
             out[name] = {"figures": result, "budgets": budgets(name, result)}
+        pairs = {}
+        for name, (keys, rounds) in NATIVE_PAIRS.items():
+            runs = [(True, out[name]["figures"])]
+            start = time.monotonic()
+            for native_on in [False, True] * (rounds - 1) + [False]:
+                wal.reset_store_stats()
+                what = f"{name}(native={native_on})"
+                result = require_bench(getattr(bench, name)(
+                    native=native_on), what, tail)
+                want = BENCH_EXACT.get(name, {})
+                got = {key: result[key] for key in want}
+                require(got == want, f"{what}: {got} != {want}")
+                bench_invariants(name, result, {"native": native_on})
+                finite_times(name, result)
+                runs.append((native_on, result))
+            out["seconds"][f"{name}_pairs"] = time.monotonic() - start
+            limits = {key: f"{op} {limit:g}"
+                      for key, op, limit in BENCH_BUDGETS.get(name, ())}
+            pairs[name] = {"order": ["native" if on else "python"
+                                     for on, _ in runs]}
+            for key in keys:
+                pairs[name][key] = {
+                    "native": [r[key] for on, r in runs if on],
+                    "python": [r[key] for on, r in runs if not on],
+                    "limit": limits.get(key)}
+        out["native_pairs"] = pairs
         start = time.monotonic()
         span_ns = tracing.measure_overhead_ns()
         require(math.isfinite(span_ns) and span_ns > 0, f"span {span_ns}")
@@ -6401,7 +6799,7 @@ def phase_bench(card_line: str) -> int:
                 "budget_ok": span_ns < 25_000}}}
         report, summary = profiler.profile_ingest(**PROFILE_INGEST_ARGS)
         out["seconds"]["profile_ingest"] = time.monotonic() - start
-        require(summary["path"] == "python"
+        require(summary["path"] == "native"
                 and summary["ingest"] == PROFILE_INGEST_EXACT
                 and "function calls" in report,
                 f"profile_ingest: {summary}")
@@ -6541,6 +6939,7 @@ def main(argv: list[str]) -> int:
 def phases() -> None:
     card = phase_card()
     phase_build()
+    phase_native(card)
     max_abs_err = phase_correctness()
     launches, cuda_steps_per_s = phase_main_path()
     phase_trace()
@@ -6569,6 +6968,7 @@ def phases() -> None:
 
 
 ALONE = {
+    "native": phase_native,
     "doctor": phase_doctor,
     "c5": phase_c5,
     "burst": phase_burst,

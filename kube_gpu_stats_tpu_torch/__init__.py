@@ -31,9 +31,12 @@ windows, the link localizer and the efficiency lens with its signed
 attestation) and ``top``; the measurement module (``bench.py``: the
 reference's measurements and its two real-mode harnesses, over NVML and
 the embedded collector); the H100 deploy assets (``deploy/``); and the
-entry points (``entry.py``). The daemon, hub, top and doctor paths
-import no torch. Still off in the hub: the native frame fold and slot
-store (the Python paths always run).
+entry points (``entry.py``); and the host fast paths
+(``native/wirefast.cc``, a CPython extension built by g++ at first use:
+the exposition render and gzip, the delta frame decode, snappy, the hub's
+batch slot store and frame fold), on by default, with the Python paths
+behind ``--no-native`` and ``--no-native-ingest`` as their oracles. The
+daemon, hub, top and doctor paths import no torch.
 
 Layer map:
 
@@ -86,6 +89,8 @@ Layer map:
     spillq.py         the publisher's disk spill queue (a wal.SegmentRing)
     remote_write.py   RemoteWriter: remote write 1.0/2.0, durable shards
     snappy.py         snappy block codec (remote write, delta frames)
+    native/           nvml.py (ctypes NVML); wirefast.cc, the host fast
+                      paths, built by _hostbuild.py, loaded by __init__.py
     proto/            protobuf codec: PodResources, prompb, prompb2
     testing/egress_sink.py  one receiver for all three push paths
     testing/host_fixture.py  fake /proc, /sys and cgroup trees

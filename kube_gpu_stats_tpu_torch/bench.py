@@ -47,6 +47,19 @@ log = logging.getLogger(__name__)
 LOADED_DUTY = 90
 
 
+def _native_switch(fn):
+    """Run ``fn`` with the process's module-level fast paths (snappy, the
+    delta decode) as its ``native`` argument asks: on, or the Python
+    paths for the length of the call."""
+    @functools.wraps(fn)
+    def wrapper(*args, native: bool = True, **kwargs):
+        from . import native as native_pkg
+
+        with native_pkg.python_paths(None if native else "native=False"):
+            return fn(*args, native=native, **kwargs)
+    return wrapper
+
+
 def _guarded(fn):
     """A measurement returns None on failure and never raises; the
     exception goes to the log with its traceback."""
@@ -584,8 +597,10 @@ def build_leaf_rollup_snapshot(leaf: int, workers: int, duty: float,
 
 
 @_guarded
+@_native_switch
 def measure_delta_federation(leaves: int = 64, workers_per_leaf: int = 64,
-                             refreshes: int = 9) -> dict | None:
+                             refreshes: int = 9,
+                             native: bool = True) -> dict | None:
     """Root-hub cost at fleet scale over the push-delta protocol:
     ``leaves`` leaf hubs, each standing for ``workers_per_leaf`` workers,
     push rollup expositions into a federation root (push only, no pull):
@@ -597,12 +612,15 @@ def measure_delta_federation(leaves: int = 64, workers_per_leaf: int = 64,
       one full wave of leaf delta frames (the POST handlers' work);
     - ``delta_bytes_per_refresh``: compressed wire bytes of one churn
       wave; ``full_bytes_total`` what a pull or a resync storm moves;
-    - ``workers``: ``leaves * workers_per_leaf``."""
+    - ``workers``: ``leaves * workers_per_leaf``.
+
+    ``native=False`` measures the hub's Python paths (``Hub(native_ingest=
+    False)`` with the process's snappy and delta decode on Python too)."""
     from .delta import DeltaEncoder
     from .hub import Hub
 
     root = Hub([], targets_provider=lambda: [], interval=10.0,
-               federate=True)
+               federate=True, native_ingest=native)
     try:
         encoders = []
         full_bytes = 0
@@ -714,10 +732,11 @@ def _churn_slots(body: str) -> list[int]:
 
 
 @_guarded
+@_native_switch
 def measure_ingest_storm(pushers: int = 10_000, waves: int = 3,
                          interval: float = 10.0,
                          storm_threads: int = 8,
-                         lanes: int = 0) -> dict | None:
+                         lanes: int = 0, native: bool = True) -> dict | None:
     """The ingest storm: ``pushers`` synthesized delta sessions against
     one hub, frames made at the wire level (the publisher's diff is the
     pushers' CPU, not the hub's):
@@ -730,14 +749,17 @@ def measure_ingest_storm(pushers: int = 10_000, waves: int = 3,
       re-POSTing a FULL with a new generation from ``storm_threads``
       threads, from the first frame to all applied plus the refresh that
       serves the fleet again;
-    - ``resync_storm_dropped``: sessions lost across it (must be 0)."""
+    - ``resync_storm_dropped``: sessions lost across it (must be 0).
+
+    ``native=False`` measures the hub's Python paths, as in
+    :func:`measure_delta_federation`."""
     import concurrent.futures
 
     from .delta import encode_delta, encode_full
     from .hub import Hub
 
     hub = Hub([], targets_provider=lambda: [], interval=interval,
-              ingest_lanes=lanes)
+              ingest_lanes=lanes, native_ingest=native)
     try:
         sources = [f"http://node-{i:05d}:9400/metrics"
                    for i in range(pushers)]
@@ -1635,8 +1657,9 @@ def measure_quiet_tick_delta() -> dict | None:
 
 
 @_guarded
+@_native_switch
 def measure_hub_merge(workers: int = 64, chips: int = 4,
-                      refreshes: int = 9) -> dict | None:
+                      refreshes: int = 9, native: bool = True) -> dict | None:
     """The hub's pull ingest and merge over a 64-worker slice
     (:func:`build_slice_fixture`), merged and rolled up by the real hub:
 
@@ -1651,7 +1674,10 @@ def measure_hub_merge(workers: int = 64, chips: int = 4,
     - ``render_cache_hits``: hits over 4 back-to-back renders of the
       final merged snapshot (3 expected: one render per generation);
     - ``fleet_score_ms_per_refresh``: the mean of the fleet lens's
-      ``fleet_score`` phase from the hub's own flight recorder."""
+      ``fleet_score`` phase from the hub's own flight recorder.
+
+    ``native=False`` measures the hub's Python paths, as in
+    :func:`measure_delta_federation`."""
     import tempfile
 
     from .hub import Hub
@@ -1660,7 +1686,7 @@ def measure_hub_merge(workers: int = 64, chips: int = 4,
     with tempfile.TemporaryDirectory() as tmp:
         targets = build_slice_fixture(tmp, workers, chips)
         bodies = [Path(t).read_text() for t in targets]
-        hub = Hub(targets)
+        hub = Hub(targets, native_ingest=native)
         try:
             start = time.monotonic()
             hub.refresh_once()

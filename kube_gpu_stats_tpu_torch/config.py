@@ -13,7 +13,8 @@ its own groups: :func:`add_ingest_guard_flags` (``--ingest-*``),
 :func:`add_cardinality_flags` (``--series-*``),
 :func:`add_history_flags` (``--no-history``, ``--history-*``),
 :func:`add_efficiency_flags` (``--no-efficiency``, ``--waste-*``) and
-:func:`add_hub_noop_flags`; :func:`add_fleet_lens_flags` (``--no-fleet-lens``,
+:func:`add_native_ingest_flag` (``--no-native-ingest``);
+:func:`add_fleet_lens_flags` (``--no-fleet-lens``,
 ``--slo-*``) sits on both parsers, as in the reference, so a manifest
 written for either daemon parses. ``nvml`` takes the place of the reference's ``tpu``
 backend; the reference's ``gpu`` (drm sysfs) backend is not offered on an
@@ -138,6 +139,9 @@ class Config:
     host_stats: bool = True
     cgroup_root: str = "/sys/fs/cgroup"  # cgroup v2 mount for per-pod stats
     mock_devices: int = 4
+    # The host fast paths (native/wirefast.cc): the exposition render
+    # and gzip, and the snappy/delta decode. --no-native runs Python's.
+    use_native: bool = True
     log_level: str = "info"
     log_format: str = "text"  # text|json (json = Cloud Logging structured)
 
@@ -427,14 +431,16 @@ def add_cardinality_flags(p: argparse.ArgumentParser) -> None:
                         "being pulled is never evicted for pressure)")
 
 
-def add_hub_noop_flags(p: argparse.ArgumentParser) -> None:
-    """The reference hub's switch that only turns OFF a part the port's
-    hub does not run: accepted, so a manifest written for either hub
-    parses, and it changes nothing here."""
+def add_native_ingest_flag(p: argparse.ArgumentParser) -> None:
+    """The hub's switch for its host fast paths (``native/wirefast.cc``):
+    on by default, and a failed build stops the hub at start."""
     p.add_argument("--no-native-ingest", action="store_true",
-                   help="accepted for the reference hub's manifests: the "
-                        "port always applies delta frames on the Python "
-                        "per-slot path")
+                   help="apply delta frames with the pure-Python "
+                        "per-slot loop, fold frames with ChipRow.clone_at "
+                        "and render in Python instead of the native "
+                        "extension — the differential oracle, and the "
+                        "way to run a hub where the extension cannot "
+                        "build")
 
 
 def add_history_flags(p: argparse.ArgumentParser) -> None:
@@ -757,6 +763,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "--metrics-include; a typo fails at startup")
     p.add_argument("--mock-devices", type=int,
                    default=int(_env("MOCK_DEVICES", "4")))
+    p.add_argument("--no-native", action="store_true",
+                   default=_env_bool("NO_NATIVE"),
+                   help="render and gzip the exposition (and decode "
+                        "snappy and delta frames) in Python instead of "
+                        "the native extension, which is built at first "
+                        "use; without this flag a failed build stops "
+                        "the daemon at start")
     p.add_argument("--log-level", default=_env("LOG_LEVEL", "info"))
     p.add_argument("--log-format", choices=("text", "json"),
                    default=_env("LOG_FORMAT", "text"),
@@ -1064,6 +1077,7 @@ def from_args(argv: Sequence[str] | None = None) -> Config:
         host_stats=not args.no_host_stats,
         cgroup_root=args.cgroup_root,
         mock_devices=args.mock_devices,
+        use_native=not args.no_native,
         log_level=args.log_level,
         log_format=args.log_format,
     )

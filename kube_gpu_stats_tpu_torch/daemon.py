@@ -38,7 +38,7 @@ import signal
 import socket
 import threading
 
-from . import __version__, topology, wal
+from . import __version__, native, topology, wal
 from .collectors import Collector
 from .collectors.mock import MockCollector, NullCollector
 from .burstsampler import BurstSampler
@@ -173,7 +173,9 @@ class Daemon:
 
     def __init__(self, cfg: Config) -> None:
         self.cfg = cfg
-        self.registry = Registry()
+        # --no-native renders and gzips in Python; with the native
+        # default a failed build of the extension raises here, at start.
+        self.registry = Registry(native=cfg.use_native)
         self.render_stats = RenderStats()
         # Flight recorder: --no-trace keeps the object (the /debug
         # endpoints answer "disabled") but makes every recording call a
@@ -656,12 +658,17 @@ def setup_logging(cfg: Config) -> None:
 
 def run(cfg: Config) -> int:
     setup_logging(cfg)
+    if not cfg.use_native:
+        native.use_python_paths("--no-native")
     try:
         daemon = Daemon(cfg)
     except NvmlError as exc:
         # --backend nvml without a usable driver: fail at startup with
         # NVML's own error, never serve null in its place.
         log.error("cannot start the %s backend: %s", cfg.backend, exc)
+        return 1
+    except native.NativeUnavailable as exc:
+        log.error("cannot start: %s", exc)
         return 1
     stop = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):

@@ -69,6 +69,7 @@ import time
 import zlib
 from typing import NamedTuple, Sequence
 
+from . import native as native_pkg
 from . import snappy, wal
 from .cardinality import CardinalityShed, clamp_series
 from .resilience import CLOSED, OPEN, CircuitBreaker, TokenBucket
@@ -317,6 +318,18 @@ def decode_frame_raw(data: bytes) -> Frame:
     already hold the decompressed bytes (the spill queue's legacy
     wire-frame recovery sniffs the magic off its own decompression and
     must not pay a second one)."""
+    # Whole-frame fast path: the common-case DELTA (header, source, slot
+    # walk, extension walk) in one C call. It answers None for anything
+    # unusual (FULLs, skew, malformed bytes, unbounded-int varints): the
+    # Python path below owns every error verdict.
+    module = native_pkg.fast_path()
+    if module is not None:
+        decoded = module.decode_delta_frame(data)
+        if decoded is not None:
+            (source, generation, seq, slots_t, values_t, proto, caps,
+             build) = decoded
+            return Frame(KIND_DELTA, source, generation, seq, None,
+                         slots_t, values_t, proto, caps, build)
     if data[:4] != MAGIC:
         raise ValueError("bad magic")
     if len(data) < 6:
@@ -355,6 +368,32 @@ def decode_frame_raw(data: bytes) -> Frame:
                      proto, caps, build)
     count, pos = _read_varint(data, pos)
     n = len(data)
+    # The extension's slot walk, with the Python loop's error strings;
+    # None (fall through) for a frame whose slot arithmetic needs
+    # Python's unbounded ints.
+    decoded = None
+    if module is not None and count <= 0xFFFF_FFFF:
+        decoded = module.decode_delta_slots(data, pos, count)
+    if decoded is not None:
+        slots_t, values_t, pos = decoded
+    else:
+        slots_t, values_t, pos = _walk_slots(data, pos, count)
+    build = ""
+    if proto >= 2:
+        # Trailing extension blocks (skipped by tag unless known):
+        # v2's evolution room. A delta CAN carry the build extension —
+        # the encoder announces on the first frame after a negotiation
+        # so the receiver's version census never waits for a FULL.
+        build, pos = _read_exts(data, pos)
+    if pos != n:
+        raise ValueError("trailing bytes after delta changes")
+    return Frame(kind, source, generation, seq, None,
+                 slots_t, values_t, proto, caps, build)
+
+
+def _walk_slots(data: bytes, pos: int, count: int) -> tuple:
+    """The Python slot walk of a DELTA frame: (slots, values, end)."""
+    n = len(data)
     slots = []
     values = []
     slot = 0
@@ -390,19 +429,7 @@ def decode_frame_raw(data: bytes) -> Frame:
             pos += 8
     except IndexError:
         raise ValueError("truncated varint") from None
-    slots_t = tuple(slots)
-    values_t = tuple(values)
-    build = ""
-    if proto >= 2:
-        # Trailing extension blocks (skipped by tag unless known):
-        # v2's evolution room. A delta CAN carry the build extension —
-        # the encoder announces on the first frame after a negotiation
-        # so the receiver's version census never waits for a FULL.
-        build, pos = _read_exts(data, pos)
-    if pos != n:
-        raise ValueError("trailing bytes after delta changes")
-    return Frame(kind, source, generation, seq, None,
-                 slots_t, values_t, proto, caps, build)
+    return tuple(slots), tuple(values), pos
 
 
 def new_generation() -> int:
@@ -1292,8 +1319,10 @@ class DeltaIngest:
     of two adjacent frames' values for ONE target (each slot
     individually consistent) — the next refresh sees the settled state,
     the same freshness contract a pull of a mid-write textfile target
-    has always had. Slots patch on the Python per-slot path, the one
-    the reference keeps as its differential oracle."""
+    has always had. The per-slot patch loop runs as one call of the
+    host extension (``apply_slots``) per frame; ``native=False``
+    (``--no-native-ingest``) keeps the Python per-slot path, its
+    differential oracle."""
 
     def __init__(self, tracer=None, expiry: float = 60.0,
                  entry_factory=None, entry_store=None, lanes: int = 1,
@@ -1306,7 +1335,8 @@ class DeltaIngest:
                  proto_min: int = PROTO_MIN,
                  proto_max: int = PROTO_MAX,
                  build: str | None = None,
-                 accountant=None) -> None:
+                 accountant=None,
+                 native: bool = True) -> None:
         self._tracer = tracer
         self._expiry = expiry
         # Cardinality admission: a SeriesAccountant shared
@@ -1417,6 +1447,11 @@ class DeltaIngest:
         # GIL-atomic either way).
         self._entry_factory = entry_factory
         self._entry_store = entry_store if entry_store is not None else {}
+        # The extension's batch slot store, handed to every entry patch;
+        # loaded here so that a failed build stops the hub at start.
+        # None: the Python per-slot oracle (native=False, or after a
+        # native fault sent this instance back to it).
+        self._native_mod = native_pkg.load_ingest() if native else None
 
     @property
     def lanes(self) -> int:
@@ -1424,9 +1459,9 @@ class DeltaIngest:
 
     @property
     def native_active(self) -> bool:
-        """Always False: the port applies slots on the Python path
-        (the reference's ``native=False`` oracle)."""
-        return False
+        """True while frames apply through the extension's batch slot
+        store: False under ``native=False`` and after a native fault."""
+        return self._native_mod is not None
 
     # Fleet-wide counters: summed over lanes on read (the write side is
     # lane-local so lanes never share a hot line; reads happen once per
@@ -2036,7 +2071,13 @@ class DeltaIngest:
                 raise self._resync(
                     lane, frame.source, f"slot {slot} out of range ({n})")
         if slots:
-            entry.apply_patch(slots, values, frame.source)
+            native_mod = self._native_mod
+            if entry.apply_patch(slots, values, frame.source,
+                                 native_mod=native_mod):
+                # The extension faulted on this entry (apply_patch
+                # patched the frame in Python): this instance goes back
+                # to the Python path, visibly.
+                self._native_mod = None
         if overflow:
             self._accountant.count_shed(frame.source, "source_budget",
                                         overflow)

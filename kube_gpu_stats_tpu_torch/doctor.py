@@ -3,7 +3,8 @@
 
 The port's counterpart of the reference's ``doctor.py``: one bounded pass
 over every dependency the exporter has — the NVIDIA driver through NVML,
-kubelet attribution sources, topology labels — plus a short measured poll
+the host fast paths' extension (the ``native`` row), kubelet attribution
+sources, topology labels — plus a short measured poll
 (5 ticks, p50 against the configured deadline) through the production
 loop. Made for ``kubectl exec <pod> -- python -m kube_gpu_stats_tpu_torch
 doctor`` on a misbehaving node and for initContainer-style preflight.
@@ -112,6 +113,36 @@ def _nvml_binding():
     from .native.nvml import Nvml
 
     return Nvml()
+
+
+def check_native(cfg: Config) -> CheckResult:
+    """The host fast paths' row (``native/wirefast.cc``): OK names the
+    built library, SKIP under ``--no-native``, FAIL with the build's
+    error (the daemon would not start). A fast path that faulted on a
+    call in this process, and whose instance went back to the Python
+    path, turns the row WARN."""
+    from . import native
+
+    if not cfg.use_native:
+        return _result("native", SKIP,
+                       "disabled by --no-native: the Python paths run")
+    try:
+        native.load_render()
+        native.load_ingest()
+    except native.NativeUnavailable as exc:
+        return _result("native", FAIL, str(exc), data={"error": str(exc)})
+    path = str(native.library_path())
+    faults = native.faults()
+    if faults:
+        return _result(
+            "native", WARN,
+            f"{path} loaded, but faulted on a call and went back to the "
+            "Python path: " + "; ".join(f"{where}: {error}" for where, error
+                                        in sorted(faults.items())),
+            data={"library": path, "faults": faults})
+    return _result("native", OK,
+                   f"{path} loaded: render, gzip, delta decode, snappy, "
+                   "slot store, frame fold", data={"library": path})
 
 
 def check_nvml(cfg: Config) -> CheckResult:
@@ -269,10 +300,14 @@ def resilience_result(collector) -> CheckResult:
 
 
 def check_poll(cfg: Config, ticks: int = 5) -> list[CheckResult]:
-    """A short real collection run (``ticks`` ticks) through the
-    production loop; reports the p50 tick duration against the configured
-    deadline, plus a ``resilience`` row describing each circuit breaker's
-    state after the run (exit non-zero when one is open)."""
+    """A short real collection run (``ticks`` ticks, and one more when
+    the last one's read came in past the deadline) through the production
+    loop; reports the cards up in the last tick and the p50 tick duration
+    against the configured deadline, with each tick's duration and cards
+    up and the loop's poll errors in the row's data, plus a
+    ``resilience`` row describing each circuit breaker's state after the
+    run (exit non-zero when one is open)."""
+    from . import schema
     from .daemon import build_collector
     from .poll import PollLoop
     from .registry import Registry
@@ -284,7 +319,9 @@ def check_poll(cfg: Config, ticks: int = 5) -> list[CheckResult]:
                         f"collector construction failed: {exc}")]
     loop = None
     try:
-        registry = Registry()
+        # The row times sampling, not rendering: the native row reports
+        # the extension.
+        registry = Registry(native=False)
         # Blocking: each tick joins its own reads, so the p50 is the
         # honest cost of a sampling round (the daemon pipelines them).
         loop = PollLoop(collector, registry, deadline=cfg.deadline,
@@ -298,29 +335,57 @@ def check_poll(cfg: Config, ticks: int = 5) -> list[CheckResult]:
                 ),
                 resilience_result(collector),
             ]
-        durations = []
-        for _ in range(ticks):
-            durations.append(loop.tick())
+        ticks_ms: list[float] = []
+        tick_ups: list[int] = []
+        errors: dict[str, int] = {}
+
+        def run_tick() -> bool:
+            """One tick, then up to an interval for a read it left past
+            the deadline; True when that read was left and finished."""
+            late = errors.get("deadline", 0)
+            ticks_ms.append(loop.tick() * 1000.0)
+            series = registry.snapshot().series
+            tick_ups.append(int(sum(s.value for s in series
+                                    if s.spec.name == "accelerator_up")))
+            errors.update((dict(s.labels)["reason"], int(s.value))
+                          for s in series
+                          if s.spec.name == schema.SELF_POLL_ERRORS.name)
             # The ticks run back to back: a read that overran the
             # deadline gets the interval the daemon would give it, so
             # one slow read does not serve a healthy card down in every
             # tick after it (the reference's doctor does).
-            loop.settle(cfg.interval)
-        durations.sort()
-        p50 = durations[len(durations) // 2] * 1000.0
-        series = registry.snapshot().series
+            settled = loop.settle(cfg.interval)
+            return settled and errors.get("deadline", 0) > late
+
+        late = False
+        for _ in range(ticks):
+            late = run_tick()
+        if late:
+            # The last tick's read came in past the deadline: no tick
+            # follows it to serve the card that read, as the daemon's
+            # next tick would, so one more tick does.
+            run_tick()
+        p50 = sorted(ticks_ms)[len(ticks_ms) // 2]
         accelerator = sum(
-            1 for s in series if s.spec.name.startswith("accelerator_"))
-        ups = sum(s.value for s in series if s.spec.name == "accelerator_up")
+            1 for s in registry.snapshot().series
+            if s.spec.name.startswith("accelerator_"))
+        ups = tick_ups[-1]
         status = OK if p50 <= cfg.deadline * 1000.0 else WARN
+        detail = (f"backend={collector.name}: {len(loop.devices)} "
+                  f"device(s), {ups} up, {accelerator} accelerator series, "
+                  f"tick p50 {p50:.1f} ms (deadline "
+                  f"{cfg.deadline * 1000.0:.0f} ms)")
+        if errors:
+            detail += "; poll errors " + ", ".join(
+                f"{reason}={count}" for reason, count in sorted(
+                    errors.items()))
         return [
             _result(
-                "poll", status,
-                f"backend={collector.name}: {len(loop.devices)} device(s), "
-                f"{int(ups)} up, {accelerator} accelerator series, tick p50 "
-                f"{p50:.1f} ms (deadline {cfg.deadline * 1000.0:.0f} ms)",
-                data={"devices": len(loop.devices), "up": int(ups),
-                      "accelerator_series": accelerator, "p50_ms": p50},
+                "poll", status, detail,
+                data={"devices": len(loop.devices), "up": ups,
+                      "accelerator_series": accelerator, "p50_ms": p50,
+                      "ticks_ms": ticks_ms, "ticks_up": tick_ups,
+                      "errors": errors},
             ),
             resilience_result(collector),
         ]
@@ -1789,6 +1854,7 @@ def run_checks(cfg: Config, url: str = "", trace: bool = False,
                efficiency_at: float | None = None) -> list[CheckResult]:
     probes: list[tuple[str, Callable[[], object]]] = [
         ("nvml", lambda: check_nvml(cfg)),
+        ("native", lambda: check_native(cfg)),
         ("attribution", lambda: check_attribution(cfg)),
         ("topology", lambda: check_topology(cfg)),
         ("poll", lambda: check_poll(cfg)),

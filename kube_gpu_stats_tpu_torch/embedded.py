@@ -44,6 +44,7 @@ import torch
 
 from . import schema
 from .collectors import Collector, CollectorError, Device, Sample
+from .config import _env_bool
 from .device import device_kind, local_devices, on_device
 from .exposition import MetricsServer, RenderStats, TextfileWriter
 from .kinds import _kind_peak_flops, accel_type
@@ -308,12 +309,17 @@ class EmbeddedExporter:
                  textfile: str | None = None, interval: float = 1.0,
                  metrics_include: Sequence[str] = (),
                  metrics_exclude: Sequence[str] = (),
-                 device=None) -> None:
+                 device=None, native: bool | None = None) -> None:
         # Same family selection as the daemon's --metrics-include/
         # --metrics-exclude (validated: a typo raises at start()).
         disabled = schema.resolve_metric_filter(metrics_include,
                                                 metrics_exclude)
-        self.registry = Registry()
+        # The daemon's default and switch: the extension renders and
+        # gzips unless native=False or KTS_NO_NATIVE is set (the
+        # daemon's --no-native); a failed build raises here.
+        if native is None:
+            native = not _env_bool("NO_NATIVE")
+        self.registry = Registry(native=native)
         self.render_stats = RenderStats()
         self.collector = TorchIntrospectCollector(device)
         self.poll = PollLoop(
@@ -378,10 +384,10 @@ def start(port: int = 0, *, host: str = "127.0.0.1",
           interval: float = 1.0,
           metrics_include: Sequence[str] = (),
           metrics_exclude: Sequence[str] = (),
-          device=None) -> EmbeddedExporter:
+          device=None, native: bool | None = None) -> EmbeddedExporter:
     """Start an embedded exporter inside this (workload) process."""
     return EmbeddedExporter(port=port, host=host, textfile=textfile,
                             interval=interval,
                             metrics_include=metrics_include,
                             metrics_exclude=metrics_exclude,
-                            device=device).start()
+                            device=device, native=native).start()

@@ -47,10 +47,11 @@ default, ``--no-fleet-lens`` turns it off): per-target baselines and
 anomalies, slow-node attribution from the daemons' trace digests, SLO
 burn windows, the link localizer and the efficiency lens, served as the
 ``kts_fleet_*`` families, ``/debug/fleet`` and the signed
-``/debug/efficiency`` attestation. Not ported, and off as in the
-reference's matching switch: the native frame fold and slot store (the
-Python paths, which the reference keeps as its oracle, always run). The
-hub path imports no torch: it runs from the DaemonSet image.
+``/debug/efficiency`` attestation. Delta frames patch their entries
+through the host extension's batch slot store, and each refresh folds the
+frame with its ``fold_rows`` (``native/wirefast.cc``);
+``--no-native-ingest`` runs the Python paths, which stay as their oracle.
+The hub path imports no torch: it runs from the DaemonSet image.
 """
 
 
@@ -66,6 +67,7 @@ from typing import Mapping, Sequence
 from . import delta as delta_mod
 from . import efficiency as efficiency_mod
 from . import fleetlens, procstats, schema
+from . import native as native_pkg
 from . import wal as wal_mod
 from .cardinality import SeriesAccountant, clamp_series
 from .registry import (HistogramState, Registry, Series, SnapshotBuilder,
@@ -172,8 +174,11 @@ _PATCH_DIGEST = 5   # drop the cached fleet digest
 # _TargetCache entry — a worker that warm-restarts (new FULL, same shape)
 # or churns out of DNS and back re-parses its body but never rebuilds
 # its plan. Cleared wholesale at the cap, the bounded_memo idiom: churn
-# that large means the memo isn't helping anyway.
+# that large means the memo isn't helping anyway. Compiled patch programs
+# (_TargetCache._compile_program) are pure functions of (target, shape,
+# wants_rollup) too, and live in _PROGRAM_MEMO under the same cap.
 _PLAN_MEMO_MAX = 4096
+_PROGRAM_MEMO: dict[tuple, tuple] = {}
 
 
 class _TargetCache:
@@ -226,7 +231,8 @@ class _TargetCache:
     __slots__ = ("body", "body_hash", "series", "series_dicts",
                  "chip_plan", "rollup_plan", "hist_local", "frame_rows",
                  "frame_rollups", "fleet_digest", "stat_sig", "pushed",
-                 "wants_rollup", "patch_actions", "shape", "version")
+                 "wants_rollup", "patch_actions", "patch_program",
+                 "value_slab", "shape", "version")
 
     def __init__(self, body: str, series: list,
                  stat_sig: tuple | None = None,
@@ -267,6 +273,15 @@ class _TargetCache:
         # replacements), so which fold a value change feeds — and under
         # which pre-sorted key — is computed once, not per delta.
         self.patch_actions: dict[int, tuple] = {}
+        # Native patch program: the whole-entry flat compilation of
+        # patch_actions — per-slot kind bytes, plan pair indices, fold
+        # keys/columns — plus the per-entry float slab of current slot
+        # values, consumed by the extension's apply_slots in one C call
+        # per delta frame. Compiled lazily once both plans exist (same
+        # gate as patch_actions caching); None until then and on the
+        # Python path.
+        self.patch_program: tuple | None = None
+        self.value_slab = None
         # Interned schema shape: the per-slot (name, labels)
         # identity of this entry's series, values excluded — the key
         # under which compiled merge plans and patch programs survive
@@ -291,7 +306,8 @@ class _TargetCache:
                 tuple(entry[1] for entry in series))
         return shape
 
-    def apply_patch(self, slots, values, target: str) -> None:
+    def apply_patch(self, slots, values, target: str,
+                    native_mod=None) -> bool:
         """Apply delta (slot, value) changes in place: the series views,
         any built merge plans, AND the cached frame fold are patched
         slot-wise (labels never change in a delta — shape changes
@@ -302,12 +318,56 @@ class _TargetCache:
         slot drops the cached fleet digest, and accelerator_*/slice_*
         slots update the pristine cached ChipRow/rollup entries
         directly — the same values a full refold
-        would compute. This is the reference's per-slot Python loop
-        (its differential oracle); its native batch store is not
-        ported."""
+        would compute.
+
+        With ``native_mod`` (the host extension) the per-slot loop runs
+        as ONE C call over the entry's compiled patch program + value
+        slab — semantics identical to the Python loop (``_patch``),
+        which stays as the differential oracle and carries the frames
+        while the program isn't compiled yet (plans still building).
+        Either runs inside the version bumps. Returns True when the
+        extension faulted and the frame was patched in Python."""
         self.version += 1
         try:
+            if native_mod is not None:
+                program = self.patch_program
+                if program is None:
+                    program = self._compile_program(target)
+                if program is not None:
+                    try:
+                        flags = native_mod.apply_slots(self, tuple(slots),
+                                                       tuple(values))
+                    except Exception as exc:
+                        # A native fault must degrade to the oracle, not
+                        # drop the frame: recompile next time (the slab
+                        # may be mid-write), drop every fold cache (a
+                        # partial C apply may have fed some folds and
+                        # not others; the next refresh refolds from the
+                        # series views the Python loop repairs), and
+                        # patch this frame in Python.
+                        log.warning("native apply_slots failed; falling "
+                                    "back to the Python patch loop",
+                                    exc_info=True)
+                        native_pkg.note_fault("apply_slots", exc)
+                        self.patch_program = None
+                        self.value_slab = None
+                        self.hist_local = None
+                        self.fleet_digest = None
+                        self.frame_rows = None
+                        self.frame_rollups = None
+                        self._patch(slots, values, target)
+                        return True
+                    if flags:
+                        if flags & 1:
+                            self.hist_local = None
+                        if flags & 2:
+                            self.fleet_digest = None
+                        if flags & 4:
+                            self.frame_rows = None
+                            self.frame_rollups = None
+                    return False
             self._patch(slots, values, target)
+            return False
         finally:
             self.version += 1
 
@@ -440,6 +500,70 @@ class _TargetCache:
             self.patch_actions[slot] = action
         return action
 
+    def _compile_program(self, target: str) -> tuple | None:
+        """Flatten every slot's patch action into the arrays the native
+        apply_slots loop consumes — per-slot kind byte, chip/rollup
+        plan pair index, fold key, ChipRow column — plus the per-entry
+        float slab seeded with the CURRENT slot values (the ICI-delta
+        old-value source, kept in sync by the C store from then on).
+        Compiled once per entry life, under the same both-plans-exist
+        gate as patch_actions caching: pair indices compiled against a
+        half-built plan set would freeze wrong positions in. Returns
+        None while the gate isn't met (the Python oracle carries those
+        frames).
+
+        Memoized across entry lives keyed by (target, interned shape,
+        wants_rollup): every component of the program (kind bytes,
+        plan pair indices, fold keys, columns) is a pure function of
+        that key, because pair positions are deterministic for a fixed
+        series shape. A source that resyncs with a FULL of the same
+        shape (warm restart, churn-and-return) gets its program back
+        without recompiling; only the value slab — the one
+        value-dependent piece — is rebuilt from the live series."""
+        if self.chip_plan is None or (
+                self.rollup_plan is None and self.wants_rollup):
+            return None
+        import array as array_mod
+        import sys as sys_mod
+
+        memo_key = (target, self.shape_key(), self.wants_rollup)
+        cached = _PROGRAM_MEMO.get(memo_key)
+        if cached is not None:
+            self.value_slab = array_mod.array(
+                "d", (entry[2] for entry in self.series))
+            self.patch_program = cached
+            return cached
+        n = len(self.series)
+        kinds = bytearray(n)
+        chip_idx = array_mod.array("i")
+        rollup_idx = array_mod.array("i")
+        keys: list = []
+        cols: list = []
+        actions_get = self.patch_actions.get
+        for slot in range(n):
+            action = actions_get(slot)
+            if action is None:
+                action = self._compile_patch(slot, target)
+            kind, fold_key, column, ci, ri = action
+            kinds[slot] = kind
+            chip_idx.append(ci)
+            rollup_idx.append(ri)
+            keys.append(fold_key)
+            cols.append(sys_mod.intern(column)
+                        if isinstance(column, str) else None)
+        self.value_slab = array_mod.array(
+            "d", (entry[2] for entry in self.series))
+        # Index arrays ship as immutable bytes (int32 little-endian via
+        # array('i')): the C side reads them pointer-direct with no
+        # per-call buffer acquisition.
+        self.patch_program = (bytes(kinds), chip_idx.tobytes(),
+                              rollup_idx.tobytes(),
+                              tuple(keys), tuple(cols))
+        if len(_PROGRAM_MEMO) >= _PLAN_MEMO_MAX:
+            _PROGRAM_MEMO.clear()
+        _PROGRAM_MEMO[memo_key] = self.patch_program
+        return self.patch_program
+
 
 class Hub:
     """Owns the refresh loop and the merged registry.
@@ -480,6 +604,7 @@ class Hub:
                  ingest_checkpoint_interval: float = 10.0,
                  ingest_proto_min: int = 0,
                  ingest_proto_max: int = 0,
+                 native_ingest: bool = True,
                  series_budget_per_source: int = 0,
                  series_hard_cap: int = 0,
                  series_high_watermark: int = 0,
@@ -548,7 +673,8 @@ class Hub:
         self._headers_provider = headers_provider
         self._target_ca_file = target_ca_file
         self._target_insecure_tls = target_insecure_tls
-        self.registry = registry if registry is not None else Registry()
+        self.registry = (registry if registry is not None
+                         else Registry(native=native_ingest))
         self._previous: Frame | None = None
         # Last-known histogram contribution per target: a target that
         # misses one refresh keeps contributing its last state, so the
@@ -688,8 +814,16 @@ class Hub:
             # --ingest-proto-min raises the floor for census-gated
             # rollouts, frames outside draw 426 + hello.
             proto_min=ingest_proto_min,
-            proto_max=ingest_proto_max)
+            proto_max=ingest_proto_max,
+            native=native_ingest)
             if delta_ingest else None)
+        # Native frame fold: the refresh's fold-replay inner loop
+        # (rows[key] = row.clone_at(at)) in one C call per target;
+        # clone_at stays the differential oracle. Gated on the same flag
+        # as native ingest, so --no-native-ingest runs the hub's Python
+        # paths.
+        self._fold_native = (native_pkg.load_fold() if native_ingest
+                             else None)
         self._push_served = 0  # targets served by push, last refresh
         # Federated slice_* series dropped because two leaves claimed
         # the same slice identity (kts_hub_dup_slice_total).
@@ -1166,10 +1300,14 @@ class Hub:
         fold_mark = tracer.mark()
         rows: dict[tuple, ChipRow] = {}
         rollups: dict[tuple, float] = {}
+        fold_native = self._fold_native
         for (target, entry), at in zip(entries, ats):
             trows, trollups = self._entry_fold(target, entry)
-            for key, row in trows.items():
-                rows[key] = row.clone_at(at)
+            if fold_native is not None:
+                fold_native.fold_rows(rows, trows, at)
+            else:
+                for key, row in trows.items():
+                    rows[key] = row.clone_at(at)
             rollups.update(trollups)
         frame = Frame(rows, errors, rollups)
         frame.rates(self._previous)
@@ -2460,7 +2598,7 @@ def main(argv: Sequence[str] | None = None) -> int:
     # PARENT (root) hub of a federation tree.
     from .config import (add_cardinality_flags, add_delta_push_flags,
                          add_efficiency_flags, add_fleet_lens_flags,
-                         add_history_flags, add_hub_noop_flags,
+                         add_history_flags, add_native_ingest_flag,
                          add_ingest_guard_flags,
                          validate_cardinality_args,
                          validate_delta_push_args,
@@ -2486,7 +2624,7 @@ def main(argv: Sequence[str] | None = None) -> int:
                              "--efficiency`. Empty serves it unsigned. "
                              "Prefer the KTS_ENERGY_AUDIT_KEY env var "
                              "(a flag value is visible in `ps`)")
-    add_hub_noop_flags(parser)
+    add_native_ingest_flag(parser)
     args = parser.parse_args(argv)
     fleet_error = validate_fleet_lens_args(args)
     if fleet_error:
@@ -2536,6 +2674,17 @@ def main(argv: Sequence[str] | None = None) -> int:
     logging.basicConfig(
         level=getattr(logging, args.log_level.upper(), logging.INFO),
         format="%(asctime)s %(levelname)s %(name)s %(message)s")
+    if args.no_native_ingest:
+        native_pkg.use_python_paths("--no-native-ingest")
+    else:
+        # Build (or load) the extension before anything starts: a failed
+        # build stops the hub here, with g++'s output.
+        try:
+            native_pkg.load_ingest()
+            native_pkg.load_render()
+        except native_pkg.NativeUnavailable as exc:
+            print(f"hub: {exc}", file=sys.stderr)
+            return 1
 
     targets = list(args.targets)
     targets_provider = None
@@ -2716,6 +2865,7 @@ def main(argv: Sequence[str] | None = None) -> int:
               ingest_checkpoint_interval=args.ingest_checkpoint_interval,
               ingest_proto_min=args.ingest_proto_min,
               ingest_proto_max=args.ingest_proto_max,
+              native_ingest=not args.no_native_ingest,
               series_budget_per_source=args.series_budget_per_source,
               series_hard_cap=args.series_hard_cap,
               series_high_watermark=args.series_high_watermark,

@@ -73,11 +73,19 @@ def profile_ingest(sources: int = 1000, waves: int = 5,
     through ``DeltaIngest.handle``. The bench says that ingest moved; this
     says where (decode, session validation, slot patch, fold updates).
 
-    ``native`` is kept for the reference's signature: the port has no
-    native ingest, so the Python per-slot path runs either way and the
-    summary's ``path`` says ``"python"``.
+    ``native=False`` is the A/B: the Python per-slot oracle
+    (``--no-native-ingest``, with the snappy and delta decode on Python
+    too) under the same load; the summary's ``path`` says which ran.
 
     Returns (pstats report text, summary dict)."""
+    from . import native as native_pkg
+
+    with native_pkg.python_paths(None if native else "native=False"):
+        return _profile_ingest(sources, waves, native, sort, top)
+
+
+def _profile_ingest(sources: int, waves: int, native: bool, sort: str,
+                    top: int) -> tuple[str, dict]:
     import cProfile
     import io
     import pstats
@@ -88,8 +96,8 @@ def profile_ingest(sources: int = 1000, waves: int = 5,
     from .hub import Hub
     from .validate import parse_exposition_interned
 
-    del native  # one path in the port
-    hub = Hub([], targets_provider=lambda: [], interval=10.0)
+    hub = Hub([], targets_provider=lambda: [], interval=10.0,
+              native_ingest=native)
     try:
         names = [f"http://node-{i:05d}:9400/metrics"
                  for i in range(sources)]
@@ -134,7 +142,7 @@ def profile_ingest(sources: int = 1000, waves: int = 5,
         summary = {
             "sources": sources,
             "waves": waves,
-            "path": "python",
+            "path": "native" if hub.delta.native_active else "python",
             "lanes": hub.delta.lanes,
             "ms_per_wave": round(wall * 1000.0 / max(1, waves), 2),
             "ingest": hub.delta.stats(),

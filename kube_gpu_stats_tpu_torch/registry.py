@@ -6,9 +6,12 @@ reference assignment (atomic under CPython). Scrapes and textfile writes
 render whichever snapshot was last published and never block — a scrape
 can never stall the poll budget.
 
-The port's copy of the reference's registry on its pure-Python render path
-(the reference's ``Registry(native=False)``): the bytes are the same,
-which ``tests/test_torch_registry.py`` pins.
+The port's copy of the reference's registry. ``Registry(native=True)``, the
+default, renders and gzips through the host extension
+(``native/wirefast.cc``); ``native=False`` keeps the pure-Python path, its
+oracle. The bytes are the same either way, and the same as the
+reference's Python path's, which ``tests/test_torch_registry.py`` and
+``tests/test_torch_native.py`` pin.
 """
 
 from __future__ import annotations
@@ -16,14 +19,18 @@ from __future__ import annotations
 import dataclasses
 import functools
 import gzip
+import logging
 import math
 import os
 import threading
 import time
 from typing import Iterable, Mapping, NamedTuple, Sequence
 
+from . import native as native_pkg
 from . import schema
 from .schema import MetricSpec, MetricType
+
+log = logging.getLogger(__name__)
 
 
 @functools.lru_cache(maxsize=8192)
@@ -185,7 +192,7 @@ class Registry:
     without polling.
     """
 
-    def __init__(self) -> None:
+    def __init__(self, native: bool = True) -> None:
         self._snapshot: Snapshot = EMPTY_SNAPSHOT
         self._published = threading.Condition()
         self._generation = 0
@@ -196,6 +203,13 @@ class Registry:
         # Per-instance (not per-process) so in-process restart tests
         # see the real contract.
         self.boot_id = os.urandom(4).hex()
+        # The extension's render + gzip, loaded here so that a failed
+        # build stops the process at start. None keeps this registry on
+        # the pure-Python render (native=False, the differential
+        # oracle); a native failure at render time also drops the
+        # instance back to Python permanently, so one bad snapshot shape
+        # can't crash scrapes or spam the log.
+        self._native_render = native_pkg.load_render() if native else None
         # One render per generation: every reader of a given
         # (format, compression) shape between two publishes gets the same
         # memoized bytes — N concurrent scrapers plus the textfile and
@@ -266,12 +280,45 @@ class Registry:
         if entry is not None and entry[0] == generation:
             body = entry[1]
         else:
-            body = snapshot.render(openmetrics=openmetrics).encode()
+            body = None
+            mod = self._native_render
+            if mod is not None:
+                try:
+                    body = mod.render_exposition(
+                        snapshot.series, snapshot.histograms, openmetrics)
+                except Exception as exc:
+                    self._native_fault("render", exc)
+            if body is None:
+                body = snapshot.render(openmetrics=openmetrics).encode()
             self._render_cache[text_key] = (generation, body)
         if gzip_level:
-            body = gzip.compress(body, compresslevel=gzip_level, mtime=0)
+            gz = None
+            mod = self._native_render
+            if mod is not None:
+                try:
+                    gz = mod.gzip_compress(body, gzip_level)
+                except Exception as exc:
+                    self._native_fault("gzip", exc)
+            if gz is None:
+                gz = gzip.compress(body, compresslevel=gzip_level, mtime=0)
+            body = gz
             self._render_cache[key] = (generation, body)
         return body, False, generation
+
+    @property
+    def native_active(self) -> bool:
+        """True while this registry renders and gzips through the
+        extension: False under ``native=False`` and after a fault."""
+        return self._native_render is not None
+
+    def _native_fault(self, what: str, exc: Exception) -> None:
+        # Built-but-broken (or a snapshot shape the C side refuses):
+        # degrade THIS registry loudly once; the Python oracle is always
+        # correct.
+        log.warning("native %s failed; falling back to pure Python", what,
+                    exc_info=True)
+        native_pkg.note_fault(what, exc)
+        self._native_render = None
 
     @property
     def generation(self) -> int:

@@ -1,8 +1,10 @@
 """Snappy block-format codec (pure Python, no third-party dependency).
 
-The port's copy of the reference's codec. The reference decodes with a C
-extension when one is built; the port keeps only the Python decoder,
-whose verdicts and error messages the C one matches.
+The port's copy of the reference's codec. ``decompress`` runs the host
+extension's decoder (``native/wirefast.cc`` ``snappy_uncompress``) unless
+the process chose the Python paths (``native.use_python_paths``);
+``_decompress_py`` is the readable decoder it matches verdict for verdict
+and error message for error message, and stays as its oracle.
 
 Prometheus remote_write mandates snappy block compression of the protobuf
 WriteRequest body; python-snappy isn't in this environment and pulling a
@@ -21,6 +23,8 @@ this implements the snappy format directly:
 """
 
 from __future__ import annotations
+
+from . import native
 
 _MIN_MATCH = 4
 _MAX_COPY_LEN = 64
@@ -108,7 +112,17 @@ def compress(data: bytes) -> bytes:
 
 def decompress(data: bytes) -> bytes:
     """Strict snappy block-format decoder: a malformed stream raises
-    ValueError and never reads out of bounds."""
+    ValueError and never reads out of bounds. The extension's decoder
+    when the process runs the fast paths (the delta ingest decompresses
+    every pushed frame), else :func:`_decompress_py`."""
+    module = native.fast_path()
+    if module is not None:
+        return module.snappy_uncompress(data)
+    return _decompress_py(data)
+
+
+def _decompress_py(data: bytes) -> bytes:
+    """The pure-Python decoder (see :func:`decompress`)."""
     # Preamble: uncompressed length varint.
     expected = 0
     shift = 0
@@ -125,8 +139,9 @@ def decompress(data: bytes) -> bytes:
         if shift > 32:
             raise ValueError("snappy length varint too long")
     if expected > (1 << 31):
-        # The reference's cap (and message): a >2 GiB declaration is
-        # rejected at the preamble. No legitimate caller is near this —
+        # The extension's cap (and message), which allocates the
+        # declared size upfront: a >2 GiB declaration is rejected at the
+        # preamble on both paths. No legitimate caller is near this —
         # delta frames are capped at 64 MiB before decompressing, and
         # remote_write payloads are ~MBs.
         raise ValueError("snappy declared length too large")

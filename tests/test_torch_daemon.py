@@ -334,6 +334,11 @@ def test_unwired_reference_flags_are_rejected(argv, capsys):
     does not wire; the fleet-lens flags it carries, as the reference's
     daemon does, so a manifest written for either parses alike."""
     want = ref_config.from_args(argv)
+    if argv[0] == "--no-native":
+        # Wired: the port's host fast paths (the reference's switch
+        # turns off its own).
+        assert config.from_args(argv).use_native == want.use_native
+        return
     if argv[0].startswith(("--slo-", "--no-fleet-lens")):
         got = config.from_args(argv)
         for field in ("fleet_lens", "slo_freshness_target",

@@ -149,7 +149,17 @@ def test_dockerfile_entrypoint_user_and_no_cuda_userspace():
     assert 'ENTRYPOINT ["python", "-m", "kube_gpu_stats_tpu_torch"]' in text
     assert "USER 65532" in text and "EXPOSE 9400" in text
     functional = _functional("Dockerfile").lower()
-    assert functional.count("from ") == 1  # one stage, no toolchain
+    # Two stages: the host extension is built in the first, and the final
+    # image takes the package, library included, and no toolchain.
+    build, final = functional.strip().split("\nfrom ")
+    assert build.startswith("from python:3.12-slim as build")
+    assert "g++" in build and "zlib1g-dev" in build
+    assert "python -m kube_gpu_stats_tpu_torch.native._hostbuild" in build
+    assert "|| true" not in functional
+    assert ("copy --from=build /src/kube_gpu_stats_tpu_torch/ "
+            "/opt/kube-tpu-stats/kube_gpu_stats_tpu_torch/") in final
+    for needle in ("g++", "gcc", "apt-get", "-dev"):
+        assert needle not in final, needle
     for needle in ("cuda-", "nvidia/cuda", "libnvidia", "nvcc", "torch ",
                    "pip install torch", "libcudnn", "cublas"):
         assert needle not in functional, needle

@@ -316,6 +316,30 @@ def test_one_slow_read_does_not_serve_the_card_down_in_later_ticks(
     assert (poll.data["devices"], poll.data["up"]) == (1, 1)
 
 
+@pytest.mark.parametrize("stall, ticks_up, late, status", [
+    # The 5th memory read overruns the 50 ms deadline: the 5th tick
+    # serves the card down, so a 6th follows once the read is in.
+    ((0.12, 5), [1, 1, 1, 1, 0, 1], 1, "ok"),
+    # Every read overruns it: the one extra tick is late too, and the
+    # row serves the card down, its ticks at the deadline.
+    ((0.08, 1), [0] * 6, 6, "warn"),
+])
+def test_a_late_read_in_the_last_tick_gets_one_more_tick(
+        monkeypatch, stall, ticks_up, late, status):
+    fake = FakeNvml([FakeDevice(UUIDS[0], minor=2)])
+    fake.devices[0].stalls["memory"] = stall
+    monkeypatch.setattr(daemon, "_nvml_collector",
+                        lambda: NvmlCollector(fake))
+    poll, _ = doctor.check_poll(port_config.Config(backend="nvml"))
+    assert fake.devices[0].calls["memory"] == 6
+    assert poll.status == status
+    assert poll.data["ticks_up"] == ticks_up
+    assert len(poll.data["ticks_ms"]) == 6
+    assert poll.data["errors"] == {"deadline": late}
+    assert (poll.data["devices"], poll.data["up"]) == (1, ticks_up[-1])
+    assert f"poll errors deadline={late}" in poll.detail
+
+
 def test_settle_waits_only_for_reads_past_their_deadline():
     fake = FakeNvml([FakeDevice(UUIDS[0], minor=2)])
     fake.devices[0].stalls["memory"] = (0.3, 1)
@@ -452,7 +476,7 @@ def test_run_checks_reaches_embedded_only_on_auto_without_nvml(
     monkeypatch.setattr(doctor, "_probe_torch_cuda", lambda: "cpu")
     names = [r.name for r in doctor.run_checks(
         port_config.Config(backend=backend, attribution="off"))]
-    assert names[:3] == ["nvml", "attribution", "topology"]
+    assert names[:4] == ["nvml", "native", "attribution", "topology"]
     assert ("embedded" in names) == reached
 
 
@@ -523,8 +547,8 @@ def test_json_shape_equals_the_reference(capsys, tmp_path):
     order = {"fail": 0, "warn": 1, "ok": 2, "skip": 3}
     assert statuses == sorted(statuses, key=order.get)
     assert {c["name"] for c in got["checks"]} == {
-        "nvml", "attribution", "topology", "poll", "resilience", "scrape",
-        "live-resilience"}
+        "nvml", "native", "attribution", "topology", "poll", "resilience",
+        "scrape", "live-resilience"}
 
 
 def test_a_fail_row_exits_1(monkeypatch, capsys):

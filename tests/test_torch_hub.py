@@ -105,7 +105,14 @@ def _comparable(text: str, port: bool) -> list[str]:
                               f'version="{REF_VERSION}"')
                  if line.startswith("kts_build_info") else line
                  for line in lines]
+        # The port's hub applies frames through its native store (1);
+        # the reference beside it runs its Python oracle (0).
+        lines = [NATIVE_OFF if line == NATIVE_ON else line
+                 for line in lines]
     return lines
+
+
+NATIVE_ON, NATIVE_OFF = "kts_ingest_native 1", "kts_ingest_native 0"
 
 
 class Clock:
@@ -154,6 +161,9 @@ def _refresh(port, ref) -> str:
     port_text = port.registry.snapshot().render()
     ref_text = ref.registry.snapshot().render()
     assert _comparable(port_text, True) == _comparable(ref_text, False)
+    if port.delta is not None:
+        assert port.delta.native_active
+        assert NATIVE_ON in port_text.splitlines()
     return port_text
 
 

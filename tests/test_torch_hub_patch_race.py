@@ -10,6 +10,12 @@ kept: the entry holds no view, or one with the patched value, and the
 next refresh's view carries the patched value. Without that, the
 installed view kept the value from before the frame until that slot
 changed again. Values are compared exactly.
+
+Each case runs twice: the frame patched by the Python per-slot loop, and
+by the host extension's batch slot store (``apply_slots``), which runs at
+the same place inside the seqlock. For the native case the entry's patch
+program is compiled first (it needs a merge plan) and the view under test
+dropped again, so the landing frame goes through the extension.
 """
 
 from __future__ import annotations
@@ -44,7 +50,8 @@ def _slot(entry: hub._TargetCache, name: str) -> int:
     return next(i for i, (n, _, _) in enumerate(entry.series) if n == name)
 
 
-def _landing_frame(entry: hub._TargetCache, slot: int, value: float):
+def _landing_frame(entry: hub._TargetCache, slot: int, value: float,
+                   native_mod=None):
     """A wrapper for a builder: the first time, after the build has read
     the values, a frame patching ``slot`` to ``value`` lands from another
     thread."""
@@ -53,7 +60,8 @@ def _landing_frame(entry: hub._TargetCache, slot: int, value: float):
             view = build(*args, **kwargs)
             if not racing.patchers:
                 patcher = threading.Thread(
-                    target=entry.apply_patch, args=([slot], [value], TARGET))
+                    target=entry.apply_patch, args=([slot], [value], TARGET),
+                    kwargs={"native_mod": native_mod})
                 patcher.start()
                 patcher.join(WAIT_S)
                 racing.patchers.append(patcher)
@@ -106,21 +114,44 @@ CASES = [
 ]
 
 
+class _Counting:
+    """The extension's apply_slots, counted."""
+
+    def __init__(self, module) -> None:
+        self.module = module
+        self.calls = 0
+
+    def apply_slots(self, entry, slots, values):
+        self.calls += 1
+        return self.module.apply_slots(entry, slots, values)
+
+
+@pytest.mark.parametrize("native", [False, True], ids=["python", "native"])
 @pytest.mark.parametrize("case,family,value,drive", CASES,
                          ids=[case[0] for case in CASES])
 def test_a_frame_landing_during_a_build_reaches_the_view(
-        case, family, value, drive, monkeypatch):
-    h = hub.Hub([], interval=1.0)
+        case, family, value, drive, native, monkeypatch):
+    h = hub.Hub([], interval=1.0, native_ingest=native)
     entry = hub._TargetCache("", parse_exposition_interned(_body()),
                              pushed=True)
     slot = _slot(entry, family)
+    native_mod = None
+    if native:
+        h._replay_chip_plans([(TARGET, entry)], [])
+        assert entry._compile_program(TARGET) is not None
+        entry.chip_plan = None
+        native_mod = _Counting(h.delta._native_mod)
     racing, refresh, read = drive(h, entry, monkeypatch,
-                                  _landing_frame(entry, slot, value))
+                                  _landing_frame(entry, slot, value,
+                                                 native_mod))
     refresh()
     assert len(racing.patchers) == 1, f"{case}: the build ran"
     racing.patchers[0].join(5)
     assert not racing.patchers[0].is_alive()
     assert entry.series[slot][2] == value
+    if native:
+        assert native_mod.calls == 1, f"{case}: the extension patched"
+        assert entry.value_slab[slot] == value
     kept = read()
     assert kept in (None, value), f"{case}: the entry kept {kept}"
     refresh()

@@ -55,7 +55,7 @@ from kube_gpu_stats_tpu import doctor as ref_doctor
 from kube_gpu_stats_tpu import hub as ref_hub
 from kube_gpu_stats_tpu.exposition import MetricsServer as RefServer
 from kube_gpu_stats_tpu.registry import Registry as RefRegistry
-from kube_gpu_stats_tpu_torch import delta, doctor, hub
+from kube_gpu_stats_tpu_torch import delta, doctor, hub, native
 from kube_gpu_stats_tpu_torch.exposition import MetricsServer
 from kube_gpu_stats_tpu_torch.registry import Registry
 
@@ -511,6 +511,9 @@ WIRED = [
 @pytest.mark.parametrize("argv", WIRED, ids=range(len(WIRED)))
 def test_wired_flags_reach_the_hub_with_the_references_values(
         monkeypatch, argv):
+    # --no-native-ingest turns this process over to the Python paths, as
+    # it does a hub's: undone after the test.
+    monkeypatch.setattr(native, "_cache", dict(native._cache))
     got = _parsed(hub.main, hub, monkeypatch, argv)
     want = _parsed(ref_hub.main, ref_hub, monkeypatch, argv)
     plain = (int, float, str, bool, list, tuple, type(None))

@@ -194,6 +194,7 @@ def test_the_daemon_path_imports_no_torch():
     assert report["senders"] == ["delta", "pushgateway", "remote_write"]
     assert report["shipped"] == [True, True, True]
     assert _no_torch(report["loaded"]) == []
+    assert EXTENSION in report["loaded"]  # the render ran through it
 
 
 def test_a_doctor_pass_imports_no_torch():
@@ -248,6 +249,30 @@ def test_the_hub_and_top_import_no_torch():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["rc"] == [0, 0, 200]
     assert _no_torch(report["loaded"]) == []
+    assert EXTENSION in report["loaded"]  # the slot store and the fold
+
+
+EXTENSION = "kube_gpu_stats_tpu_torch.native._wirefast"
+
+
+def test_the_host_build_reads_no_file_outside_the_port():
+    """The extension's g++ command names one source, the port's own
+    ``native/wirefast.cc``, which includes only system headers (Python's
+    and zlib's): nothing of the reference, nor of any path into it."""
+    from kube_gpu_stats_tpu_torch.native import _hostbuild
+
+    out = PORT / "native" / "build" / "probe.so"
+    command = _hostbuild.command(out)
+    named = [arg for arg in command
+             if arg.endswith((".cc", ".cpp", ".c", ".h", ".so", ".o"))]
+    assert named == [str(PORT / "native" / "wirefast.cc"), str(out)]
+    assert not any("kube_gpu_stats_tpu/" in arg or
+                   arg.rstrip("/").endswith("kube_gpu_stats_tpu")
+                   for arg in command)
+    includes = [line.split()[1] for line in
+                _hostbuild.SOURCE.read_text().splitlines()
+                if line.startswith("#include")]
+    assert includes and all(name.startswith("<") for name in includes)
 
 
 # The measurement module alone (its import must load no torch: only the
@@ -283,7 +308,7 @@ def test_the_measurement_module_imports_no_torch():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert report["ok"] == [True] * 5 and report["path"] == "python"
+    assert report["ok"] == [True] * 5 and report["path"] == "native"
     assert report["nvml"]
     assert _no_torch(report["alone"]) == []
     assert _no_torch(report["loaded"]) == []
