@@ -7,7 +7,8 @@ Run from the repository root on a machine with one H100:
 
 ``python3 chip_smoke.py egress:3 hub:2`` instead builds the kernel and
 runs only the named phases (``native``, ``doctor``, ``c5``, ``burst``,
-``energy``, ``egress``, ``hub``, ``fleet``, ``bench``), each the given
+``energy``, ``egress``, ``hub``, ``fleet``, ``faults``, ``bench``), each
+the given
 number of times, and
 prints one ``phases_alone`` line with each run's outcome: the way to
 measure how often a phase's check fails.
@@ -212,6 +213,26 @@ prints its result line after one):
    the ``fleet_score`` span and refresh ms, the hub's RSS, and the
    pod's steps per joule within 15% of the burn's steps/s over
    ``nvidia-smi``'s power draw;
+8h2. ``faults``: the survival layer, the NVML daemon over
+   ``testing.nvml_faults`` (faults scripted over the real binding) in a
+   process of its own with no torch (``python -m
+   kube_gpu_stats_tpu_torch.testing.nvml_faults``) at FAULTS_INTERVAL_S,
+   under this process's ``cuda`` burn on card 0: card 0 lost for
+   5 ticks (down within 2, nothing of it served, up within 2 of the fault
+   clearing, then duty >= DUTY_MIN and memory within MEM_TOL_MIB of
+   ``nvidia-smi``); NVML's answers gone until the ``nvml`` breaker
+   opens (``kts_breaker_state{component="nvml"} 2`` in a scrape, the
+   doctor's ``resilience`` row FAIL naming it), then back: the probe's
+   real ``nvmlShutdown`` closing the library and ``nvmlInit_v2`` opening a
+   fresh session under the burn, the card up and
+   fresh within 2 ticks of it, joules monotone, no negative NVLink rate; a
+   ``begin_tick`` hung past the watchdog's timeout (the loop respawned,
+   ``kts_component_restarts_total`` +1, ``/metrics`` answering
+   throughout); a FAULTS_SOAK_S soak with card 0 flapping every
+   FAULTS_FLAP_S under FAULTS_SCRAPERS scrapers (threads within 8, every
+   scrape through ``validate.check``, the generation advancing). The
+   ``faults`` line gives each scenario's ticks to detect and recover,
+   trips, restarts, threads, the re-init's ms and B1's launches;
 8i. ``bench``: the measurement module (``bench.py``) at the reference's
    defaults (no cut; the line's ``cuts`` is empty): ``try_real_harness`` (the
    NVML backend through the pipelined poll loop while a co-launched
@@ -458,6 +479,22 @@ HUB_PROCS = 2
 HUB_LIVE3_S = 8.0
 HUB_PROBES = 40
 HUB_RESPAWN_S = 20.0
+# The faults phase: the NVML daemon in a process of its own over
+# testing.nvml_faults at FAULTS_INTERVAL_S under the cuda burn on card 0;
+# its soak flaps card 0 every FAULTS_FLAP_S for FAULTS_SOAK_S under
+# FAULTS_SCRAPERS scrapers; the burn warms for FAULTS_LEAD_S first and
+# ends by FAULTS_MAX_S at the latest.
+FAULTS_INTERVAL_S = 0.2
+FAULTS_SOAK_S = 30.0
+FAULTS_FLAP_S = 2.0
+FAULTS_SCRAPERS = 4
+FAULTS_LEAD_S = 2.0
+FAULTS_MAX_S = 300.0
+# After its burn, the phase waits (at most FAULTS_IDLE_S) until card 0's
+# utilization reads 0: NVML averages it over a trailing window, and a
+# harness of the next phase would read the faults burn's load as its own
+# burn's.
+FAULTS_IDLE_S = 30.0
 MIB = 1024**2
 ROOT = pathlib.Path(__file__).resolve().parent
 KERNEL_NAME = "tiled_gemm_bf16_f32"
@@ -6816,6 +6853,95 @@ def phase_bench(card_line: str) -> int:
     return launches
 
 
+class FaultsStop(Exception):
+    """Ends the faults phase's burn from its step hook."""
+
+
+def phase_faults(card_line: str) -> int:
+    """The survival layer on the card: the NVML daemon over
+    ``testing.nvml_faults.NvmlFaults`` (the real binding, with faults
+    scripted over it) in a process of its own with no torch, as the
+    DaemonSet runs it, while this process burns card 0 with the ``cuda``
+    kernel. ``python -m kube_gpu_stats_tpu_torch.testing.nvml_faults``
+    runs ``run_scenarios``: card 0 lost for 5 ticks (down within 2 ticks
+    with nothing of it served, up within 2 of the fault clearing, then
+    duty and memory held as the daemon phase holds them); the driver gone
+    until the ``nvml`` breaker opens, then back (the breaker's 2 in a
+    scrape, the doctor's ``resilience`` row failing on ``nvml``, the
+    probe's real ``nvmlShutdown`` closing the library and its
+    ``nvmlInit_v2`` opening a fresh session under the burn, the card up
+    and fresh within 2 ticks of it, joules monotone); a hung
+    ``begin_tick`` respawned by the watchdog; a soak with card 0 flapping
+    under scrapers. The driver is never unloaded (no root here, and an
+    unload would end the burn's context): the library's answers are.
+    Returns B1's launches."""
+    t0 = time.monotonic()
+    hook = StepCounter()
+    stop = threading.Event()
+    burn: dict = {}
+
+    def record(n: int, *, seconds: float, flops: float) -> None:
+        hook(n, seconds=seconds, flops=flops)
+        if stop.is_set():
+            raise FaultsStop
+
+    def burner() -> None:
+        try:
+            run_burn(seconds=FAULTS_MAX_S, size=MAIN_SIZE,
+                     report_every=1e9, kernel="cuda", device="cuda:0",
+                     step_hook=record)
+        except FaultsStop:
+            torch.cuda.synchronize()
+        except Exception as exc:  # noqa: BLE001 - failed below
+            burn["error"] = repr(exc)
+
+    cmd = [sys.executable, "-X", "faulthandler", "-m",
+           "kube_gpu_stats_tpu_torch.testing.nvml_faults", "--card", "0",
+           "--interval", str(FAULTS_INTERVAL_S), "--soak", str(FAULTS_SOAK_S),
+           "--flap", str(FAULTS_FLAP_S), "--scrapers", str(FAULTS_SCRAPERS),
+           "--duty-min", str(DUTY_MIN), "--mem-tol-mib", str(MEM_TOL_MIB)]
+    tiled_burn.launches = 0
+    thread = threading.Thread(target=burner, name="faults-burn",
+                              daemon=True)
+    thread.start()
+    try:
+        time.sleep(FAULTS_LEAD_S)
+        child = subprocess.run(cmd, cwd=ROOT, capture_output=True,
+                               text=True, timeout=FAULTS_MAX_S)
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+    launches = tiled_burn.launches
+    idle_from = time.monotonic()
+    while float(smi("utilization.gpu")[0][0]) > 0.0:
+        require(time.monotonic() - idle_from < FAULTS_IDLE_S,
+                f"card 0 not idle {FAULTS_IDLE_S} s after the faults burn")
+        time.sleep(0.25)
+    idle_s = time.monotonic() - idle_from
+    lines = child.stdout.strip().splitlines()
+    require(lines, f"the faults process printed nothing (exit "
+                   f"{child.returncode}): {child.stderr[-1500:]}")
+    result = json.loads(lines[-1])
+    require(child.returncode == 0 and result.get("ok"),
+            f"faults: {result.get('error')} (exit {child.returncode}); "
+            f"{child.stderr[-1500:]}")
+    require(not result["torch_loaded"], "the faults process loaded torch")
+    require("error" not in burn, f"the faults burn: {burn.get('error')}")
+    require(not thread.is_alive(), "the faults burn did not end")
+    require(launches >= hook.steps > 0,
+            f"{launches} launches for {hook.steps} burn steps")
+    emit("faults", {
+        "card": card_line, "interval_s": FAULTS_INTERVAL_S,
+        "scenarios": result["scenarios"], "b1_launches": launches,
+        "burn_steps": hook.steps, "daemon_seconds": result["seconds"],
+        "idle_after_s": idle_s,
+        "seconds": time.monotonic() - t0,
+        "injected": "NVML's answers through testing.nvml_faults in the "
+                    "daemon's own process; the driver stays loaded (no "
+                    "unload, no GPU reset)"})
+    return launches
+
+
 def library_call():
     """The yardstick: one PyTorch call computing the same function. Returns
     (name, fn(a, b))."""
@@ -6956,6 +7082,7 @@ def phases() -> None:
     launches += phase_egress(card, c5_tick_ms)
     launches += phase_hub(card, c5_tick_ms, cuda_steps_per_s)
     launches += phase_fleet(card)
+    launches += phase_faults(card)
     launches += phase_bench(card)
     t = phase_timing(card)
     emit("kernels", [{
@@ -6976,6 +7103,7 @@ ALONE = {
     "egress": lambda card: phase_egress(card, {}),
     "hub": lambda card: phase_hub(card, {}, 0.0),
     "fleet": phase_fleet,
+    "faults": phase_faults,
     "bench": phase_bench,
 }
 

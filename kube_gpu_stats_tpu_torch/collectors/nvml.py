@@ -74,15 +74,35 @@ instantaneous power field (``NVML_FI_DEV_POWER_INSTANT``), never the
 one-second average of ``nvmlDeviceGetPowerUsage``; None, with the reason
 in :attr:`NvmlCollector.burst_state`, where the card refuses the field.
 
-``nvmlInit_v2`` runs once per collector, in the constructor (so
-``--backend nvml`` fails at startup without the driver); ``nvmlShutdown``
-in :meth:`close`. Rediscovery re-enumerates.
+``nvmlInit_v2`` runs in the constructor (so ``--backend nvml`` fails at
+startup without the driver); ``nvmlShutdown`` in :meth:`close`.
+Rediscovery re-enumerates.
+
+The library edge has a circuit breaker, ``nvml`` (:meth:`breakers`;
+the reference's per-port libtpu breaker: 3 consecutive failed rounds
+over at least 2 s, 1 s to the recovery probe). A round fails when every
+card it read failed with a library-level code (``UNINITIALIZED``,
+``DRIVER_NOT_LOADED``, ``UNKNOWN``, ``LIB_RM_VERSION_MISMATCH``): the
+driver was reloaded or the node's cards were reset, and the session
+this collector opened answers nothing any more. One lost card is not a
+library outage. While the breaker is not closed no NVML call runs: each
+card's sample is stale (``accelerator_up 0``, what the loop still serves
+for the card labelled ``stale="true"``, nothing read). The half-open
+probe runs on the loop thread at the top of a tick (:meth:`begin_tick`):
+it waits until no read, burst read or rediscovery is inside NVML,
+frees the GPM samples, runs ``nvmlShutdown`` and ``nvmlInit_v2``,
+enumerates the cards again and re-keys every known card's handle by its
+UUID (a card whose UUID is gone stays down until the loop rediscovers).
+NVML counts its inits: where another holder in the process keeps a
+session open, the shutdown does not end the library's, the probe's
+enumeration fails and the breaker opens again.
 """
 
 from __future__ import annotations
 
 import logging
 import threading
+import time
 from typing import Callable, Mapping, Sequence
 
 from . import Collector, CollectorError, Device, Sample
@@ -90,6 +110,7 @@ from .. import schema
 from ..kinds import accel_type
 from ..native import nvml as binding
 from ..native.nvml import Nvml, NvmlError
+from ..resilience import CLOSED, BreakerOpenError, CircuitBreaker
 
 log = logging.getLogger(__name__)
 
@@ -114,6 +135,67 @@ _GPM_FAMILIES = (
     (binding.NVML_GPM_METRIC_DRAM_BW_UTIL, schema.MEMORY_BANDWIDTH_UTIL.name),
 )
 _GPM_IDS = tuple(metric_id for metric_id, _ in _GPM_FAMILIES)
+
+# Returns that speak for the library (or the driver behind it), not for
+# one card: a card whose every failed reading gave one of these failed
+# with the library.
+LIBRARY_DOWN = frozenset({
+    binding.NVML_ERROR_UNINITIALIZED,
+    binding.NVML_ERROR_DRIVER_NOT_LOADED,
+    binding.NVML_ERROR_UNKNOWN,
+    binding.NVML_ERROR_LIB_RM_VERSION_MISMATCH,
+})
+
+# The ``nvml`` breaker: the reference libtpu client's defaults. It trips
+# after BREAKER_FAILURES failed rounds spanning BREAKER_MIN_SPAN_S (the
+# doctor's back-to-back ticks must not read as an outage), and probes
+# BREAKER_RECOVERY_S after it opened.
+BREAKER_FAILURES = 3
+BREAKER_MIN_SPAN_S = 2.0
+BREAKER_RECOVERY_S = 1.0
+# How long the recovery probe waits for the reads inside NVML to leave.
+_QUIESCE_TIMEOUT = 2.0
+
+
+class NvmlBreakerOpen(CollectorError, BreakerOpenError):
+    """The ``nvml`` breaker is not closed: the read made no NVML call."""
+
+
+class _Gate:
+    """Readers inside NVML, and the probe's exclusive hold: the probe
+    shuts the library down only once no reader holds a handle."""
+
+    def __init__(self) -> None:
+        self._cond = threading.Condition()
+        self._inside = 0
+        self._held = False
+
+    def enter(self) -> bool:
+        with self._cond:
+            if self._held:
+                return False
+            self._inside += 1
+            return True
+
+    def leave(self) -> None:
+        with self._cond:
+            self._inside -= 1
+            if not self._inside:
+                self._cond.notify_all()
+
+    def hold(self, timeout: float) -> bool:
+        """Refuse new readers and wait for the rest to leave; False
+        (nothing held) when one is still inside after ``timeout``."""
+        with self._cond:
+            self._held = True
+            if self._cond.wait_for(lambda: not self._inside, timeout):
+                return True
+            self._held = False
+            return False
+
+    def release(self) -> None:
+        with self._cond:
+            self._held = False
 
 
 class _GpmSamples:
@@ -195,17 +277,25 @@ class _ReadRounds:
     harvested.
     """
 
-    def __init__(self) -> None:
+    def __init__(self, breaker: CircuitBreaker) -> None:
         self._lock = threading.Lock()
         self._tick = 0
         self._running: dict[int, int] = {}  # round -> reads not returned
         self._unserved: set[int] = set()  # returned, not yet assembled
         self._counted = 0  # newest round the generation counted
         self.seq = 0
+        # The library breaker each round's outcome feeds once the round
+        # is over: round -> [reads that reached NVML, library failures].
+        self._breaker = breaker
+        self._outcomes: dict[int, list[int]] = {}
 
     def begin_tick(self) -> None:
         with self._lock:
+            closing = self._tick
             self._tick += 1
+            verdict = (None if closing in self._running
+                       else self._verdict(closing))
+        self._record(verdict)
 
     def start(self) -> int:
         with self._lock:
@@ -213,15 +303,43 @@ class _ReadRounds:
             self._running[tag] = self._running.get(tag, 0) + 1
             return tag
 
-    def finish(self, tag: int) -> None:
+    def finish(self, tag: int, outcome: str | None = None) -> None:
+        """One read of round ``tag`` returned. ``outcome``: "library"
+        (failed with the library), "ok" (the library answered), None (no
+        NVML call). A round is recorded on the breaker once it is over
+        (the next round began and its last read returned): a failure
+        when every read that reached NVML failed with the library."""
+        verdict = None
         with self._lock:
+            counts = self._outcomes.setdefault(tag, [0, 0])
+            if outcome is not None:
+                counts[0] += 1
+                counts[1] += outcome == "library"
             left = self._running[tag] - 1
             if left:
                 self._running[tag] = left
             else:
                 del self._running[tag]
+                if tag < self._tick:  # no read of the round starts now
+                    verdict = self._verdict(tag)
             if tag > self._counted:
                 self._unserved.add(tag)
+        self._record(verdict)
+
+    def _verdict(self, tag: int) -> bool | None:
+        """Round ``tag``'s outcome once it is over (under the lock):
+        True failed with the library, False answered, None no read
+        reached NVML."""
+        reached, failed = self._outcomes.pop(tag, (0, 0))
+        return failed == reached if reached else None
+
+    def _record(self, verdict: bool | None) -> None:
+        if verdict is None:
+            return
+        if verdict:
+            self._breaker.record_failure("every card failed with the library")
+        else:
+            self._breaker.record_success()
 
     def served(self, tag: int) -> None:
         with self._lock:
@@ -250,13 +368,24 @@ class NvmlCollector(Collector):
     # next one runs during the inter-tick idle).
     pipelined_wait = True
 
-    def __init__(self, nvml=None) -> None:
+    def __init__(self, nvml=None, *,
+                 clock: Callable[[], float] = time.monotonic) -> None:
         """``nvml``: the binding (or ``testing.fake_nvml.FakeNvml``);
         None loads ``libnvidia-ml.so.1``. Raises ``NvmlError`` when the
-        library cannot be loaded or ``nvmlInit_v2`` fails."""
+        library cannot be loaded or ``nvmlInit_v2`` fails. ``clock``
+        times the breaker (tests step it)."""
         self._nvml = nvml if nvml is not None else Nvml()
         self._nvml.init()
         self._closed = False
+        self.breaker = CircuitBreaker(
+            "nvml", failure_threshold=BREAKER_FAILURES,
+            recovery_time=BREAKER_RECOVERY_S,
+            min_failure_span=BREAKER_MIN_SPAN_S, clock=clock)
+        self._gate = _Gate()
+        # Recovery probes that opened a fresh session, and the last
+        # one's shutdown + init + enumeration time.
+        self.reinits_total = 0
+        self.last_reinit_ms: float | None = None
         # device_id -> NVML handle / UUID / NVLink link count, from
         # discover().
         self._handles: dict[str, int] = {}
@@ -274,9 +403,51 @@ class NvmlCollector(Collector):
         # device_id -> why read_burst takes no sample on the card (NVML's
         # answer for the instantaneous power field).
         self.burst_state: dict[str, str] = {}
-        self._rounds = _ReadRounds()
+        self._rounds = _ReadRounds(self.breaker)
+
+    @property
+    def session(self) -> int:
+        """The NVML session the readings come from: 0 for the
+        constructor's, one more for each re-init. The poll loop drops
+        its rate baselines when it moves (the cards' counters may have
+        restarted)."""
+        return self.reinits_total
+
+    def breakers(self) -> dict[str, CircuitBreaker]:
+        """The library edge's breaker (supervisor, doctor)."""
+        return {"nvml": self.breaker}
 
     def discover(self) -> Sequence[Device]:
+        """Every card NVML lists. Raises ``CollectorError`` without an
+        NVML call while the breaker is not closed."""
+        if not self._enter():
+            raise NvmlBreakerOpen(
+                f"NVML circuit breaker {self.breaker.state}: "
+                "not rediscovering")
+        try:
+            devices, handles, links = self._enumerate()
+        finally:
+            self._gate.leave()
+        uuids = {device.device_id: device.uuid for device in devices}
+        self._free_gpm(same={device_id for device_id, uuid in uuids.items()
+                             if self._uuids.get(device_id) == uuid})
+        self._handles = handles
+        self._uuids = uuids
+        self._links = links
+        return devices
+
+    def _enter(self) -> bool:
+        """Take a reader's place in the gate; False (not entered) while
+        the breaker is not closed or the probe holds the library."""
+        if not self._gate.enter():
+            return False
+        if self.breaker.state != CLOSED:
+            self._gate.leave()
+            return False
+        return True
+
+    def _enumerate(self) -> tuple[list[Device], dict[str, int],
+                                  dict[str, int]]:
         nvml = self._nvml
         devices: list[Device] = []
         handles: dict[str, int] = {}
@@ -293,13 +464,41 @@ class NvmlCollector(Collector):
             ))
             handles[device_id] = handle
             links[device_id] = self._link_count(handle)
-        uuids = {device.device_id: device.uuid for device in devices}
-        self._free_gpm(same={device_id for device_id, uuid in uuids.items()
-                             if self._uuids.get(device_id) == uuid})
-        self._handles = handles
-        self._uuids = uuids
-        self._links = links
-        return devices
+        return devices, handles, links
+
+    def _probe(self) -> None:
+        """The half-open probe: a fresh NVML session. Its outcome closes
+        the breaker or opens it again."""
+        if not self._gate.hold(_QUIESCE_TIMEOUT):
+            self.breaker.record_failure("a read is still inside NVML")
+            return
+        started = time.perf_counter()
+        try:
+            self._free_gpm()
+            try:
+                self._nvml.shutdown()
+            except NvmlError as exc:
+                log.debug("nvmlShutdown before re-init: %s", exc)
+            self._nvml.init()
+            devices, handles, links = self._enumerate()
+        except NvmlError as exc:
+            self.breaker.record_failure(exc)
+            log.warning("NVML re-init failed: %s", exc)
+            return
+        finally:
+            self._gate.release()
+        by_uuid = {device.uuid: device.device_id for device in devices}
+        self._handles = {
+            device_id: handles[by_uuid[uuid]]
+            for device_id, uuid in self._uuids.items() if uuid in by_uuid}
+        self._links = {
+            device_id: links[by_uuid[uuid]]
+            for device_id, uuid in self._uuids.items() if uuid in by_uuid}
+        self.last_reinit_ms = (time.perf_counter() - started) * 1000.0
+        self.reinits_total += 1
+        self.breaker.record_success()
+        log.info("NVML re-initialised in %.1f ms: %d of %d cards back",
+                 self.last_reinit_ms, len(self._handles), len(self._uuids))
 
     def _link_count(self, handle: int) -> int:
         try:
@@ -314,7 +513,11 @@ class NvmlCollector(Collector):
     # -- loop thread assembles every card in memory.
 
     def begin_tick(self) -> None:
+        """A new read round; while the breaker is open past its recovery
+        time, the recovery probe runs here first."""
         self._rounds.begin_tick()
+        if self.breaker.state != CLOSED and self.breaker.allow():
+            self._probe()
 
     def wait_ready(self, timeout: float | None = None,
                    max_age: float | None = None) -> None:
@@ -332,26 +535,45 @@ class NvmlCollector(Collector):
         """The blocking half: every NVML read of one card's sample.
         Raises ``CollectorError`` for a card not discovered or lost."""
         tag = self._rounds.start()
+        outcome = None
         try:
-            handle = self._handles.get(device.device_id)
-            if handle is None:
-                raise CollectorError(f"{device.device_path}: not discovered")
-            values: dict[str, float] = {}
-            failures: list[NvmlError] = []
-            for call, to_families in _READS:
-                reading = self._read(device, call, failures, handle)
-                if reading is not None:
-                    values.update(to_families(reading))
-            gpm = self._gpm_values(device, handle)
-            if gpm is not None:
-                # GPM serves the bandwidth family: not the time share.
-                values.pop(schema.MEMORY_BANDWIDTH_UTIL.name, None)
-                values.update(gpm)
-            ici = self._nvlink(device, handle, failures)
+            if not self._enter():
+                raise NvmlBreakerOpen(
+                    f"{device.device_path}: NVML circuit breaker "
+                    f"{self.breaker.state}")
+            outcome = "ok"  # a lost or unknown card: the library answered
+            try:
+                values, ici, failures = self._read_card(device)
+            finally:
+                self._gate.leave()
+            if not values and failures and all(
+                    exc.code in LIBRARY_DOWN for exc in failures):
+                outcome = "library"
         finally:
-            self._rounds.finish(tag)
+            self._rounds.finish(tag, outcome)
         return {"values": values, "ici": ici, "failures": failures,
                 "round": tag}
+
+    def _read_card(self, device: Device) -> tuple[dict, dict, list]:
+        """(values, NVLink counters, failures) of one card, inside the
+        gate. A card whose every reading failed reads nothing more."""
+        handle = self._handles.get(device.device_id)
+        if handle is None:
+            raise CollectorError(f"{device.device_path}: not discovered")
+        values: dict[str, float] = {}
+        failures: list[NvmlError] = []
+        for call, to_families in _READS:
+            reading = self._read(device, call, failures, handle)
+            if reading is not None:
+                values.update(to_families(reading))
+        if not values and failures:
+            return values, {}, failures
+        gpm = self._gpm_values(device, handle)
+        if gpm is not None:
+            # GPM serves the bandwidth family: not the time share.
+            values.pop(schema.MEMORY_BANDWIDTH_UTIL.name, None)
+            values.update(gpm)
+        return values, self._nvlink(device, handle, failures), failures
 
     def assemble(self, device: Device, env: Mapping,
                  env_err: Exception | None = None,
@@ -360,6 +582,10 @@ class NvmlCollector(Collector):
         :meth:`sample` raises: the read failed, or no reading succeeded.
         ``runtime_ready`` is the loop's join verdict; NVML's join never
         misses, so it changes nothing here."""
+        if isinstance(env_err, NvmlBreakerOpen):
+            # The library is down for good, not blinking: the card is
+            # not up, and nothing is read or fabricated for it.
+            return Sample(device=device, values={}, stale=True)
         if env_err is not None:
             if isinstance(env_err, CollectorError):
                 raise env_err
@@ -387,7 +613,7 @@ class NvmlCollector(Collector):
         to ``burst_state``): the one-second average of
         ``nvmlDeviceGetPowerUsage`` is never served in its place."""
         handle = self._handles.get(device.device_id)
-        if handle is None:
+        if handle is None or not self._enter():
             return None
         try:
             [(code, milliwatts)] = self._nvml.field_values(
@@ -396,6 +622,8 @@ class NvmlCollector(Collector):
             if not exc.not_supported:
                 raise
             code = exc.code
+        finally:
+            self._gate.leave()
         if code == binding.NVML_SUCCESS:
             return milliwatts / 1000.0
         reason = NvmlError(code, self._nvml.error_string(code))

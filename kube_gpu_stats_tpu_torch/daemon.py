@@ -59,20 +59,21 @@ from .workers import PeriodicRefresher
 log = logging.getLogger(__name__)
 
 
-def build_collector(cfg: Config) -> Collector:
+def build_collector(cfg: Config, nvml=None) -> Collector:
     """The backend ``cfg.backend`` names. ``nvml`` raises ``NvmlError``
     when the library cannot be loaded or ``nvmlInit_v2`` fails: asked for
-    by name, it never degrades to null."""
+    by name, it never degrades to null. ``nvml``: the NVML binding the
+    backend opens (``Daemon``'s)."""
     if cfg.backend == "mock":
         return MockCollector(num_devices=cfg.mock_devices)
     if cfg.backend == "null":
         return NullCollector()
     if cfg.backend == "nvml":
-        return _nvml_collector()
+        return _open_nvml(nvml)
     # auto: NVML when a card is present, else a schema-valid null exporter
     # (card-less nodes; the daemon keeps re-probing while on null — see
     # BackendUpgradeWatcher).
-    return probe_accelerator(cfg) or NullCollector()
+    return probe_accelerator(cfg, nvml=nvml) or NullCollector()
 
 
 def _nvml_collector() -> Collector:
@@ -81,8 +82,18 @@ def _nvml_collector() -> Collector:
     return NvmlCollector()
 
 
-def probe_accelerator(cfg: Config, loglevel: int = logging.WARNING
-                      ) -> Collector | None:
+def _open_nvml(nvml=None) -> Collector:
+    """An NVML collector over the binding ``nvml``; None loads the
+    driver's library."""
+    if nvml is None:
+        return _nvml_collector()
+    from .collectors.nvml import NvmlCollector
+
+    return NvmlCollector(nvml)
+
+
+def probe_accelerator(cfg: Config, loglevel: int = logging.WARNING,
+                      nvml=None) -> Collector | None:
     """One pass of the auto-backend probe: an NVML collector when the
     driver answers and lists at least one card, else None. The probe
     instance IS the production collector when devices are found — probing
@@ -90,7 +101,7 @@ def probe_accelerator(cfg: Config, loglevel: int = logging.WARNING
     lets the periodic re-probe demote the expected "nothing here yet"
     outcome to debug."""
     try:
-        collector = _nvml_collector()
+        collector = _open_nvml(nvml)
     except Exception as exc:  # noqa: BLE001 - no driver: null, not a crash
         log.log(loglevel, "NVML probe failed (%s); falling back to null "
                 "backend", exc)
@@ -149,7 +160,8 @@ class BackendUpgradeWatcher(PeriodicRefresher):
             self._stop_event.set()
             return
         try:
-            new = probe_accelerator(self._daemon.cfg, loglevel=logging.DEBUG)
+            new = probe_accelerator(self._daemon.cfg, loglevel=logging.DEBUG,
+                                    nvml=self._daemon.nvml)
         except Exception:  # noqa: BLE001 - probe bug must not kill the thread
             log.debug("backend re-probe crashed", exc_info=True)
             new = None
@@ -171,8 +183,13 @@ class Daemon:
     """Owns every long-lived component; stop() tears down in reverse
     order."""
 
-    def __init__(self, cfg: Config) -> None:
+    def __init__(self, cfg: Config, *, nvml=None) -> None:
+        """``nvml``: the NVML binding the backend opens, where a caller
+        runs several daemons in one process, each over its own
+        (``testing.fake_nvml``, ``testing.nvml_faults``); None loads
+        ``libnvidia-ml.so.1``."""
         self.cfg = cfg
+        self.nvml = nvml
         # --no-native renders and gzips in Python; with the native
         # default a failed build of the extension raises here, at start.
         self.registry = Registry(native=cfg.use_native)
@@ -185,16 +202,18 @@ class Daemon:
         # store_recovered transitions land in the shared event journal
         # beside breaker trips and health flips.
         wal.set_journal(self.tracer)
-        self.collector = build_collector(cfg)
+        self.collector = build_collector(cfg, nvml)
         self.attribution = build_attribution(cfg)
         # Crash-only supervisor: liveness/hang detection and restart with
         # backoff for every worker thread, and the circuit-breaker state of
-        # the kubelet edge in the kts_* self-metrics and /healthz reasons.
-        # The attribution source's breaker is late-bound (auto mode builds
-        # its PodResources client lazily).
+        # the NVML and kubelet edges in the kts_* self-metrics and /healthz
+        # reasons. Both are late-bound providers: the collector's swap on
+        # the auto-mode backend upgrade, and the attribution source's lazy
+        # PodResources client, resolve at read time.
         self.supervisor = Supervisor(
             check_interval=max(0.1, min(1.0, cfg.interval)),
             tracer=self.tracer)
+        self.supervisor.register_breaker_provider(self._collector_breakers)
         self.supervisor.register_breaker_provider(self._attribution_breakers)
         # Per-process device holders (accelerator_process_open): the lazy
         # paths_fn closes over self.poll, which exists before the watcher's
@@ -281,7 +300,8 @@ class Daemon:
         self.supervisor.register(
             "poll", is_alive=self.poll.thread_alive,
             restart=self.poll.respawn,
-            heartbeat_timeout=max(5.0, cfg.interval * 5))
+            heartbeat_timeout=max(5.0, cfg.interval * 5),
+            breaker_prefixes=("nvml",))
         self.server = MetricsServer(
             self.registry, cfg.listen_host, cfg.listen_port,
             # A few missed intervals = unhealthy (floor for tiny test
@@ -505,6 +525,12 @@ class Daemon:
             "accept_fence": self.server.accept_fence_status(),
             "threads": self.supervisor.restart_report(),
         }
+
+    def _collector_breakers(self):
+        """The current collector's breakers (late-bound: survives the
+        auto-mode backend upgrade)."""
+        fn = getattr(self.collector, "breakers", None)
+        return fn() if callable(fn) else {}
 
     def _attribution_breakers(self):
         """The attribution source's kubelet breaker, once it exists."""

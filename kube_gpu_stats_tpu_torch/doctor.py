@@ -1183,6 +1183,29 @@ def check_skew(base: str) -> CheckResult:
     return _result("skew", status, detail, data={"skew": payload})
 
 
+def _unplaced_link_targets(payload: dict) -> set[str]:
+    """The targets whose interconnect links the localization pass could
+    place on no edge: each carries per-link rates and a worker id in its
+    digest, and none of its link labels maps onto an edge of the graph
+    over every such worker."""
+    from .topology import InterconnectGraph
+
+    nodes: dict[str, dict] = {}
+    for target, entry in (payload.get("targets") or {}).items():
+        ici = (entry.get("digest") or {}).get("ici") or {}
+        if ici.get("links") and str(ici.get("worker", "")):
+            nodes[target] = ici
+    if not nodes:
+        return set()
+    topo = next((ici.get("topology", "") for ici in nodes.values()
+                 if ici.get("topology")), "")
+    graph = InterconnectGraph([str(ici["worker"]) for ici in nodes.values()],
+                              topo)
+    return {target for target, ici in nodes.items()
+            if not any(graph.edge_for(str(ici["worker"]), label)
+                       for label in ici["links"])}
+
+
 def fleet_post_mortem(payload: dict) -> tuple[str, str, dict]:
     """(status, detail line, data) for a /debug/fleet rollup: the
     slice post-mortem — worst node with its phase and blame, every
@@ -1234,19 +1257,37 @@ def fleet_post_mortem(payload: dict) -> tuple[str, str, dict]:
     data["link_suspects"] = {link: dict(v)
                             for link, v in sorted(suspects.items())}
     data["link_explained"] = {}
+    unplaced = _unplaced_link_targets(payload)
     for target, entry in sorted((payload.get("targets") or {}).items()):
         anomalous = entry.get("anomalous") or {}
         if not anomalous:
             continue
         status = WARN
-        if target in link_explained and all(
-                kind in LINK_EXPLAINED_KINDS or kind.startswith("host_")
-                for kind in anomalous):
+        link_shaped = all(
+            kind in LINK_EXPLAINED_KINDS or kind.startswith("host_")
+            for kind in anomalous)
+        if target in link_explained and link_shaped:
             # Every anomaly on this endpoint is a symptom a degraded
             # shared link produces (ici/steps/fetch slowdowns, the host
             # NIC/IRQ corroboration) — the link verdict above already
             # owns them, so the node is not accused.
             data["link_explained"][target] = link_explained[target]
+            continue
+        if (target in unplaced and link_shaped
+                and anomalous.get("ici", 0.0) < 0.0):
+            # The same symptoms, led by the node's own interconnect
+            # rate dropping, on a node whose links map onto no edge of
+            # the graph (an H100's nvlink<N> are its links to its own
+            # NVSwitches): no link can take the verdict and no
+            # two-endpoint check can clear the node, so the slowdown is
+            # named and the node is not accused.
+            data.setdefault("link_unplaced", {})[target] = dict(anomalous)
+            parts.append(
+                f"{target}: interconnect slowdown not localized, its "
+                f"links map to no link between nodes ("
+                + ", ".join(f"{kind} z={z:g}"
+                            for kind, z in sorted(anomalous.items()))
+                + ")")
             continue
         data["anomalous"][target] = dict(anomalous)
         # Freshness reports the CURRENT missed count (entry['missed']),

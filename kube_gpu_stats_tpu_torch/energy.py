@@ -50,6 +50,10 @@ from . import schema, wal
 log = logging.getLogger(__name__)
 
 CHECKPOINT_VERSION = 1
+# The most a checkpoint's per-pod joules, rounded to nearest at 6
+# decimals, sit below the value they were written from (plus a margin
+# for the double's own rounding).
+_ROUNDING_PAD = 5e-7 + 1e-9
 
 # A burst-sample gap wider than this is not "covered" by the burst
 # window (the sampler was disarmed / the device unreadable mid-window):
@@ -111,6 +115,13 @@ class EnergyAccountant:
         self._io_lock = threading.Lock()
         # (pod, namespace) -> joules. "" keys = unattributed draw.
         self._per_pod: dict[tuple[str, str], float] = {}
+        # (pod, namespace) -> the least joules served for a pod replayed
+        # from a checkpoint: what it was written as plus half a
+        # micro-joule. The checkpoint rounds to nearest at 6 decimals,
+        # so the value last served before the restart can sit up to
+        # that much above the replayed one, and a counter served below
+        # its last scrape is a reset to Prometheus.
+        self._served_floor: dict[tuple[str, str], float] = {}
         # device_id -> (t, watts): the newest integrated point.
         self._last: dict[str, tuple[float, float]] = {}
         self.covered_seconds = 0.0
@@ -237,6 +248,8 @@ class EnergyAccountant:
                 continue
             pod, namespace, joules = record[:3]
             self._per_pod[(str(pod), str(namespace))] = float(joules)
+            self._served_floor[(str(pod), str(namespace))] = \
+                float(joules) + _ROUNDING_PAD
         self.covered_seconds = float(state.get("covered_seconds", 0.0))
         self.total_seconds = float(state.get("total_seconds", 0.0))
         self.burst_samples_used = int(state.get("burst_samples_used", 0))
@@ -277,7 +290,9 @@ class EnergyAccountant:
         thread). Counters are unconditional-from-zero so increase()
         alerting works from the first scrape."""
         with self._lock:
-            totals = sorted(self._per_pod.items())
+            totals = sorted(
+                (key, max(joules, self._served_floor.get(key, joules)))
+                for key, joules in self._per_pod.items())
             ratio = self.coverage_ratio
         for (pod, namespace), joules in totals:
             builder.add(schema.ENERGY_POD, joules,

@@ -407,6 +407,10 @@ class PollLoop:
         # the fresh thread's capture.
         self._ici_memo: dict[str, tuple] = {}
         self._runtime_seq_seen: int | None = None
+        # The backend's library session (``NvmlCollector.session``): a
+        # fresh session after a driver reload or a GPU reset restarts the
+        # cards' counters, so no rate may span it.
+        self._session_seen: int | None = None
         # Futures for samples that missed their deadline but are still
         # running: future.cancel() cannot stop a running call, so until it
         # finishes we must not submit another sample for that device or a
@@ -1142,6 +1146,15 @@ class PollLoop:
         runtime_fresh = (runtime_seq is None
                          or runtime_seq != self._runtime_seq_seen)
         self._runtime_seq_seen = runtime_seq
+        session = getattr(self._collector, "session", None)
+        if session != self._session_seen:
+            if self._session_seen is not None:
+                # Counters restarted with the session: every baseline
+                # goes; the first read after it sets the new one.
+                for dev in self._devices:
+                    self._rates.forget_device(dev.device_id)
+                self._ici_memo.clear()
+            self._session_seen = session
         burst = self._burst
         energy_acct = self._energy_acct
         if burst is not None:

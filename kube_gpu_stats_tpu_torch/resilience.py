@@ -10,9 +10,9 @@ embedded exporter and the daemon use:
   own consecutive-failure counters;
 - :class:`CircuitBreaker` — closed / open / half-open with single-probe
   admission, tripped by consecutive failures or (optionally) by the
-  failure rate over a window of outcomes. Wired into the kubelet
-  PodResources client and the hub's per-target scrape loop; its state is
-  exported as ``kts_breaker_state``;
+  failure rate over a window of outcomes. Wired into the NVML library
+  edge, the kubelet PodResources client and the hub's per-target scrape
+  loop; its state is exported as ``kts_breaker_state``;
 - :class:`TokenBucket` — a rate limiter that refuses without blocking:
   the delta publisher's spill-drain rate;
 - :class:`DeadlineBudget` — a per-tick wall-time budget that child calls
@@ -135,6 +135,7 @@ class CircuitBreaker:
     def __init__(self, name: str = "", *, failure_threshold: int = 3,
                  recovery_time: float = 5.0, window: int = 20,
                  failure_rate_threshold: float | None = None,
+                 min_failure_span: float = 0.0,
                  clock: Callable[[], float] = time.monotonic) -> None:
         if failure_threshold < 1:
             raise ValueError("failure_threshold must be >= 1")
@@ -143,6 +144,13 @@ class CircuitBreaker:
         self._recovery_time = recovery_time
         self._window = max(1, window)
         self._rate_threshold = failure_rate_threshold
+        # "Persistently down" needs duration, not just a count: a burst
+        # of back-to-back calls (the doctor's rapid ticks) can rack up N
+        # failures in milliseconds against a dependency that merely is
+        # not there right now. With a span, the consecutive-failure
+        # condition trips only once the streak has lasted this long.
+        self._min_failure_span = min_failure_span
+        self._streak_started_at: float | None = None
         self._clock = clock
         self._lock = threading.Lock()
         self._state = CLOSED
@@ -244,14 +252,21 @@ class CircuitBreaker:
     def record_failure(self, error: BaseException | str | None = None) -> None:
         fire: tuple[str, str] | None = None
         with self._lock:
+            now = self._clock()
             self.consecutive_failures += 1
+            if self.consecutive_failures == 1:
+                self._streak_started_at = now
             self._push_outcome(True)
             self.last_error = error if error is not None else self.last_error
             if self._state == HALF_OPEN:
                 # The probe failed: back to OPEN, recovery clock restarts.
                 fire = self._trip()
             elif self._state != OPEN:
-                if self.consecutive_failures >= self._failure_threshold:
+                streak_start = (self._streak_started_at
+                                if self._streak_started_at is not None
+                                else now)
+                if (self.consecutive_failures >= self._failure_threshold
+                        and now - streak_start >= self._min_failure_span):
                     fire = self._trip()
                 elif (self._rate_threshold is not None
                       and len(self._outcomes) >= self._window

@@ -3,11 +3,22 @@
 Every CPU test of the NVML backend runs on it. Devices carry their
 readings in the binding's units (milliwatts, millijoules, bytes, KiB per
 NVLink link); a test changes them between ticks, scripts a return code
-per call (``errors``), stalls every Nth call of a named call
+per call (``errors``), moves NVLink counters on at a rate
+(``set_nvlink_rate``), stalls every Nth call of a named call
 (``stalls``, as NVML on an H100 80GB HBM3 at 700 W took 20-113 ms in a
 few percent of its memory and NVLink reads), or
 loses the card (``lost``), which makes every call on it return
 ``NVML_ERROR_GPU_IS_LOST``.
+
+A driver reload or a GPU reset on the node (:meth:`FakeNvml.reload`)
+starts a new session epoch: the first ``init`` that finds no session
+open (the library counts its inits; a shutdown by one holder does not
+end another's session) moves it, and handles taken before that answer
+``NVML_ERROR_INVALID_ARGUMENT``. ``reload(reset=True)`` also starts
+every card's energy and NVLink counters again from 0. The outage itself
+(every call failing until then) is scripted over this fake by
+``testing.nvml_faults.NvmlFaults``, as over the real binding. Cards are
+added or removed by editing ``devices`` between rediscoveries (hotplug).
 
 ``nvmlDeviceGetFieldValues`` answers under two names: ``power_instant``
 for the burst sampler's one-field read of ``NVML_FI_DEV_POWER_INSTANT``
@@ -28,6 +39,9 @@ from ..native.nvml import NvmlError
 
 _ERROR_TEXT = {
     binding.NVML_ERROR_UNINITIALIZED: "Uninitialized",
+    binding.NVML_ERROR_INVALID_ARGUMENT: "Invalid Argument",
+    binding.NVML_ERROR_LIB_RM_VERSION_MISMATCH:
+        "RM has detected an NVML/RM version mismatch",
     binding.NVML_ERROR_NOT_SUPPORTED: "Not Supported",
     binding.NVML_ERROR_DRIVER_NOT_LOADED: "Driver Not Loaded",
     binding.NVML_ERROR_LIBRARY_NOT_FOUND: "NVML Shared Library Not Found",
@@ -68,6 +82,26 @@ class FakeDevice:
         default_factory=dict)
     calls: dict[str, int] = dataclasses.field(default_factory=dict)
     lost: bool = False
+    # link id -> KiB a second each way: the link's counters move on at
+    # that rate between reads (:meth:`set_nvlink_rate`).
+    nvlink_rate: dict[int, float] = dataclasses.field(default_factory=dict)
+    _rate_since: float = 0.0
+
+    def set_nvlink_rate(self, rates: dict[int, float]) -> None:
+        """Links carrying traffic: from now on each link's TX and RX
+        counters grow by ``rates[link]`` KiB a second."""
+        self._fold_rates()
+        self.nvlink_rate = dict(rates)
+
+    def _fold_rates(self) -> None:
+        now = time.monotonic()
+        if self.nvlink_rate:
+            dt = now - self._rate_since
+            for link, rate in self.nvlink_rate.items():
+                tx, rx = self.nvlink_kib.get(link) or (0, 0)
+                step = int(rate * dt)
+                self.nvlink_kib[link] = (tx + step, rx + step)
+        self._rate_since = now
 
 
 class FakeNvml:
@@ -86,6 +120,10 @@ class FakeNvml:
         self.shutdown_calls = 0
         self._refs = 0
         self._lock = threading.Lock()
+        # Handles carry the session they were taken in: index + 1000 x
+        # epoch. The first fresh session after a reload moves the epoch.
+        self.epoch = 0
+        self._reloaded = False
         # GPM sample buffer id -> the counters read into it (None until
         # read); ``gpm_freed`` counts the buffers given back.
         self.gpm_samples: dict[int, dict[int, float] | None] = {}
@@ -98,11 +136,30 @@ class FakeNvml:
     def error_string(self, code: int) -> str:
         return _ERROR_TEXT.get(code, f"code {code}")
 
+    def reload(self, reset: bool = True) -> None:
+        """The driver was reloaded: the next fresh session is a new
+        epoch. ``reset`` zeroes every card's energy and NVLink counters,
+        as a GPU reset does."""
+        with self._lock:
+            self._reloaded = True
+            if reset:
+                for dev in self.devices:
+                    dev._fold_rates()
+                    dev.energy_mj = 0
+                    dev.nvlink_kib = {
+                        link: None if pair is None else (0, 0)
+                        for link, pair in dev.nvlink_kib.items()}
+
     def init(self) -> None:
         with self._lock:
             self.init_calls += 1
             if self.init_error is not None:
                 self._raise(self.init_error)
+            if self._refs == 0 and self._reloaded:
+                # The first session after the reload: every older handle
+                # is invalid.
+                self._reloaded = False
+                self.epoch += 1
             self._refs += 1
 
     def shutdown(self) -> None:
@@ -112,20 +169,24 @@ class FakeNvml:
                 self._raise(binding.NVML_ERROR_UNINITIALIZED)
             self._refs -= 1
 
-    def driver_version(self) -> str:
+    def _session(self) -> None:
         if self._refs == 0:
             self._raise(binding.NVML_ERROR_UNINITIALIZED)
+
+    def driver_version(self) -> str:
+        self._session()
         return self._driver_version
 
     def cuda_driver_version(self) -> int:
-        if self._refs == 0:
-            self._raise(binding.NVML_ERROR_UNINITIALIZED)
+        self._session()
         return self._cuda_driver_version
 
     def _device(self, handle: int, call: str) -> FakeDevice:
-        if self._refs == 0:
-            self._raise(binding.NVML_ERROR_UNINITIALIZED)
-        dev = self.devices[handle]
+        self._session()
+        epoch, index = divmod(handle, 1000)
+        if epoch != self.epoch or index >= len(self.devices):
+            self._raise(binding.NVML_ERROR_INVALID_ARGUMENT)
+        dev = self.devices[index]
         with self._lock:
             n = dev.calls[call] = dev.calls.get(call, 0) + 1
         stall = dev.stalls.get(call)
@@ -139,13 +200,13 @@ class FakeNvml:
         return dev
 
     def device_count(self) -> int:
-        if self._refs == 0:
-            self._raise(binding.NVML_ERROR_UNINITIALIZED)
+        self._session()
         return len(self.devices)
 
     def handle(self, index: int) -> int:
-        self._device(index, "handle")
-        return index
+        handle = index + 1000 * self.epoch
+        self._device(handle, "handle")
+        return handle
 
     def uuid(self, handle: int) -> str:
         return self._device(handle, "uuid").uuid
@@ -186,6 +247,7 @@ class FakeNvml:
                      dev.power_mw if dev.power_instant_mw is None
                      else dev.power_instant_mw)]
         dev = self._device(handle, "field_values")
+        dev._fold_rates()
         out: list[tuple[int, float | int | None]] = []
         for field_id, link in fields:
             if field_id == binding.NVML_FI_DEV_NVLINK_LINK_COUNT:

@@ -166,6 +166,7 @@ _NVML_CONSTANTS = (
     "NVML_SUCCESS", "NVML_ERROR_UNINITIALIZED", "NVML_ERROR_NOT_SUPPORTED",
     "NVML_ERROR_DRIVER_NOT_LOADED", "NVML_ERROR_LIBRARY_NOT_FOUND",
     "NVML_ERROR_FUNCTION_NOT_FOUND", "NVML_ERROR_GPU_IS_LOST",
+    "NVML_ERROR_INVALID_ARGUMENT", "NVML_ERROR_LIB_RM_VERSION_MISMATCH",
     "NVML_ERROR_UNKNOWN", "NVML_TEMPERATURE_GPU",
     "NVML_DEVICE_UUID_V2_BUFFER_SIZE", "NVML_DEVICE_NAME_V2_BUFFER_SIZE",
     "NVML_SYSTEM_DRIVER_VERSION_BUFFER_SIZE",

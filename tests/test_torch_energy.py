@@ -289,6 +289,45 @@ def test_checkpoints_cross_load(tmp_path, writer, reader, seed):
                for key, value in before.items())
 
 
+def _served_pod_joules(acct, builder) -> list[float]:
+    acct.contribute(builder)
+    return [s.value for s in builder.build().series
+            if s.spec.name == schema.ENERGY_POD.name]
+
+
+def test_a_restart_serves_no_joule_below_the_last_scrape(tmp_path):
+    """A pod's joules that round down at the sixth decimal. Both packages
+    write the same checkpoint (rounded to nearest), which replays below
+    the value served before the restart: the reference serves that, a
+    counter reset to Prometheus; the port serves no less than its last
+    scrape, across a second restart too, and counts on from there."""
+    served = {}
+    for module, builder in ((ref_energy, RefBuilder), (energy,
+                                                       SnapshotBuilder)):
+        path = str(tmp_path / f"{module.__name__}.json")
+        acct = _loaded(module, path)
+        acct.observe("0", "train", "ml", 1.0, 100.0)
+        acct.observe("0", "train", "ml", 1.0 + 4e-9, 100.0)
+        got = [_served_pod_joules(acct, builder())]
+        assert acct.checkpoint(force=True)
+        for _restart in range(2):
+            acct = _loaded(module, path)
+            got.append(_served_pod_joules(acct, builder()))
+            assert acct.checkpoint(force=True)
+        acct.observe("0", "train", "ml", 2.0, 100.0)
+        acct.observe("0", "train", "ml", 3.0, 100.0)
+        got.append(_served_pod_joules(acct, builder()))
+        served[module] = [joules for (joules,) in got]
+    assert (open(tmp_path / "kube_gpu_stats_tpu.energy.json", "rb").read()
+            == open(tmp_path / "kube_gpu_stats_tpu_torch.energy.json",
+                    "rb").read())
+    ref, port = served[ref_energy], served[energy]
+    assert ref[1] < ref[0]  # the reference's reset, not copied
+    assert all(a <= b for a, b in zip(port, port[1:])), port
+    assert port[1] <= port[0] + 1e-6
+    assert port[-1] == pytest.approx(ref[-1]) and port[-1] > 99.0
+
+
 @CROSS
 def test_torn_main_file_recovers_from_wal(tmp_path, writer, reader):
     path = str(tmp_path / "energy.json")

@@ -431,10 +431,51 @@ def test_arm_hook_errors_do_not_stop_observe_alike():
                for k, _d, a in journals["port"].events)
 
 
+def _assert_alike_but_unplaced(lenses, journals, dropped):
+    """As ``_assert_alike``, except for the doctor's verdict on a node
+    whose every anomaly is a link symptom led by its own NVLink rate
+    dropping: the reference accuses it; the port, whose localizer cannot
+    place an nvlink<N> label on any edge, names it as an interconnect
+    slowdown it cannot localize (``link_unplaced``) and accuses no node.
+    Everything else of the post-mortem is the reference's. Returns the
+    port's (anomalous, link_unplaced)."""
+    from kube_gpu_stats_tpu import doctor as ref_doctor
+    from kube_gpu_stats_tpu_torch import doctor
+
+    got, want = lenses["port"], lenses["reference"]
+    assert json.dumps(got.rollup(), sort_keys=True) == \
+        json.dumps(want.rollup(), sort_keys=True)
+    assert _contributed("port", got) == _contributed("reference", want)
+    payload = json.loads(json.dumps(got.rollup()))
+    status, detail, data = doctor.fleet_post_mortem(payload)
+    ref_status, ref_detail, ref_data = ref_doctor.fleet_post_mortem(payload)
+    unplaced = data.pop("link_unplaced", {})
+    assert set(unplaced) <= set(dropped)
+    assert all(kinds.get("ici", 0.0) < 0.0 for kinds in unplaced.values())
+    assert unplaced == {t: ref_data["anomalous"][t] for t in unplaced}
+    assert data["anomalous"] == {t: kinds for t, kinds
+                                 in ref_data["anomalous"].items()
+                                 if t not in unplaced}
+    assert {k: v for k, v in data.items() if k != "anomalous"} == \
+        {k: v for k, v in ref_data.items() if k != "anomalous"}
+    assert status == ref_status
+
+    def others(text):
+        return [line for line in text.split("; ")
+                if not any(line.startswith(f"{t}:") for t in unplaced)]
+
+    assert others(detail) == others(ref_detail)
+    for target in unplaced:
+        assert f"{target}: interconnect slowdown not localized" in detail
+    return data["anomalous"], unplaced
+
+
 def test_an_nvlink_fleet_scores_the_ici_signal_and_accuses_no_link():
     """The port's NVML daemon labels its links nvlink<N>: the lens sums
     them into each node's ici signal, and the localizer maps none onto
-    an edge, in both packages."""
+    an edge, in both packages. Two nodes' NVLink rates then drop to 30%:
+    the reference's doctor accuses them; the port's names them as an
+    interconnect slowdown it cannot localize and accuses no node."""
     lenses, journals, _hooks = _lenses()
     scrapes = {w: nvlink_scrape(ticks=2, worker=str(w)) for w in range(4)}
     targets = [f"http://h100-{w}:9400/metrics" for w in range(4)]
@@ -452,7 +493,9 @@ def test_an_nvlink_fleet_scores_the_ici_signal_and_accuses_no_link():
                 {t: 0.01 for t in targets}, [], series)
         for package, lens in lenses.items():
             _observe(package, lens, seq, now, step)
-        _assert_alike(lenses, journals)
+        accused, unplaced = _assert_alike_but_unplaced(
+            lenses, journals, targets[:2])
+    assert accused == {} and set(unplaced) == set(targets[:2])
     rollup = lenses["port"].rollup()
     assert rollup["links"]["suspects"] == {}
     assert rollup["links"]["baselines"] == {}

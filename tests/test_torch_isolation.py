@@ -3,7 +3,8 @@
 Checked twice: in a fresh subprocess (tests/conftest.py imports JAX in
 this one) that imports every module of the port and inspects
 sys.modules, and statically over every import statement of the port's
-sources and chip_smoke.py.
+sources (the sims and the testing fixtures among them) and
+chip_smoke.py.
 """
 
 import ast
@@ -62,7 +63,9 @@ def test_importing_the_port_loads_no_jax():
                    "testing.egress_sink", "hub", "top", "cardinality",
                    "fleetlens", "history", "ingestproc", "efficiency",
                    "linkloc", "ici", "topology", "bench",
-                   "testing.host_fixture"):
+                   "testing.host_fixture", "testing.nvml_faults", "sims",
+                   "sims.chaos", "sims.localfault", "sims.federation",
+                   "sims.energy", "sims.host", "sims.fleet"):
         assert f"kube_gpu_stats_tpu_torch.{module}" in report["imported"]
     assert [m for m in report["loaded"] if _forbidden(m)] == []
 
@@ -253,6 +256,47 @@ def test_the_hub_and_top_import_no_torch():
 
 
 EXTENSION = "kube_gpu_stats_tpu_torch.native._wirefast"
+
+
+# The sims' modules and the card's fault wrapper alone, then a daemon
+# sim (energy: an NVML daemon over the fake, restarted, the doctor) and a
+# hub sim (chaos's hostile frames: a hub, its ingest, lorises, a
+# quarantine), and the fault wrapper over the fake.
+_RUN_SIMS = """
+import json, logging, sys
+import kube_gpu_stats_tpu_torch.sims
+import kube_gpu_stats_tpu_torch.sims.chaos
+import kube_gpu_stats_tpu_torch.sims.energy
+import kube_gpu_stats_tpu_torch.sims.federation
+import kube_gpu_stats_tpu_torch.sims.fleet
+import kube_gpu_stats_tpu_torch.sims.host
+import kube_gpu_stats_tpu_torch.sims.localfault
+import kube_gpu_stats_tpu_torch.testing.nvml_faults
+alone = sorted(sys.modules)
+logging.disable(logging.CRITICAL)
+from kube_gpu_stats_tpu_torch.sims import chaos, energy
+from kube_gpu_stats_tpu_torch.testing.fake_nvml import FakeDevice, FakeNvml
+from kube_gpu_stats_tpu_torch.testing.nvml_faults import NvmlFaults
+wrapped = NvmlFaults(FakeNvml([FakeDevice("GPU-a", 0)]))
+wrapped.init()
+ok = [energy.run().ok, chaos.scenario_hostile().ok,
+      wrapped.uuid(wrapped.handle(0)) == "GPU-a"]
+print(json.dumps({"ok": ok, "alone": alone, "loaded": sorted(sys.modules)}))
+"""
+
+
+def test_the_sims_and_the_fault_wrapper_import_no_torch():
+    """The sims run daemons and hubs, which the DaemonSet image runs
+    without torch: the sims' modules and ``testing.nvml_faults`` load
+    neither torch, nor JAX, nor the reference, alone or while a daemon
+    sim and a hub sim run."""
+    proc = subprocess.run([sys.executable, "-c", _RUN_SIMS], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["ok"] == [True, True, True]
+    assert _no_torch(report["alone"]) == []
+    assert _no_torch(report["loaded"]) == []
 
 
 def test_the_host_build_reads_no_file_outside_the_port():
