@@ -7,7 +7,8 @@ Run from the repository root on a machine with one H100:
 
 ``python3 chip_smoke.py egress:3 hub:2`` instead builds the kernel and
 runs only the named phases (``native``, ``doctor``, ``c5``, ``burst``,
-``energy``, ``egress``, ``hub``, ``fleet``, ``faults``, ``bench``), each
+``energy``, ``egress``, ``hub``, ``fleet``, ``faults``, ``bench``,
+``sims``), each
 the given
 number of times, and
 prints one ``phases_alone`` line with each run's outcome: the way to
@@ -254,6 +255,25 @@ prints its result line after one):
    them with its host fast paths on (the default), and the delta
    federation, hub merge and ingest storm run again with them off
    (``native=False``), each pair beside its budget (``native_pairs``);
+8j. ``sims``: the hub and protocol sims on the card's host, each at the
+   reference's full parameters in a torch-free process of its own
+   (``python -m kube_gpu_stats_tpu_torch.sims <name>``), with nothing on
+   the card: ``partition`` (hub blackout over 2 NVML daemons, beyond
+   bounds, drain rate and shed, TSDB blackout), ``skew`` (the wire matrix,
+   a pre-negotiation hub, a daemon upgraded onto an older build's disk
+   state, a hub upgraded on the same port under live publishers, a
+   census-gated refusal named by the doctor), ``query`` (256 keep-alive
+   readers on a refreshing hub, conditionals, the tightened gate's shed
+   counted three ways, the ring's bytes) and ``cardinality`` (2 label
+   bombs of 50,000 series x 10 waves beside 14 healthy pushers). Each
+   child exits 0 with every figure its scenarios fix as SIMS_EXACT holds
+   it and no torch loaded; the cardinality child's RSS grows less than
+   384 MB. The ``sims`` line gives each sim's figures, timings and
+   seconds, the query p50/p99 beside the reference's 15/25 ms pins, the
+   RSS growth beside its pin and the peak it was read from, the drain
+   rate beside its cap, the hub upgrade's resumed sessions and the skew
+   publishers' FULLs forced by a change of the daemon's series keys
+   (reported, not required);
 9. time the kernel, its plain version and one library call
    (``torch.mm`` with f32 out) at the main path's and the sweep's sizes,
    each as the median of batches of back-to-back calls;
@@ -273,6 +293,7 @@ import base64
 import bisect
 import collections
 import ctypes
+import gc
 import gzip
 import hashlib
 import inspect
@@ -495,6 +516,69 @@ FAULTS_MAX_S = 300.0
 # harness of the next phase would read the faults burn's load as its own
 # burn's.
 FAULTS_IDLE_S = 30.0
+# The sims phase: each hub and protocol sim in a torch-free child at the
+# reference's full parameters, each child ended by SIMS_MAX_S; the phase
+# aims to stay under SIMS_SOFT_S in all.
+SIMS_PHASE = ("partition", "skew", "query", "cardinality")
+SIMS_MAX_S = 300.0
+SIMS_SOFT_S = 120.0
+# The figures each sim's scenarios fix, as the CPU tests hold them equal
+# to the reference's (tests/test_torch_sim_<name>.py).
+SIMS_EXACT = {
+    "partition": {
+        "blackout.daemons": 2, "blackout.dropped": 0, "blackout.lost": 0,
+        "blackout.resyncs": 0, "blackout.drained_to_zero": True,
+        "blackout.full_amplification": False,
+        "blackout.live_resumed": True, "blackout.journaled": True,
+        "bounds.frames": 401, "bounds.dropped": 278, "bounds.drained": 123,
+        "bounds.oldest_first": True, "bounds.journaled": True,
+        "bounds.left": 0, "bounds.accounting_closes": True,
+        "drain.backlog": 80, "drain.rate_cap": 25.0, "drain.undrained": 0,
+        "drain.over_rate": False, "drain.faster_than_knob": False,
+        "drain.shed_honoured": True, "drain.fulls_under_shed": 1,
+        "drain.fulls": 1, "drain.resyncs": 0, "drain.stuck": 0,
+        "tsdb.requests": 21, "tsdb.expected": 21, "tsdb.backlog": 0,
+        "tsdb.in_order": True, "tsdb.lag_metered": True,
+        "tsdb.dropped_in_bounds": 0, "tsdb.bounds_snapshots": 120,
+        "tsdb.bounds_dropped": 103, "tsdb.bounds_delivered": 17,
+        "tsdb.bounds_oldest_first": True, "tsdb.bounds_stuck": 0},
+    "skew": {
+        "matrix.negotiated": {"old": 1, "new": 2, "vs-old": 1},
+        "matrix.upgrades": 1,
+        "matrix.refusals": {"old": 0, "new": 0, "vs-old": 0},
+        "matrix.version_fulls": {"old": 0, "new": 0, "vs-old": 0},
+        "matrix.census": {"wire-v1": 1, "current": 1},
+        "prenegotiation.downgraded": True, "prenegotiation.negotiated": 1,
+        "prenegotiation.version_fulls": 0, "prenegotiation.resyncs": 0,
+        "daemon-upgrade.recovered": 5, "daemon-upgrade.reencoded": 1,
+        "daemon-upgrade.undecodable": 1, "daemon-upgrade.drained": True,
+        "daemon-upgrade.totals_kept": True,
+        "daemon-upgrade.future_loaded": False,
+        "daemon-upgrade.aside_identical": True,
+        "daemon-upgrade.quarantined": 1,
+        "hub-upgrade.sessions": 3, "hub-upgrade.negotiated_up": True,
+        "hub-upgrade.resyncs": 0, "hub-upgrade.over_one_full": 0,
+        "hub-upgrade.census_flipped": True,
+        "hub-upgrade.census": {"current": 3},
+        "stuck-skew.pushes": 0, "stuck-skew.journal_events": 1,
+        "stuck-skew.doctor": "warn", "stuck-skew.doctor_names_peer": True},
+    "query": {
+        "readers": 256, "requests": 1024, "reader_errors": 0,
+        "ring_bytes": 2872320, "ring_bound": 16711680, "ring_flat": True,
+        "shed": True, "shed_equals_gate": True,
+        "exported_equals_gate": True, "bad_retry_after": 0,
+        "other_statuses": []},
+    "cardinality": {
+        "attempted": 1_000_000, "bomb_shed": [495_000, 495_000],
+        "bomb_statuses": {"200": 20}, "intruder_at_cap": [413, True],
+        "live_at_peak": 700, "shed_rows": 4, "shed_total": 993_841,
+        "exported_equal": True, "debug_equal": True, "healthy_equal": True,
+        "healthy_failed": 0, "evicted_idle": 500, "late_joiner": 200,
+        "rss_growth_under_pin": True},
+}
+SIMS_RATIO_FLOOR = 0.5
+SIMS_RSS_PIN_MB = 384
+STARTED = time.monotonic()
 MIB = 1024**2
 ROOT = pathlib.Path(__file__).resolve().parent
 KERNEL_NAME = "tiled_gemm_bf16_f32"
@@ -5117,33 +5201,50 @@ FLEET_STRAGGLE_REFRESHES = 4
 FLEET_STEADY_REFRESHES = 12
 FLEET_RATIO_TOL = 0.05
 FLEET_SPJ_TOL = 0.15
-FLEET_PUSH_DELAY_S = 0.35   # a synthetic round, after the refresh it follows
+FLEET_PUSH_DELAY_S = 0.2    # a synthetic round, after the refresh it follows
+FLEET_PUSH_LANES = 4        # the synthetic nodes' pushes, in parallel blocks
+FLEET_PUSH_SLOT_S = 0.025   # each node's start in its block, apart
 FLEET_MAX_S = 400.0
 FLEET_HELD_BYTES = 4 << 30
 FLEET_SMI_GAP_S = 0.25
 FLEET_DOCTOR_BACKEND = "nvml"
+# The lens holds card 0's duty against a flat 100% baseline, so the
+# burn's thread must queue the next batch before the card runs dry, while
+# this process's other threads (the daemon's watcher, the burn's
+# exporter, the readers) take the interpreter in turns. So the burn
+# queues 128 to 256 steps (27-54 ms of work at 4096^3), not 32 to 64; the
+# phase takes the interpreter's lock in 1 ms turns, not 5; and it freezes
+# what the earlier phases left on the heap, so no full collection walks
+# it mid-window.
+FLEET_BATCH = 128
+FLEET_SWITCH_S = 0.001
 
-# The synthetic nodes and the recorder of the hub's generations, in a
-# process of their own (their threads then take no interpreter time from
-# the burn or from the burn's exporter, whose latency the lens scores).
-# Every generation the hub publishes: a summary line on stdout and the
-# text in a file for the conformance checker. After each generation, one
-# round: every node publishes its frozen card values with its step
-# counter advanced, and pushes, one node after the other in node order
-# (so each node's frames arrive a steady interval apart). The collector
-# runs right after each round, never inside one: in a real fleet one
-# node's collection cannot delay another node's frame. Commands on
-# stdin: "template <path> <steps per refresh>", "straggle <n>",
-# "unstraggle", "silence <n>", "unsilence", "stop".
+# The synthetic nodes and the recorder of the hub's generations, in
+# processes of their own (their threads then take no interpreter time
+# from the burn or from the burn's exporter, whose latency the lens
+# scores). Every generation the hub publishes: a summary line on stdout
+# and the text in a file for the conformance checker. After each
+# generation, one round: every node publishes its frozen card values with
+# its step counter advanced, and pushes. The nodes are split into
+# FLEET_PUSH_LANES blocks, each a process of its own (_FLEET_LANE) that
+# starts its block's nodes in node order, each FLEET_PUSH_SLOT_S after
+# the one before or once it is done if that is later: each node's frames
+# arrive a steady interval apart, and a host that answers a push slowly
+# delays only the nodes after it in its block, by what its slots cannot
+# absorb. The collector runs right after each round, never inside one:
+# in a real fleet one node's collection cannot delay another node's frame.
+# Commands on stdin: "template <path> <steps per refresh>", "straggle
+# <n>", "unstraggle", "silence <n>", "unsilence", "stop".
 _FLEET_SYNTH = r"""
-import gc, json, os, re, sys, threading, time, urllib.error, urllib.request
-from kube_gpu_stats_tpu_torch import delta, schema
-from kube_gpu_stats_tpu_torch.registry import Registry, Series, SnapshotBuilder
+import gc, json, os, re, subprocess, sys, threading, time
+import urllib.error, urllib.request
+from kube_gpu_stats_tpu_torch.testing.push_grid import PushGrid
 
 hub_url, out_dir = sys.argv[1], sys.argv[2]
 nodes, cards = int(sys.argv[3]), int(sys.argv[4])
 push_delay, namespace = float(sys.argv[5]), sys.argv[6]
-interval = float(sys.argv[7])
+interval, lanes = float(sys.argv[7]), int(sys.argv[8])
+slot, lane_source = sys.argv[9], sys.argv[10]
 ETAG = re.compile(r'^"(\w+)-(\d+)-m\d\d"$')
 COUNT = re.compile(r"^hub_refresh_duration_seconds_count (\S+)$", re.M)
 RATIO = re.compile(r'^slice_straggler_ratio\{slice="[^"]*"\} (\S+)$', re.M)
@@ -5151,14 +5252,12 @@ UP = re.compile(r'^slice_target_up\{target="([^"]+)"\} (\S+)$', re.M)
 FLEET = re.compile(r"^(kts_fleet_\w+(?:\{[^}]*\})?) (\S+)$", re.M)
 CHIPS = re.compile(r'^slice_chips\{slice="[^"]*"\} (\S+)$', re.M)
 DOWN_CHIPS = re.compile(r'^accelerator_up\{[^}]*\} 0$', re.M)
-specs = {m.name: m for m in schema.PER_DEVICE_METRICS
-         if m.type is not schema.MetricType.HISTOGRAM}
 RSS = re.compile(r"^process_resident_memory_bytes (\S+)$", re.M)
 state = {"straggle": None, "silence": None, "rounds": 0, "gen": -1,
-         "detected": 0.0, "stop": False}
+         "detected": 0.0, "stop": False, "pusher": None}
 lock = threading.Lock()
 detected = threading.Condition(lock)
-fleet = {}
+workers = []
 
 
 def out(payload):
@@ -5167,32 +5266,13 @@ def out(payload):
 
 
 def build(template_path, per_refresh):
-    with open(template_path) as handle:
-        mine = json.load(handle)
-    up = next(labels for name, labels, _ in mine if name == "accelerator_up")
-    mine = [row for row in mine if row[0] in specs
-            and row[0] != "accelerator_workload_steps_total"]
-    rows = {}
-    for n in range(1, nodes + 1):
-        per = []
-        for card in range(cards):
-            swap = {"uuid": f"GPU-synthetic-{n:02d}-{card}",
-                    "minor": str(card), "chip": str(card),
-                    "device_path": f"/dev/nvidia{card}",
-                    "worker": f"node-{n:02d}", "pod": f"train-{n:02d}",
-                    "namespace": namespace}
-            for name, labels, value in mine:
-                per.append((specs[name], tuple(
-                    (k, swap.get(k, v)) for k, v in labels.items()), value))
-            per.append((specs["accelerator_workload_steps_total"], tuple(
-                (k, swap.get(k, v)) for k, v in up.items()), None))
-        rows[n] = per
-    source = lambda n: f"http://node-{n:02d}.synthetic:9400/metrics"
-    for n in rows:
-        registry = Registry()
-        fleet[n] = {"rows": rows[n], "registry": registry, "steps": 0.0,
-                    "publisher": delta.DeltaPublisher(
-                        registry, hub_url, source=source(n), timeout=10.0)}
+    size = -(-nodes // lanes)
+    for first in range(1, nodes + 1, size):
+        workers.append(subprocess.Popen(
+            [sys.executable, "-c", lane_source, hub_url, template_path,
+             str(first), str(min(nodes, first + size - 1)), str(cards),
+             namespace, slot], stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, text=True))
     state["per_refresh"] = per_refresh
 
 
@@ -5201,32 +5281,20 @@ def push_round():
         straggle, silence = state["straggle"], state["silence"]
         per_refresh = state["per_refresh"]
     t0 = time.monotonic()
-    failures = 0
-    slowest = (0.0, 0)
-    for n, node in fleet.items():
-        if n == silence:
-            continue
-        t_node = time.monotonic()
-        node["steps"] += per_refresh / 2 if n == straggle else per_refresh
-        builder = SnapshotBuilder()
-        builder.extend_series(
-            Series(spec, labels, node["steps"] if value is None else value)
-            for spec, labels, value in node["rows"])
-        node["registry"].publish(builder.build())
-        before = node["publisher"].failures_total
-        node["publisher"].push_once()
-        failures += node["publisher"].failures_total - before
-        slowest = max(slowest, (time.monotonic() - t_node, n))
+    for worker in workers:
+        worker.stdin.write(f"push {straggle or 0} {silence or 0} "
+                           f"{per_refresh!r}\n")
+        worker.stdin.flush()
+    results = [json.loads(worker.stdout.readline()) for worker in workers]
     state["rounds"] += 1
-    return time.monotonic() - t0, failures, slowest
+    return (time.monotonic() - t0, sum(r["failures"] for r in results),
+            max(tuple(r["slowest"]) for r in results))
 
 
 def pusher():
-    # One round per hub generation, on a fixed grid of the hub's interval
-    # anchored push_delay after a generation was first seen: the poll's
-    # granularity does not reach the frames' spacing. The grid re-anchors
-    # only when it strays more than 0.15 s from a detection.
-    followed, due = -1, None
+    # One round per hub generation, push_delay after it was first seen,
+    # on a grid that follows the hub's period without jumping (PushGrid).
+    followed, grid = -1, PushGrid(interval, push_delay)
     while True:
         with detected:
             while state["gen"] <= followed and not state["stop"]:
@@ -5234,15 +5302,13 @@ def pusher():
             if state["stop"]:
                 return
             followed, seen = state["gen"], state["detected"]
-        ideal = seen + push_delay
-        if due is None or abs(due - ideal) > 0.15:
-            due = ideal
+        due = grid.next_due(seen)
         time.sleep(max(0.0, due - time.monotonic()))
         took, failures, slowest = push_round()
         out({"round": state["rounds"], "gen": followed, "push_s": took,
              "late_s": time.monotonic() - took - due, "failures": failures,
-             "slowest_push_s": slowest[0], "slowest_node": slowest[1]})
-        due += interval
+             "slowest_push_s": slowest[0], "slowest_node": slowest[1],
+             "grid_error_s": grid.error, "grid_anchors": grid.anchors})
         gc.collect()
 
 
@@ -5256,8 +5322,9 @@ def commands():
             gc.collect()
             gc.freeze()
             push_round()
-            out({"ready": len(fleet)})
-            threading.Thread(target=pusher, daemon=True).start()
+            out({"ready": nodes})
+            state["pusher"] = threading.Thread(target=pusher, daemon=True)
+            state["pusher"].start()
             continue
         with lock:
             if words[0] == "straggle":
@@ -5315,7 +5382,82 @@ while reader.is_alive():
              "up": {t: float(v) for t, v in UP.findall(text)},
              "fleet": dict(FLEET.findall(text))})
     time.sleep(0.02)
+if state["pusher"] is not None:
+    state["pusher"].join(timeout=30)  # its round done, the lanes idle
+for worker in workers:
+    worker.stdin.close()
+    worker.wait(timeout=30)
 out({"stopped": state["rounds"]})
+"""
+
+# One block of the synthetic nodes (first..last), pushing on command,
+# node k of the block no sooner than k slots after the command came:
+# "push <straggler> <silent> <steps per refresh>" (0: no such node)
+# answers {"failures", "slowest": [seconds, node]}; stdin's end stops it.
+_FLEET_LANE = r"""
+import gc, json, sys, time
+from kube_gpu_stats_tpu_torch import delta, schema
+from kube_gpu_stats_tpu_torch.registry import Registry, Series, SnapshotBuilder
+
+hub_url, template_path = sys.argv[1], sys.argv[2]
+first, last, cards = int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5])
+namespace, slot = sys.argv[6], float(sys.argv[7])
+specs = {m.name: m for m in schema.PER_DEVICE_METRICS
+         if m.type is not schema.MetricType.HISTOGRAM}
+with open(template_path) as handle:
+    mine = json.load(handle)
+up = next(labels for name, labels, _ in mine if name == "accelerator_up")
+mine = [row for row in mine if row[0] in specs
+        and row[0] != "accelerator_workload_steps_total"]
+fleet = {}
+for n in range(first, last + 1):
+    rows = []
+    for card in range(cards):
+        swap = {"uuid": f"GPU-synthetic-{n:02d}-{card}",
+                "minor": str(card), "chip": str(card),
+                "device_path": f"/dev/nvidia{card}",
+                "worker": f"node-{n:02d}", "pod": f"train-{n:02d}",
+                "namespace": namespace}
+        for name, labels, value in mine:
+            rows.append((specs[name], tuple(
+                (k, swap.get(k, v)) for k, v in labels.items()), value))
+        rows.append((specs["accelerator_workload_steps_total"], tuple(
+            (k, swap.get(k, v)) for k, v in up.items()), None))
+    registry = Registry()
+    fleet[n] = {"rows": rows, "registry": registry, "steps": 0.0,
+                "publisher": delta.DeltaPublisher(
+                    registry, hub_url,
+                    source=f"http://node-{n:02d}.synthetic:9400/metrics",
+                    timeout=10.0)}
+gc.collect()
+gc.freeze()
+gc.disable()
+for line in sys.stdin:
+    start = time.monotonic()
+    words = line.split()
+    straggle, silence = int(words[1]), int(words[2])
+    per_refresh = float(words[3])
+    failures = 0
+    slowest = (0.0, 0)
+    for k, (n, node) in enumerate(fleet.items()):
+        if n == silence:
+            continue
+        time.sleep(max(0.0, start + k * slot - time.monotonic()))
+        t_node = time.monotonic()
+        node["steps"] += per_refresh / 2 if n == straggle else per_refresh
+        builder = SnapshotBuilder()
+        builder.extend_series(
+            Series(spec, labels, node["steps"] if value is None else value)
+            for spec, labels, value in node["rows"])
+        node["registry"].publish(builder.build())
+        before = node["publisher"].failures_total
+        node["publisher"].push_once()
+        failures += node["publisher"].failures_total - before
+        slowest = max(slowest, (time.monotonic() - t_node, n))
+    sys.stdout.write(json.dumps({"failures": failures,
+                                 "slowest": slowest}) + "\n")
+    sys.stdout.flush()
+    gc.collect()
 """
 
 # Each generation file the fleet process writes, held by validate.check against
@@ -5347,7 +5489,9 @@ class FleetSynth:
         self.proc = subprocess.Popen(
             [sys.executable, "-c", _FLEET_SYNTH, hub_url, gens,
              str(HUB_NODES - 1), str(HUB_CARDS), str(FLEET_PUSH_DELAY_S),
-             FLEET_NAMESPACE, str(FLEET_INTERVAL_S)], cwd=ROOT, stdin=subprocess.PIPE,
+             FLEET_NAMESPACE, str(FLEET_INTERVAL_S), str(FLEET_PUSH_LANES),
+             str(FLEET_PUSH_SLOT_S), _FLEET_LANE],
+            cwd=ROOT, stdin=subprocess.PIPE,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         self.conform = subprocess.Popen(
             [sys.executable, "-c", _FLEET_CONFORM], cwd=ROOT,
@@ -5636,7 +5780,8 @@ def fleet_burn(record) -> None:
     raises FleetStop to end it."""
     try:
         run_burn(seconds=FLEET_MAX_S, size=MAIN_SIZE, report_every=1e9,
-                 kernel="cuda", device="cuda:0", step_hook=record)
+                 kernel="cuda", device="cuda:0", step_hook=record,
+                 batch=FLEET_BATCH)
     except FleetStop:
         torch.cuda.synchronize()
         return
@@ -5670,6 +5815,12 @@ def phase_fleet(card_line: str) -> int:
     misses = fleetlens.FRESHNESS_MISS_THRESHOLD
     saved_env = {k: os.environ.get(k) for k in ("KTS_SLICE", "KTS_WORKER")}
     os.environ["KTS_SLICE"], os.environ["KTS_WORKER"] = HUB_SLICE, "node-00"
+    out: dict = {"card": card_line, "threads_at_start":
+                 threading.active_count()}
+    saved_switch = sys.getswitchinterval()
+    gc.collect()
+    gc.freeze()
+    sys.setswitchinterval(FLEET_SWITCH_S)
     held = fleet_hold()
     exporter = fleet_exporter(checkpoint)
     embedded_rec = PublishRecorder(exporter.registry, keep=200)
@@ -5681,16 +5832,15 @@ def phase_fleet(card_line: str) -> int:
     node = lambda n: f"http://node-{n:02d}.synthetic:9400/metrics"
     node00 = {embedded_url, daemon_source}
     mode = {"burn": "run"}
-    out: dict = {"card": card_line}
     failure: list = []
     steps_log: list = [(time.monotonic(), 0)]
     hub_proc = daemon_proc = synth = smi = None
     hook = StepCounter()
 
     def record(n: int, *, seconds: float, flops: float) -> None:
-        """The burn's step hook, every 32 steps: forwards them to the
-        exporter (``run``), keeps them to itself (``nosteps``: the card
-        busy, no step recorded), holds the burn (``pause``: what is
+        """The burn's step hook, every FLEET_BATCH steps: forwards them
+        to the exporter (``run``), keeps them to itself (``nosteps``: the
+        card busy, no step recorded), holds the burn (``pause``: what is
         queued drains, the tensors stay), or ends it (``stop``)."""
         hook(n, seconds=seconds, flops=flops)
         if mode["burn"] == "run":
@@ -5973,15 +6123,17 @@ def phase_fleet(card_line: str) -> int:
             out["hub_rc"], _ = stop_with_stacks(hub_proc, hub_log)
         exporter.stop()
         del held
+        sys.setswitchinterval(saved_switch)
+        gc.unfreeze()
         for key_, value in saved_env.items():
             if value is None:
                 os.environ.pop(key_, None)
             else:
                 os.environ[key_] = value
     # One launch before the loop, one per step queued; the steps of at
-    # most two 32-step batches were queued but not yet reported when the
-    # hook ended the burn.
-    require(0 <= launches - 1 - hook.steps <= 64,
+    # most two batches were queued but not yet reported when the hook
+    # ended the burn.
+    require(0 <= launches - 1 - hook.steps <= 2 * FLEET_BATCH,
             f"fleet: {launches} launches for {hook.steps} steps reported")
     require(out.get("hub_rc") == 0, f"fleet: the hub exited "
                                     f"{out.get('hub_rc')}: {hub_log[-20:]}")
@@ -6008,6 +6160,7 @@ def fleet_checks(out: dict, synth: FleetSynth, embedded_rec,
     gens = [synth.gens[c] for c in sorted(synth.gens)]
     first, last = gens[0]["count"], gens[-1]["count"]
     end = out["final_gen"]
+    grid_errors = [r["grid_error_s"] for r in synth.rounds]
     gaps = synth.gaps(1, end["count"])
     require(not gaps, f"fleet: the recorder missed refreshes {gaps[:10]}")
     # 4. The straggler SLO: the refreshes with a ratio, bad below the
@@ -6142,6 +6295,9 @@ def fleet_checks(out: dict, synth: FleetSynth, embedded_rec,
         "push_round_s": statistics.median(r["push_s"]
                                           for r in synth.rounds),
         "push_failures": sum(r["failures"] for r in synth.rounds),
+        "push_grid": {"anchors": synth.rounds[-1]["grid_anchors"],
+                      "error_s": [min(grid_errors), max(grid_errors)]},
+        "threads_at_start": out["threads_at_start"],
     }
 
 
@@ -6942,6 +7098,96 @@ def phase_faults(card_line: str) -> int:
     return launches
 
 
+def listener_probe() -> dict:
+    """A short run of ``testing.listener_probe``: how this host's network
+    stack answers a sender whose receiver's listener closes."""
+    probe = subprocess.run(
+        [sys.executable, "-m",
+         "kube_gpu_stats_tpu_torch.testing.listener_probe",
+         "--closed-seconds", "3", "--cycles", "10"],
+        cwd=ROOT, capture_output=True, text=True, timeout=180)
+    lines = probe.stdout.strip().splitlines()
+    return json.loads(lines[-1]) if lines else {"stderr": probe.stderr[-800:]}
+
+
+def phase_sims(card_line: str) -> int:
+    """The hub and protocol sims on the card's host, the card idle: each
+    of SIMS_PHASE at the reference's full parameters in a process of its
+    own with no torch, as a hub runs on a CPU node. Each child must exit
+    0 with the figures SIMS_EXACT gives; the cardinality child's RSS
+    must grow less than SIMS_RSS_PIN_MB. A failed child is reported with
+    a short ``listener_probe`` run beside it (the card machine can hang a
+    connection made as a listener closes). Launches no kernel."""
+    t0 = time.monotonic()
+    out: dict = {"card": card_line, "gpu_util_pct": [],
+                 "sims": {}, "seconds": {}}
+    out["gpu_util_pct"].append(float(smi("utilization.gpu")[0][0]))
+    for name in SIMS_PHASE:
+        start = time.monotonic()
+        child = subprocess.run(
+            [sys.executable, "-X", "faulthandler", "-m",
+             "kube_gpu_stats_tpu_torch.sims", name],
+            cwd=ROOT, capture_output=True, text=True, timeout=SIMS_MAX_S)
+        out["seconds"][name] = time.monotonic() - start
+        lines = child.stdout.strip().splitlines()
+        report = None
+        try:
+            report = json.loads(lines[-1])
+        except (IndexError, ValueError):
+            pass
+        sim = (report or {}).get("sims", {}).get(name, {})
+        if child.returncode != 0 or not sim.get("ok"):
+            emit("sims_failed", {"sim": name, "exit": child.returncode,
+                                 "stdout": child.stdout[-4000:],
+                                 "stderr": child.stderr[-2000:],
+                                 "listener_probe": listener_probe()})
+        require(child.returncode == 0 and sim.get("ok"),
+                f"sims {name}: exit {child.returncode}: "
+                f"{child.stdout[-1500:]} {child.stderr[-800:]}")
+        require(report["torch_loaded"] is False,
+                f"the {name} sim's process loaded torch")
+        figures = sim["figures"]
+        wrong = {key: (figures.get(key), want)
+                 for key, want in SIMS_EXACT[name].items()
+                 if figures.get(key) != want}
+        require(not wrong, f"sims {name}: (got, want) {wrong}")
+        out["sims"][name] = {"figures": figures, "timings": sim["timings"],
+                             "seconds": out["seconds"][name]}
+    out["gpu_util_pct"].append(float(smi("utilization.gpu")[0][0]))
+    query = out["sims"]["query"]
+    require(min(query["figures"]["ratio_304"].values()) >= SIMS_RATIO_FLOOR,
+            f"query 304 ratios {query['figures']['ratio_304']}")
+    rss = out["sims"]["cardinality"]["timings"]["rss_growth_mb"]
+    require(rss < SIMS_RSS_PIN_MB,
+            f"cardinality RSS grew {rss:.1f} MB (pin {SIMS_RSS_PIN_MB})")
+    partition = out["sims"]["partition"]["timings"]
+    skew = out["sims"]["skew"]["timings"]
+    qt = query["timings"]
+    out["reported"] = {
+        "query_p50_ms": qt["p50_ms"], "query_p50_pin_ms": qt["p50_pin_ms"],
+        "query_p99_ms": qt["p99_ms"], "query_p99_pin_ms": qt["p99_pin_ms"],
+        "query_pins_met": qt["pins_met"], "query_shed_429": qt["shed_429"],
+        "cardinality_rss_growth_mb": rss,
+        "cardinality_rss_pin_mb": SIMS_RSS_PIN_MB,
+        "cardinality_rss_source": out["sims"]["cardinality"]["timings"][
+            "rss_source"],
+        "partition_drain_per_s": partition["drain.drain_per_s"],
+        "partition_drain_cap_per_s": SIMS_EXACT["partition"][
+            "drain.rate_cap"],
+        "skew_hub_upgrade_resumed": skew["hub-upgrade.resumed"],
+        "skew_hub_upgrade_replayed": skew["hub-upgrade.replayed"],
+        "skew_hub_upgrade_fulls": skew["hub-upgrade.upgrade_fulls"],
+        "skew_key_change_fulls": {
+            "matrix": skew["matrix.churn_fulls"],
+            "prenegotiation": skew["prenegotiation.churn_fulls"],
+            "hub-upgrade": skew["hub-upgrade.churn_fulls"]}}
+    out["seconds"]["phase"] = time.monotonic() - t0
+    out["over_soft_limit"] = out["seconds"]["phase"] > SIMS_SOFT_S
+    out["smoke_seconds"] = time.monotonic() - STARTED
+    emit("sims", out)
+    return 0
+
+
 def library_call():
     """The yardstick: one PyTorch call computing the same function. Returns
     (name, fn(a, b))."""
@@ -7084,6 +7330,7 @@ def phases() -> None:
     launches += phase_fleet(card)
     launches += phase_faults(card)
     launches += phase_bench(card)
+    launches += phase_sims(card)
     t = phase_timing(card)
     emit("kernels", [{
         "name": KERNEL_NAME, "route": "cuda", "source": KERNEL_SOURCE,
@@ -7105,6 +7352,7 @@ ALONE = {
     "fleet": phase_fleet,
     "faults": phase_faults,
     "bench": phase_bench,
+    "sims": phase_sims,
 }
 
 

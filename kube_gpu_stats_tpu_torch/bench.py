@@ -1256,7 +1256,8 @@ def measure_query_serving(readers: int = 256,
     server = MetricsServer(hub.registry, host="127.0.0.1", port=0,
                            max_concurrent_scrapes=0,
                            ingest_provider=hub.delta.handle,
-                           history_provider=store)
+                           history_provider=store,
+                           prewarm_renders=False)
     server.start()
     try:
         sources = [f"http://qry-{i:04d}:9400/metrics"

@@ -603,11 +603,12 @@ class Daemon:
             self.supervisor.register(
                 "burst", is_alive=self.burst.thread_alive,
                 restart=self.burst.respawn, heartbeat_timeout=30.0)
-        # The render pre-warmer: a dead warmer makes every scrape pay the
-        # render inline, with no functional symptom.
-        self.supervisor.register(
-            "render-warmer", is_alive=self.server.warm_thread_alive,
-            restart=self.server.respawn_warm)
+        if self.server.prewarm_enabled:
+            # The render pre-warmer: a dead warmer makes every scrape pay
+            # the render inline, with no functional symptom.
+            self.supervisor.register(
+                "render-warmer", is_alive=self.server.warm_thread_alive,
+                restart=self.server.respawn_warm)
         self.supervisor.start()
         log.info(
             "kube-tpu-stats %s: backend=%s devices=%d listening on %s:%d",

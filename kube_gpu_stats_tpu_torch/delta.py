@@ -457,6 +457,10 @@ class DeltaEncoder:
         self._pending: tuple | None = None
         self._need_full = True
         self.full_frames = 0
+        # The FULLs among full_frames that a change of the series keys
+        # forced on a synced session (a family that came or went, a
+        # relabel), as against the first FULL and nack() resyncs.
+        self.key_change_fulls = 0
         self.delta_frames = 0
         # Negotiated wire state: open at v1 / no caps — the
         # one encoding every receiver ever shipped accepts — and let
@@ -499,7 +503,8 @@ class DeltaEncoder:
         keys = [(name, labels) for name, labels, _ in series]
         values = [value for _, _, value in series]
         seq = self.seq + 1
-        if self._need_full or keys != self._keys:
+        key_change = not self._need_full and keys != self._keys
+        if self._need_full or key_change:
             # Shape changed (or never synced): values-only deltas can't
             # express it, and a FULL re-anchors slot indexing exactly.
             # The key compare is pointer-cheap: names and label tuples
@@ -529,11 +534,11 @@ class DeltaEncoder:
         announced = (self.proto >= 2 and bool(self.build)
                      and bool(self.caps & CAP_BUILD_INFO)
                      and (kind == KIND_FULL or self._announce_build))
-        self._pending = (keys, values, kind, announced)
+        self._pending = (keys, values, kind, announced, key_change)
         return wire, kind
 
     def ack(self) -> None:
-        keys, values, kind, announced = self._pending
+        keys, values, kind, announced, key_change = self._pending
         self.seq += 1
         self._keys = keys
         self._values = values
@@ -544,6 +549,7 @@ class DeltaEncoder:
             self._announce_build = False
         if kind == KIND_FULL:
             self.full_frames += 1
+            self.key_change_fulls += key_change
         else:
             self.delta_frames += 1
 

@@ -316,6 +316,7 @@ class MetricsServer:
                  ready_check=None, ingest_provider=None,
                  cardinality_provider=None, history_provider=None,
                  fleet_provider=None, efficiency_provider=None,
+                 prewarm_renders: bool = True,
                  ingest_read_deadline: float = 10.0):
         self._registry = registry
         # The hub's history ring: ``handle_query(params, client,
@@ -396,7 +397,14 @@ class MetricsServer:
         # Render pre-warmer: a publish-following thread fills the
         # per-generation render cache (text + gzip) the moment a snapshot
         # lands, so a scrape serves pre-rendered, pre-gzipped bytes
-        # instead of paying the render inline.
+        # instead of paying the render inline. On for every server unless
+        # the caller turns it off (``prewarm_renders=False``: the query
+        # sim and ``bench.measure_query`` time the serving path alone) or
+        # the registry cannot signal publishes.
+        self._prewarm = (prewarm_renders
+                         and callable(getattr(registry,
+                                              "wait_for_publish", None))
+                         and hasattr(registry, "generation"))
         self._warm_stop = threading.Event()
         self._warm_thread: threading.Thread | None = None
         # Scrape-storm guard (exporter-toolkit web.max-requests analog):
@@ -989,6 +997,12 @@ class MetricsServer:
         """Actual bound port (useful when constructed with port 0 in tests)."""
         return self._server.server_address[1]
 
+    @property
+    def prewarm_enabled(self) -> bool:
+        """Whether this server runs a render pre-warmer thread (the
+        supervisor registers its row only when one exists)."""
+        return self._prewarm
+
     def accept_fence_status(self) -> dict:
         """The accept loop's fd-exhaustion fence state, for
         /debug/stores — per server, so two servers in one process each
@@ -1017,10 +1031,12 @@ class MetricsServer:
         self._thread = spawn(self._server.serve_forever,
                              name="metrics-http")
         self._thread.start()
-        self.respawn_warm()
+        if self._prewarm:
+            self.respawn_warm()
 
     def warm_thread_alive(self) -> bool:
-        """Liveness probe for the supervisor's render-warmer row."""
+        """Liveness probe for the supervisor's render-warmer row; False
+        when pre-warming is off."""
         return (self._warm_thread is not None
                 and self._warm_thread.is_alive())
 
@@ -1028,7 +1044,8 @@ class MetricsServer:
         """Crash-only restart for the render pre-warmer: a fresh thread
         over the same registry (the per-generation cache IS the retained
         state). Doubles as the initial start."""
-        if self._warm_stop.is_set() or self.warm_thread_alive():
+        if (not self._prewarm or self._warm_stop.is_set()
+                or self.warm_thread_alive()):
             return
         self._warm_thread = spawn(self._warm_loop, name="render-warmer")
         self._warm_thread.start()

@@ -2311,6 +2311,33 @@ class Hub:
             self.delta.checkpoint(force=True)
 
 
+def skew_payload(hub: Hub, senders: Sequence = ()) -> dict:
+    """/debug/skew for a hub: the receiver half (fleet version census and
+    refused peers from the ingest) plus, on a federation leaf, the
+    publisher half against the root (its ``("delta", publisher)`` of
+    ``senders``), plus any persisted formats quarantined at startup. The
+    shape doctor --skew reads from daemons, with the hub extras."""
+    from . import __version__, wal
+    from .delta import PROTO_MAX, PROTO_MIN
+
+    payload: dict = {
+        "role": "hub",
+        "build": __version__,
+        "proto_min": PROTO_MIN,
+        "proto_max": PROTO_MAX,
+        "publisher": None,
+        "wal_quarantined": wal.quarantine_counts(),
+        "wal_quarantine_events": wal.quarantine_events(),
+    }
+    if hub.delta is not None:
+        payload["ingest"] = hub.delta.skew_status()
+    for mode, sender in senders:
+        status_fn = getattr(sender, "skew_status", None)
+        if mode == "delta" and callable(status_fn):
+            payload["publisher"] = status_fn()
+    return payload
+
+
 def file_targets_provider(path: str, static: Sequence[str] = ()):
     """Targets provider with Prometheus file_sd semantics: the file is
     re-read on every call (a mounted-ConfigMap edit applies live), one
@@ -2779,32 +2806,6 @@ def main(argv: Sequence[str] | None = None) -> int:
         }
         return payload
 
-    def skew_payload() -> dict:
-        # /debug/skew for the hub: the receiver half (fleet
-        # version census + refused peers from the ingest) plus — on a
-        # federation leaf — the publisher half against the root, plus
-        # any persisted formats quarantined at startup. Same shape
-        # doctor --skew reads from daemons, with the hub extras.
-        from . import __version__, wal
-        from .delta import PROTO_MAX, PROTO_MIN
-
-        payload: dict = {
-            "role": "hub",
-            "build": __version__,
-            "proto_min": PROTO_MIN,
-            "proto_max": PROTO_MAX,
-            "publisher": None,
-            "wal_quarantined": wal.quarantine_counts(),
-            "wal_quarantine_events": wal.quarantine_events(),
-        }
-        if hub.delta is not None:
-            payload["ingest"] = hub.delta.skew_status()
-        for mode, sender in senders:
-            status_fn = getattr(sender, "skew_status", None)
-            if mode == "delta" and callable(status_fn):
-                payload["publisher"] = status_fn()
-        return payload
-
     def egress_stats() -> dict:
         # Spill-queue + durable remote-write status, same
         # shape as daemon._egress_stats — folded as kts_spill_*/
@@ -3010,7 +3011,7 @@ def main(argv: Sequence[str] | None = None) -> int:
         fleet_provider=hub.fleet,
         ingest_provider=hub.delta.handle if hub.delta is not None else None,
         egress_provider=egress_payload,
-        skew_provider=skew_payload,
+        skew_provider=lambda: skew_payload(hub, senders),
         stores_provider=stores_payload,
         cardinality_provider=cardinality_payload,
         history_provider=history_store,
@@ -3069,9 +3070,10 @@ def main(argv: Sequence[str] | None = None) -> int:
                 restart=getattr(sender, "respawn", sender.start)
                 if has_heartbeat else sender.start,
                 heartbeat_timeout=60.0 if has_heartbeat else 0.0)
-        supervisor.register(
-            "render-warmer", is_alive=server.warm_thread_alive,
-            restart=server.respawn_warm)
+        if server.prewarm_enabled:
+            supervisor.register(
+                "render-warmer", is_alive=server.warm_thread_alive,
+                restart=server.respawn_warm)
         supervisor.start()
         public_port = pool.port if pool is not None else server.port
         if args.targets_dns:

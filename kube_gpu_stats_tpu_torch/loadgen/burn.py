@@ -219,7 +219,7 @@ def run_burn(seconds: float = 10.0, size: int = 2048,
              report_every: float = 1.0, kernel: str = "torch",
              step_hook=None, depth: int = 16,
              result: dict | None = None,
-             pulse_ms: float = 0.0, device=None) -> int:
+             pulse_ms: float = 0.0, device=None, batch: int = 32) -> int:
     """Drive ALL local cards for `seconds`; returns steps executed.
     kernel: "torch" (the bf16 torch.matmul chain on every local card) or
     "cuda" (the hand-written tiled GEMM on the same blocks; ``depth``
@@ -235,7 +235,11 @@ def run_burn(seconds: float = 10.0, size: int = 2048,
     ``pulse_ms`` > 0 duty-cycles the burn: burn hard for ``pulse_ms``
     milliseconds, idle for the same, repeating — power transients that
     rise and collapse between 1 Hz poll ticks. Throughput figures then
-    describe the burning half only in spirit."""
+    describe the burning half only in spirit.
+    ``batch``: the steps queued between waits; the cards keep one to two
+    batches of work queued while the host comes back."""
+    if batch < 1:
+        raise ValueError(f"batch must be at least 1, not {batch}")
     if kernel == "cuda":
         from .tiled_burn import tiled_all_device_burn
 
@@ -305,7 +309,7 @@ def run_burn(seconds: float = 10.0, size: int = 2048,
         # FLOPs. Wait for the batch before the one just queued, not for
         # everything: the cards keep a batch of work while the host comes
         # back and queues the next, so a late host does not idle them.
-        if inflight >= 32:
+        if inflight >= batch:
             inflight = 0
             if boundary is not None:
                 events, done = boundary

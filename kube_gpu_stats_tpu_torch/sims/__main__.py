@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import argparse
 import importlib
+import json
 import logging
 import sys
 
@@ -27,15 +28,20 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     logging.basicConfig(level=args.log_level.upper())
     names = SIMS if args.sim == "all" else (args.sim,)
-    failed = []
+    results = {}
     for name in names:
         sim_args = args if args.sim == name else \
             sub.choices[name].parse_args([])
-        if not modules[name].main(sim_args).ok:
-            failed.append(name)
+        results[name] = modules[name].main(sim_args)
+    failed = [name for name, result in results.items() if not result.ok]
     if args.sim == "all":
         print(f"sims: {len(names) - len(failed)} of {len(names)} passed"
               + (f"; failed: {', '.join(failed)}" if failed else ""))
+    print(json.dumps({
+        "sims": {name: {"ok": r.ok, "figures": r.figures,
+                        "timings": r.timings}
+                 for name, r in results.items()},
+        "torch_loaded": "torch" in sys.modules}, default=repr), flush=True)
     return 1 if failed else 0
 
 

@@ -109,6 +109,9 @@ class EgressSink:
         self._pushes: list[tuple[str, bytes]] = []
         # status code -> count of delta POSTs answered with it
         self.delta_status: dict[int, int] = {}
+        # Seconds each remote-write request is held before its answer:
+        # a slow receiver.
+        self.write_delay = 0.0
         self._httpd: http.server.ThreadingHTTPServer | None = None
         self._thread: threading.Thread | None = None
 
@@ -260,6 +263,8 @@ class EgressSink:
 
     def handle_write(self, body: bytes, content_type: str
                      ) -> tuple[int, bytes]:
+        if self.write_delay:
+            time.sleep(self.write_delay)
         try:
             raw = snappy.decompress(body)
             if V2_CONTENT_TYPE in content_type:

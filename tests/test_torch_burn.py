@@ -119,6 +119,40 @@ def test_run_burn_waits_for_the_batch_before_the_last(n_cards, monkeypatch):
     assert hook.steps == steps
 
 
+def test_run_burn_batch_sets_the_steps_between_waits(monkeypatch):
+    """``batch`` steps are queued between waits: each boundary waits for
+    the one before it and the hook hears of ``batch`` steps a call."""
+    marks, waits = [], []
+
+    class Event:
+        def __init__(self, index):
+            self.index = index
+
+        def synchronize(self):
+            waits.append(self.index)
+
+    def mark(devices):
+        marks.append(len(marks))
+        return [Event(marks[-1])]
+
+    def stand_in(size, depth, device):
+        blocks = [torch.zeros(1)]
+        return (lambda x, w: x), blocks, blocks, 1, 1.0
+
+    monkeypatch.setattr(burn, "mark", mark)
+    monkeypatch.setattr(burn, "make_all_device_burn", stand_in)
+    sizes = []
+    steps = burn.run_burn(seconds=0.05, size=128, report_every=1e9,
+                          step_hook=lambda n, **_: sizes.append(n),
+                          device="cpu", batch=128)
+    assert len(marks) == steps // 128 >= 2
+    assert waits == marks[:-1]
+    assert sizes[:-1] == [128] * (len(marks) - 1)
+    assert sum(sizes) == steps
+    with pytest.raises(ValueError, match="batch"):
+        burn.run_burn(seconds=0.01, size=128, device="cpu", batch=0)
+
+
 @pytest.mark.parametrize("jax_kernel,kernel", [("xla", "torch"),
                                                ("pallas", "cuda")])
 def test_run_burn_result_keys_match_jax(jax_kernel, kernel):

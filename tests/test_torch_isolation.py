@@ -259,28 +259,40 @@ EXTENSION = "kube_gpu_stats_tpu_torch.native._wirefast"
 
 
 # The sims' modules and the card's fault wrapper alone, then a daemon
-# sim (energy: an NVML daemon over the fake, restarted, the doctor) and a
-# hub sim (chaos's hostile frames: a hub, its ingest, lorises, a
-# quarantine), and the fault wrapper over the fake.
+# sim (energy: an NVML daemon over the fake, restarted, the doctor), hub
+# sims (chaos's hostile frames: a hub, its ingest, lorises, a quarantine;
+# skew's stuck peer: a gated hub, an NVML daemon's publisher, the doctor;
+# partition's bounded spool; a small label bomb), and the fault wrapper
+# over the fake.
 _RUN_SIMS = """
-import json, logging, sys
+import json, logging, sys, tempfile
 import kube_gpu_stats_tpu_torch.sims
+import kube_gpu_stats_tpu_torch.sims.cardinality
 import kube_gpu_stats_tpu_torch.sims.chaos
 import kube_gpu_stats_tpu_torch.sims.energy
 import kube_gpu_stats_tpu_torch.sims.federation
 import kube_gpu_stats_tpu_torch.sims.fleet
 import kube_gpu_stats_tpu_torch.sims.host
 import kube_gpu_stats_tpu_torch.sims.localfault
+import kube_gpu_stats_tpu_torch.sims.partition
+import kube_gpu_stats_tpu_torch.sims.query
+import kube_gpu_stats_tpu_torch.sims.skew
 import kube_gpu_stats_tpu_torch.testing.nvml_faults
 alone = sorted(sys.modules)
 logging.disable(logging.CRITICAL)
-from kube_gpu_stats_tpu_torch.sims import chaos, energy
+from kube_gpu_stats_tpu_torch.sims import (cardinality, chaos, energy,
+                                           partition, skew)
 from kube_gpu_stats_tpu_torch.testing.fake_nvml import FakeDevice, FakeNvml
 from kube_gpu_stats_tpu_torch.testing.nvml_faults import NvmlFaults
 wrapped = NvmlFaults(FakeNvml([FakeDevice("GPU-a", 0)]))
 wrapped.init()
-ok = [energy.run().ok, chaos.scenario_hostile().ok,
-      wrapped.uuid(wrapped.handle(0)) == "GPU-a"]
+cardinality.BOMB_SERIES = 600  # a small bomb
+with tempfile.TemporaryDirectory() as tmp:
+    ok = [energy.run().ok, chaos.scenario_hostile().ok,
+          skew.scenario_stuck_skew_and_doctor(tmp).ok,
+          partition.scenario_beyond_bounds(tmp).ok,
+          cardinality.run().ok,
+          wrapped.uuid(wrapped.handle(0)) == "GPU-a"]
 print(json.dumps({"ok": ok, "alone": alone, "loaded": sorted(sys.modules)}))
 """
 
@@ -294,7 +306,7 @@ def test_the_sims_and_the_fault_wrapper_import_no_torch():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert report["ok"] == [True, True, True]
+    assert report["ok"] == [True] * 6
     assert _no_torch(report["alone"]) == []
     assert _no_torch(report["loaded"]) == []
 

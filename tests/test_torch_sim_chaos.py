@@ -26,6 +26,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tools"))
 import chaos_sim  # noqa: E402  (the reference's scenarios)
 
+pytestmark = pytest.mark.chaos
+
 SESSIONS = 64
 # The reference's checks that pin host speed: a shed that only a host
 # fast enough to outrun the lanes' refill sees (the port holds the

@@ -19,11 +19,15 @@ import pathlib
 import re
 import sys
 
+import pytest
+
 from kube_gpu_stats_tpu_torch.sims import energy
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tools"))
 import energy_sim  # noqa: E402  (the reference's scenario)
+
+pytestmark = pytest.mark.chaos
 
 
 def test_energy_as_the_reference():

@@ -20,11 +20,15 @@ import pathlib
 import re
 import sys
 
+import pytest
+
 from kube_gpu_stats_tpu_torch.sims import federation
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tools"))
 import federation_sim  # noqa: E402  (the reference's scenario)
+
+pytestmark = pytest.mark.chaos
 
 
 def test_federation_as_the_reference():

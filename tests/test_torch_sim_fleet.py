@@ -29,11 +29,15 @@ import pathlib
 import re
 import sys
 
+import pytest
+
 from kube_gpu_stats_tpu_torch.sims import fleet
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tools"))
 import fleet_sim  # noqa: E402  (the reference's scenarios)
+
+pytestmark = pytest.mark.chaos
 
 
 def _reference(fn, *args) -> str | None:

@@ -20,11 +20,15 @@ import pathlib
 import re
 import sys
 
+import pytest
+
 from kube_gpu_stats_tpu_torch.sims import host
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tools"))
 import host_sim  # noqa: E402  (the reference's scenario)
+
+pytestmark = pytest.mark.chaos
 
 
 def test_host_correlation_as_the_reference():

@@ -31,6 +31,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tools"))
 import localfault_sim  # noqa: E402  (the reference's scenario)
 
+pytestmark = pytest.mark.chaos
+
 
 # The sampler thread dies to its injected fault on purpose.
 @pytest.mark.filterwarnings(
