@@ -6,11 +6,9 @@ Run from the repository root on a machine with one H100:
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py egress:3 hub:2`` instead builds the kernel and
-runs only the named phases (``native``, ``doctor``, ``c5``, ``burst``,
-``energy``, ``egress``, ``hub``, ``fleet``, ``faults``, ``bench``,
-``sims``), each
-the given
-number of times, and
+runs only the named phases (``daemon``, ``native``, ``doctor``, ``c5``,
+``burst``, ``energy``, ``egress``, ``hub``, ``fleet``, ``faults``,
+``bench``, ``sims``, ``operator``), each the given number of times, and
 prints one ``phases_alone`` line with each run's outcome: the way to
 measure how often a phase's check fails.
 
@@ -274,6 +272,23 @@ prints its result line after one):
    rate beside its cap, the hub upgrade's resumed sessions and the skew
    publishers' FULLs forced by a change of the daemon's series keys
    (reported, not required);
+8k. ``operator``: the operator surface, under its own SIGALRM limit of
+   OPERATOR_LIMIT_S, with nothing on the card: the project's wheel built
+   from this checkout (``pip wheel --no-deps --no-build-isolation``) with
+   the port's sources and no built library in it, installed with
+   ``--no-index --no-deps`` into a ``--system-site-packages`` venv in a
+   temp dir, as the reference's ``make ci`` does; the venv's
+   ``kube-tpu-stats-h100 --backend nvml`` on a free port with the host
+   fast paths on (the default), its ``/metrics`` serving as many cards as
+   ``nvidia-smi -L`` lists, all up, and ``/healthz``; the venv's doctor
+   with its ``native`` row OK on the venv's library; the venv's hub over
+   the daemon for OPERATOR_HUB_REFRESHES refreshes; every family the
+   port's alert rules, recording rules and board name served by the
+   daemon or the hub, or listed in ``deploy/assets.CONDITIONAL`` (none
+   missing); ``helm template`` of the chart where ``helm`` exists, else
+   ``helm: absent``. The ``operator`` line gives the wheel's build
+   seconds, the served families, how many the assets name and how many
+   of those were served, conditional or missing, and the card;
 9. time the kernel, its plain version and one library call
    (``torch.mm`` with f32 out) at the main path's and the sweep's sizes,
    each as the median of batches of back-to-back calls;
@@ -304,6 +319,7 @@ import os
 import pathlib
 import queue
 import re
+import shutil
 import signal
 import socket
 import ssl
@@ -316,12 +332,14 @@ import threading
 import time
 import urllib.error
 import urllib.request
+import zipfile
 
 import torch
 
 from kube_gpu_stats_tpu_torch import (_build, config, daemon, delta, doctor,
                                       embedded, history, ingestproc, schema,
                                       validate, wal)
+from kube_gpu_stats_tpu_torch.deploy import assets
 from kube_gpu_stats_tpu_torch.kinds import _kind_lookup, _kind_peak_flops
 from kube_gpu_stats_tpu_torch.entry import dryrun_multichip, entry
 from kube_gpu_stats_tpu_torch.loadgen import tiled_burn
@@ -377,6 +395,15 @@ DAEMON_SCRAPE_START_S = 3.0
 DAEMON_SCRAPE_GAP_S = 1.5
 DAEMON_SCRAPES = 3
 DUTY_MIN = 90.0
+# The burn keeps DAEMON_BATCH to twice that many steps queued (27-54 ms of
+# work at 4096^3), the phase takes the interpreter's lock in
+# DAEMON_SWITCH_S turns, not 5 ms, and it freezes what the earlier phases
+# left on the heap, so no full collection walks it mid-burn: the scraper
+# thread parses each body in this process, and with 32 steps (about 6 ms)
+# queued a late burn thread left the card idle for a third of NVML's
+# sample window (the fleet phase guards its burn the same way).
+DAEMON_BATCH = 128
+DAEMON_SWITCH_S = 0.001
 POWER_TOL = 0.15
 ENERGY_TOL = 0.15
 NVML_CALLS = 200
@@ -500,6 +527,12 @@ HUB_PROCS = 2
 HUB_LIVE3_S = 8.0
 HUB_PROBES = 40
 HUB_RESPAWN_S = 20.0
+# This process holds the burn, the embedded exporter the hub pulls, the
+# daemon's watcher and 63 publisher threads: the phase takes the
+# interpreter's lock in HUB_SWITCH_S turns, not 5 ms, and freezes what
+# the earlier phases left on the heap, as the fleet phase does, so a
+# waiting server or watcher thread gets its turn within a refresh.
+HUB_SWITCH_S = 0.001
 # The faults phase: the NVML daemon in a process of its own over
 # testing.nvml_faults at FAULTS_INTERVAL_S under the cuda burn on card 0;
 # its soak flaps card 0 every FAULTS_FLAP_S for FAULTS_SOAK_S under
@@ -522,6 +555,14 @@ FAULTS_IDLE_S = 30.0
 SIMS_PHASE = ("partition", "skew", "query", "cardinality")
 SIMS_MAX_S = 300.0
 SIMS_SOFT_S = 120.0
+# The operator surface: the wheel built from this checkout into a venv,
+# its console script's daemon and hub, every family the rule files and
+# the board name held to their live bodies, all within one SIGALRM limit.
+OPERATOR_LIMIT_S = 120
+OPERATOR_SCRIPT = "kube-tpu-stats-h100"
+OPERATOR_DAEMON_INTERVAL_S = 0.5
+OPERATOR_HUB_REFRESHES = 3
+OPERATOR_STEP_S = 30.0
 # The figures each sim's scenarios fix, as the CPU tests hold them equal
 # to the reference's (tests/test_torch_sim_<name>.py).
 SIMS_EXACT = {
@@ -1270,18 +1311,14 @@ def smi(fields: str) -> list[list[str]]:
             for line in out.strip().splitlines()]
 
 
-def start_daemon(textfile_dir: str, extra: tuple = ()
+def start_logged(cmd: list[str], pattern: str, what: str, *,
+                 cwd: pathlib.Path = ROOT, env: dict | None = None,
+                 limit_s: float = CLI_START_S
                  ) -> tuple[subprocess.Popen, int, list]:
-    """The DaemonSet entry point on the card; returns it, the port its
-    log names, and its log lines (read on until it exits). ``extra``
-    flags follow the phase's own (a repeated flag's last value wins)."""
-    # faulthandler: a native abort leaves its Python stacks in the log.
-    cmd = [sys.executable, "-X", "faulthandler", "-m",
-           "kube_gpu_stats_tpu_torch", "--backend",
-           "nvml", "--listen-port", "0", "--interval",
-           str(DAEMON_INTERVAL_S), "--attribution", "off",
-           "--textfile-dir", textfile_dir, *extra]
-    proc = subprocess.Popen(cmd, cwd=ROOT, stderr=subprocess.PIPE,
+    """``cmd`` with its stderr read on a thread until it exits; returns
+    it, the port the first log line matching ``pattern`` names, and its
+    log lines."""
+    proc = subprocess.Popen(cmd, cwd=cwd, env=env, stderr=subprocess.PIPE,
                             stdout=subprocess.DEVNULL, text=True)
     lines: queue.Queue = queue.Queue()
     log: list[str] = []
@@ -1293,19 +1330,32 @@ def start_daemon(textfile_dir: str, extra: tuple = ()
         lines.put(None)
 
     threading.Thread(target=read, daemon=True).start()
-    deadline = time.monotonic() + CLI_START_S
+    deadline = time.monotonic() + limit_s
     try:
         while True:
             line = lines.get(timeout=max(0.0, deadline - time.monotonic()))
-            require(line is not None,
-                    f"the daemon exited before serving: {log}")
-            match = re.search(r"listening on \S+:(\d+)", line)
+            require(line is not None, f"{what} exited before serving: {log}")
+            match = re.search(pattern, line)
             if match:
                 return proc, int(match.group(1)), log
     except BaseException:
         proc.kill()
         proc.wait(timeout=30)
         raise
+
+
+def start_daemon(textfile_dir: str, extra: tuple = ()
+                 ) -> tuple[subprocess.Popen, int, list]:
+    """The DaemonSet entry point on the card; returns it, the port its
+    log names, and its log lines (read on until it exits). ``extra``
+    flags follow the phase's own (a repeated flag's last value wins)."""
+    # faulthandler: a native abort leaves its Python stacks in the log.
+    cmd = [sys.executable, "-X", "faulthandler", "-m",
+           "kube_gpu_stats_tpu_torch", "--backend",
+           "nvml", "--listen-port", "0", "--interval",
+           str(DAEMON_INTERVAL_S), "--attribution", "off",
+           "--textfile-dir", textfile_dir, *extra]
+    return start_logged(cmd, r"listening on \S+:(\d+)", "the daemon")
 
 
 def poll_count(series) -> float:
@@ -1653,15 +1703,23 @@ def phase_daemon(card_line: str, embedded_paths: dict) -> int:
                 failure.append(exc)
 
         tiled_burn.launches = 0
-        thread = threading.Thread(target=scraper, args=(time.monotonic(),),
-                                  daemon=True)
-        thread.start()
-        result: dict = {}
-        steps = run_burn(seconds=DAEMON_BURN_S, size=MAIN_SIZE,
-                         report_every=1e9, kernel="cuda", result=result,
-                         device="cuda:0")
-        launches = tiled_burn.launches
-        thread.join(timeout=30)
+        saved_switch = sys.getswitchinterval()
+        gc.collect()
+        gc.freeze()
+        sys.setswitchinterval(DAEMON_SWITCH_S)
+        try:
+            thread = threading.Thread(target=scraper,
+                                      args=(time.monotonic(),), daemon=True)
+            thread.start()
+            result: dict = {}
+            steps = run_burn(seconds=DAEMON_BURN_S, size=MAIN_SIZE,
+                             report_every=1e9, kernel="cuda", result=result,
+                             device="cuda:0", batch=DAEMON_BATCH)
+            launches = tiled_burn.launches
+            thread.join(timeout=30)
+        finally:
+            sys.setswitchinterval(saved_switch)
+            gc.unfreeze()
         require(not failure, f"scraping failed: {failure}")
         require(len(seen) == DAEMON_SCRAPES,
                 f"{len(seen)} scrapes in the burn")
@@ -3318,30 +3376,7 @@ def start_hub(args: list[str], port: int = 0
     cmd = [sys.executable, "-X", "faulthandler", "-m",
            "kube_gpu_stats_tpu_torch", "hub", "--listen-host", "127.0.0.1",
            "--listen-port", str(port), *args]
-    proc = subprocess.Popen(cmd, cwd=ROOT, stderr=subprocess.PIPE,
-                            stdout=subprocess.DEVNULL, text=True)
-    lines: queue.Queue = queue.Queue()
-    log: list[str] = []
-
-    def read() -> None:
-        for line in proc.stderr:
-            log.append(line.rstrip("\n"))
-            lines.put(line)
-        lines.put(None)
-
-    threading.Thread(target=read, daemon=True).start()
-    deadline = time.monotonic() + CLI_START_S
-    try:
-        while True:
-            line = lines.get(timeout=max(0.0, deadline - time.monotonic()))
-            require(line is not None, f"the hub exited before serving: {log}")
-            match = re.search(r"hub serving .* on \S+:(\d+)", line)
-            if match:
-                return proc, int(match.group(1)), log
-    except BaseException:
-        proc.kill()
-        proc.wait(timeout=30)
-        raise
+    return start_logged(cmd, r"hub serving .* on \S+:(\d+)", "the hub")
 
 
 def stop_with_stacks(proc: subprocess.Popen, log: list
@@ -3529,6 +3564,22 @@ class SyntheticFleet:
         for publisher in self.publishers.values():
             publisher.stop()
         require(not self.failure, f"the synthetic fleet: {self.failure}")
+
+    def states(self, sources: list[str]) -> dict:
+        """Diagnostics only: the push state of each synthetic node among
+        ``sources`` (the hub's other targets are skipped)."""
+        now = time.monotonic()
+        out = {}
+        for n, p in self.publishers.items():
+            if self.source(n) in sources:
+                out[f"node-{n:02d}"] = {
+                    "pushes": p.pushes_total, "failures": p.failures_total,
+                    "consecutive_failures": p.consecutive_failures,
+                    "resyncs": p.resyncs_total,
+                    "sheds_honored": p.shed_honored_total,
+                    "shed_left_s": round(max(0.0, p._shed_until - now), 3),
+                    "thread_alive": p.thread_alive()}
+        return out
 
     def frames(self) -> dict:
         full = sum(p._encoder.full_frames for p in self.publishers.values())
@@ -3722,9 +3773,9 @@ def check_hub_view(view: dict, matched: dict, fleet: SyntheticFleet,
     require(set(targets) == want_targets and len(targets) == HUB_NODES + 1,
             f"hub: {len(targets)} targets, missing "
             f"{sorted(want_targets - set(targets))[:5]}")
-    require(all(v == 1.0 for v in view["up"].values()),
-            f"hub: targets down "
-            f"{[t for t, v in view['up'].items() if v != 1]}")
+    down = [t for t, v in view["up"].items() if v != 1]
+    require(not down, f"hub: targets down {down}; their publishers "
+                      f"{fleet.states(down)}")
     require(one(schema.HUB_TARGETS.name) == HUB_NODES + 1,
             f"hub: slice_targets {one(schema.HUB_TARGETS.name)}")
     require(one(schema.DELTA_PUSH_TARGETS.name) == HUB_NODES,
@@ -4552,6 +4603,10 @@ def phase_hub(card_line: str, c5_tick_ms: dict,
     steps_log: list = []
     recorders: dict[str, HubRecorder] = {}
     fleet_stopped = False
+    saved_switch = sys.getswitchinterval()
+    gc.collect()
+    gc.freeze()
+    sys.setswitchinterval(HUB_SWITCH_S)
     try:
         # The recorder reads the hub from before it binds, so it sees its
         # first generation.
@@ -4989,6 +5044,8 @@ def phase_hub(card_line: str, c5_tick_ms: dict,
         if hub_proc is not None and hub_proc.poll() is None:
             stop_with_stacks(hub_proc, hub_log)
         exporter.stop()
+        sys.setswitchinterval(saved_switch)
+        gc.unfreeze()
         for key, value in saved_env.items():
             if value is None:
                 os.environ.pop(key, None)
@@ -7188,6 +7245,198 @@ def phase_sims(card_line: str) -> int:
     return 0
 
 
+def _operator_alarm(signum, frame) -> None:
+    raise TimeoutError(f"operator: over its {OPERATOR_LIMIT_S} s limit")
+
+
+def run_step(cmd: list, cwd: pathlib.Path, env: dict, what: str
+             ) -> subprocess.CompletedProcess:
+    proc = subprocess.run([str(part) for part in cmd], cwd=cwd, env=env,
+                          capture_output=True, text=True,
+                          timeout=OPERATOR_STEP_S)
+    require(proc.returncode == 0, f"{what}: exit {proc.returncode}: "
+                                  f"{proc.stdout[-1500:]} "
+                                  f"{proc.stderr[-1500:]}")
+    return proc
+
+
+def exposition_families(text: str) -> set[str]:
+    return {line.split()[2] for line in text.splitlines()
+            if line.startswith("# TYPE ")}
+
+
+def phase_operator(card_line: str) -> int:
+    """The operator surface on the card's host, under its own SIGALRM
+    limit of OPERATOR_LIMIT_S: the project's wheel built from this
+    checkout and installed into a venv, as the reference's ``make ci``
+    does; the venv's console script serving the NVML daemon (host fast
+    paths on) and the hub over it; every family the port's alert rules,
+    recording rules and board name served by one of them or listed in
+    ``deploy/assets.CONDITIONAL``; ``helm template`` of the chart where
+    ``helm`` exists. Launches no kernel."""
+    t0 = time.monotonic()
+    previous = signal.signal(signal.SIGALRM, _operator_alarm)
+    signal.alarm(OPERATOR_LIMIT_S)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="kts-operator-"))
+    procs: list[subprocess.Popen] = []
+    try:
+        out = _operator(card_line, tmp, procs)
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, previous)
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"]["phase"] = time.monotonic() - t0
+    out["smoke_seconds"] = time.monotonic() - STARTED
+    emit("operator", out)
+    return 0
+
+
+def _operator(card_line: str, tmp: pathlib.Path,
+              procs: list[subprocess.Popen]) -> dict:
+    # Nothing of the checkout on the path: what runs is the wheel's.
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONFAULTHANDLER"] = "1"
+    seconds: dict[str, float] = {}
+    src = tmp / "src"
+    src.mkdir()
+    for name in ("pyproject.toml", "README.md"):
+        shutil.copy(ROOT / name, src / name)
+    for package in ("kube_gpu_stats_tpu", "kube_gpu_stats_tpu_torch"):
+        shutil.copytree(ROOT / package, src / package,
+                        ignore=shutil.ignore_patterns("__pycache__"))
+    tree_libraries = sorted(str(p.relative_to(src))
+                            for p in src.rglob("*.so"))
+    start = time.monotonic()
+    run_step([sys.executable, "-m", "pip", "wheel", "--no-deps",
+              "--no-build-isolation", "--no-index", "-w", tmp / "dist",
+              "."], src, env, "pip wheel")
+    seconds["wheel_build"] = time.monotonic() - start
+    (wheel,) = (tmp / "dist").glob("*.whl")
+    with zipfile.ZipFile(wheel) as archive:
+        names = archive.namelist()
+        entry_points = next(archive.read(n).decode() for n in names
+                            if n.endswith(".dist-info/entry_points.txt"))
+    for shipped in ("kube_gpu_stats_tpu_torch/native/wirefast.cc",
+                    "kube_gpu_stats_tpu_torch/csrc/tiled_gemm.cu"):
+        require(shipped in names, f"the wheel lacks {shipped}")
+    wheel_libraries = [n for n in names if n.endswith(".so")]
+    require(not wheel_libraries,
+            f"the wheel carries built libraries: {wheel_libraries}")
+    require(f"{OPERATOR_SCRIPT} = kube_gpu_stats_tpu_torch.cli:main"
+            in entry_points, f"entry points: {entry_points}")
+    venv = tmp / "venv"
+    start = time.monotonic()
+    run_step([sys.executable, "-m", "venv", "--system-site-packages", venv],
+             tmp, env, "venv")
+    run_step([venv / "bin" / "pip", "install", "--no-index", "--no-deps",
+              wheel], tmp, env, "pip install")
+    seconds["venv_install"] = time.monotonic() - start
+    package = run_step(
+        [venv / "bin" / "python", "-I", "-c",
+         "import kube_gpu_stats_tpu_torch as m; print(m.__file__)"],
+        tmp, env, "import from the venv").stdout.strip()
+    require(pathlib.Path(package).is_relative_to(venv),
+            f"the venv resolved another copy: {package}")
+    script = venv / "bin" / OPERATOR_SCRIPT
+    require(script.is_file(), f"no console script {script}")
+
+    start = time.monotonic()
+    port = free_port()
+    daemon, bound, dlog = start_logged(
+        [str(script), "--backend", "nvml", "--listen-host", "127.0.0.1",
+         "--listen-port", str(port), "--interval",
+         str(OPERATOR_DAEMON_INTERVAL_S), "--attribution", "off"],
+        r"listening on \S+:(\d+)", "the daemon", cwd=tmp, env=env,
+        limit_s=OPERATOR_STEP_S)
+    procs.append(daemon)
+    require(bound == port, f"the daemon bound {bound}, asked {port}")
+    first, series = fresh_scrape(port, 0)
+    seconds["daemon_first_scrape"] = time.monotonic() - start
+    smi_cards = len(subprocess.run(
+        ["nvidia-smi", "-L"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines())
+    up = per_card(series, schema.DEVICE_UP.name)
+    require(len(up) == smi_cards and set(up.values()) == {1.0},
+            f"served cards {up}, nvidia-smi -L {smi_cards}")
+    require(one(series, schema.SELF_DEVICES.name) == smi_cards,
+            "collector_devices != nvidia-smi -L")
+    require(scrape(port, "/healthz").startswith("ok\n"), "daemon /healthz")
+    doctor = run_step(
+        [script, "doctor", "--backend", "nvml", "--attribution", "off",
+         "--json", "--url", f"http://127.0.0.1:{port}/metrics"],
+        tmp, env, "doctor")
+    rows = {row["name"]: row for row in json.loads(doctor.stdout)["checks"]}
+    library = rows["native"].get("data", {}).get("library", "")
+    require(rows["native"]["status"] == "ok" and
+            pathlib.Path(library).is_relative_to(venv),
+            f"the doctor's native row: {rows['native']}")
+
+    targets = tmp / "targets.txt"
+    targets.write_text(f"http://127.0.0.1:{port}/metrics\n")
+    start = time.monotonic()
+    hub, hub_port, hlog = start_logged(
+        [str(script), "hub", "--listen-host", "127.0.0.1", "--listen-port",
+         str(free_port()), "--interval", "1", "--targets-file",
+         str(targets), "--expect-workers", "1", "--ingest-checkpoint",
+         str(tmp / "ingest.ckpt")],
+        r"hub serving .* on \S+:(\d+)", "the hub", cwd=tmp, env=env,
+        limit_s=OPERATOR_STEP_S)
+    procs.append(hub)
+    refreshes = schema.HUB_REFRESH_DURATION.name + "_count"
+    while True:
+        hub_body = scrape(hub_port)
+        hub_series = validate.parse_exposition(hub_body)
+        done = sum(v for f, _, v in hub_series if f == refreshes)
+        if done >= OPERATOR_HUB_REFRESHES:
+            break
+        require(hub.poll() is None, f"the hub exited: {hlog[-40:]}")
+        time.sleep(0.2)
+    seconds["hub_refreshes"] = time.monotonic() - start
+    target_up = [v for f, _, v in hub_series
+                 if f == schema.HUB_TARGET_UP.name]
+    require(target_up == [1.0], f"slice_target_up {target_up}")
+    second = scrape(port)  # after scrapes: the render families too
+
+    served = (exposition_families(first) | exposition_families(second)
+              | exposition_families(hub_body))
+    named = set().union(*assets.named_families().values())
+    conditional = sorted((named - served) & set(assets.CONDITIONAL))
+    missing = sorted(named - served - set(assets.CONDITIONAL))
+    require(not missing, f"families the assets name that neither the "
+                         f"daemon nor the hub served: {missing}")
+
+    helm = shutil.which("helm")
+    if helm:
+        chart = ROOT / "kube_gpu_stats_tpu_torch/deploy/helm/kube-tpu-stats-h100"
+        for extra in ([], ["--set", "hub.enabled=true"]):
+            run_step([helm, "template", "kts", chart, *extra], tmp, env,
+                     "helm template")
+        helm_result = "rendered"
+    else:
+        print("helm: absent", flush=True)
+        helm_result = "absent"
+    for proc, log, what in ((hub, hlog, "hub"), (daemon, dlog, "daemon")):
+        rc, _ = stop_with_stacks(proc, log)
+        require(rc == 0, f"the {what} exited {rc}: {log[-40:]}")
+    return {"card": card_line, "seconds": seconds,
+            "wheel": wheel.name, "wheel_files": len(names),
+            "wheel_libraries": len(wheel_libraries),
+            "tree_libraries": tree_libraries, "package": package,
+            "native_library": library, "cards": smi_cards,
+            "served_families": len(served),
+            "daemon_families": len(exposition_families(second)),
+            "hub_families": len(exposition_families(hub_body)),
+            "named_families": len(named),
+            "named_served": len(named & served),
+            "named_conditional": len(conditional),
+            "named_missing": len(missing),
+            "conditional": conditional, "helm": helm_result}
+
+
 def library_call():
     """The yardstick: one PyTorch call computing the same function. Returns
     (name, fn(a, b))."""
@@ -7331,6 +7580,7 @@ def phases() -> None:
     launches += phase_faults(card)
     launches += phase_bench(card)
     launches += phase_sims(card)
+    launches += phase_operator(card)
     t = phase_timing(card)
     emit("kernels", [{
         "name": KERNEL_NAME, "route": "cuda", "source": KERNEL_SOURCE,
@@ -7342,6 +7592,7 @@ def phases() -> None:
 
 
 ALONE = {
+    "daemon": lambda card: phase_daemon(card, {}),
     "native": phase_native,
     "doctor": phase_doctor,
     "c5": phase_c5,
@@ -7353,6 +7604,7 @@ ALONE = {
     "faults": phase_faults,
     "bench": phase_bench,
     "sims": phase_sims,
+    "operator": phase_operator,
 }
 
 

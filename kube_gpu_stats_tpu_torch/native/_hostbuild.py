@@ -8,7 +8,8 @@ another Python) never runs a stale build. A file lock keeps concurrent first
 uses from compiling over each other; a build that is already there loads
 without the lock, so a read-only install (the DaemonSet image, which ships
 the library from its build stage) never writes. A failed build raises with
-g++'s output. Nothing falls back.
+g++'s output, and a build directory this user cannot write raises naming
+the prebuild step below. Nothing falls back.
 
 This module imports no torch: the daemon and hub load it.
 
@@ -82,8 +83,16 @@ def build() -> Path:
     lib = library_path()
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "build.lock", "w") as lock:
+    try:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        lock = open(BUILD_DIR / "build.lock", "w")
+    except OSError as exc:
+        raise BuildError(
+            f"cannot write the build directory {BUILD_DIR} ({exc}): the "
+            "installed package is read-only to this user. Build the "
+            "library ahead, as a user who can write there: python -m "
+            "kube_gpu_stats_tpu_torch.native._hostbuild") from exc
+    with lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not lib.exists():
             _compile(lib)

@@ -80,6 +80,15 @@ def _imported_modules(path: pathlib.Path) -> list[str]:
     return names
 
 
+def test_the_walk_covers_the_tools_and_the_deploy_builders():
+    """The static check reads the package's tools and the deploy assets'
+    Python (the tables and the dashboard builder), not only its modules."""
+    walked = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
+    assert {"tools/check_supervised_threads.py", "tools/check_wal_versions.py",
+            "tools/profile_tick.py", "tools/trace_dump.py",
+            "deploy/assets.py", "deploy/grafana/build_dashboard.py"} <= walked
+
+
 @pytest.mark.parametrize("path", SOURCES,
                          ids=[str(p.relative_to(ROOT)) for p in SOURCES])
 def test_no_import_statement_names_jax_or_the_reference(path):
